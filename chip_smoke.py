@@ -21,9 +21,11 @@ Phases:
    (10 workers, d = 500, 1 epoch of 64 steps), ``merge(..., "alir_pca")``
    and ``evaluate_all``. The kernel launch counts are reset just before and
    read just after training; K2 and K1 must each have launched once per
-   step.
-5. ``time`` — each kernel and its plain version timed with CUDA events at
-   the main path's shapes, beside the least time the card could take.
+   step, and every sub-model's W must have left its init.
+5. ``time`` — at the main path's shapes (n = 10, V = 89,611, its noise
+   table), each kernel held against its plain version (K1 ids bitwise,
+   K2 ids bitwise and W′, C′ and loss within tolerance), then both timed
+   with CUDA events, beside the least time the card could take.
 6. ``profile`` — the main path's training again under ``torch.profiler``:
    device time per step by kernel and the device's idle share of the
    training loop (summary printed; ``chiprun_out/profile_main*.json``).
@@ -43,6 +45,7 @@ import math
 import subprocess
 import sys
 import time
+from dataclasses import replace
 from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
@@ -112,23 +115,27 @@ def phase_build() -> dict:
     return report
 
 
-def phase_k1(device, V=300_000, shape=(1024, 5), n=4) -> dict:
+def _check_k1(tag, seeds, table, shape) -> float:
+    """K1 against its plain version on the same inputs: bitwise."""
     import torch
     from repro_torch.kernels.sgns_fused import sample_negatives, sample_negatives_plain
 
-    table = zipf_alias_table(V, n, device)
-    seeds = seeds_for(n, 0, device)
     ids = sample_negatives(seeds, table["prob"], table["alias"], shape)
     ref = sample_negatives_plain(seeds, table["prob"], table["alias"], shape)
-    if device.type == "cuda":
-        torch.cuda.synchronize(device)
+    torch.cuda.synchronize(ids.device)
     mismatches = int((ids != ref).sum())
-    log(f"[k1] V={V} ids {tuple(ids.shape)}: {mismatches} mismatches against the "
-        f"plain version; ids span [{int(ids.min())}, {int(ids.max())}]")
+    log(f"[{tag}] K1 V={table['prob'].shape[-1]} ids {tuple(ids.shape)}: {mismatches} "
+        f"mismatches against the plain version; ids span "
+        f"[{int(ids.min())}, {int(ids.max())}]")
     if mismatches:
         raise RuntimeError(f"K1 is not bitwise equal to its plain version "
                            f"({mismatches} ids differ)")
-    return {"max_abs_err": 0.0}
+    return 0.0
+
+
+def phase_k1(device, V=300_000, shape=(1024, 5), n=4) -> dict:
+    table = zipf_alias_table(V, n, device)
+    return {"max_abs_err": _check_k1("k1", seeds_for(n, 0, device), table, shape)}
 
 
 def _k2_inputs(device, V, d, B, n, seed=0):
@@ -147,37 +154,41 @@ def _k2_inputs(device, V, d, B, n, seed=0):
     return W, C, centers, contexts, table, seeds_for(n, 3, device)
 
 
-def phase_k2(device, V=300_000, d=500, B=1024, n=4, K=5, lr=0.025) -> dict:
+def _check_k2(tag, W, C, centers, contexts, table, seeds, lr, K,
+              repeat=False) -> float:
+    """One K2 step against one plain step from clones of the same inputs:
+    ids bitwise equal, W′/C′/loss within tolerance, C updated; with
+    ``repeat``, a second K2 run must be bitwise identical to the first."""
     import torch
     from repro_torch.kernels.sgns_fused import sgns_fused_step, sgns_fused_step_plain
 
-    W, C, centers, contexts, table, seeds = _k2_inputs(device, V, d, B, n)
-    log(f"[k2] n={n} V={V} d={d} B={B} K={K}: tables "
-        f"{2 * W.numel() * 4 / 1e9:.1f} GB (+ copies for the plain and "
-        f"repeat runs)")
     runs = []
-    for _ in range(2):
+    for _ in range(2 if repeat else 1):
         p = {"W": W.clone(), "C": C.clone()}
-        p, loss, ids = sgns_fused_step(p, centers, contexts, table, seeds, lr,
-                                       negatives=K)
-        runs.append((p, loss, ids))
+        runs.append(sgns_fused_step(p, centers, contexts, table, seeds, lr,
+                                    negatives=K))
     plain = {"W": W.clone(), "C": C.clone()}
     plain, loss_p, ids_p = sgns_fused_step_plain(plain, centers, contexts, table,
                                                  seeds, lr, negatives=K)
-    if device.type == "cuda":
-        torch.cuda.synchronize(device)
-    (p1, l1, i1), (p2, l2, i2) = runs
+    torch.cuda.synchronize(W.device)
+    p1, l1, i1 = runs[0]
     id_mismatch = int((i1 != ids_p).sum())
     err_w = float((p1["W"] - plain["W"]).abs().max())
     err_c = float((p1["C"] - plain["C"]).abs().max())
     err_l = float((l1 - loss_p).abs().max())
     moved = float((p1["C"] - C).abs().max())
-    same = (torch.equal(p1["W"], p2["W"]) and torch.equal(p1["C"], p2["C"])
-            and torch.equal(l1, l2) and torch.equal(i1, i2))
-    log(f"[k2] ids: {id_mismatch} mismatches; max |ΔW′| {err_w:.3e}, "
-        f"max |ΔC′| {err_c:.3e} (tol {K2_TABLE_ATOL:g}; largest C update "
-        f"{moved:.3e}); max |Δloss| {err_l:.3e} (tol {K2_LOSS_ATOL:g}); "
-        f"repeat run bitwise identical: {same}")
+    n, V, d = W.shape
+    msg = (f"[{tag}] K2 n={n} V={V} d={d} B={centers.shape[1]} K={K}: ids "
+           f"{id_mismatch} mismatches; max |ΔW′| {err_w:.3e}, max |ΔC′| {err_c:.3e} "
+           f"(tol {K2_TABLE_ATOL:g}; largest C update {moved:.3e}); max |Δloss| "
+           f"{err_l:.3e} (tol {K2_LOSS_ATOL:g})")
+    same = True
+    if repeat:
+        p2, l2, i2 = runs[1]
+        same = (torch.equal(p1["W"], p2["W"]) and torch.equal(p1["C"], p2["C"])
+                and torch.equal(l1, l2) and torch.equal(i1, i2))
+        msg += f"; repeat run bitwise identical: {same}"
+    log(msg)
     if id_mismatch:
         raise RuntimeError("K2's negatives differ from the plain version's")
     if err_w > K2_TABLE_ATOL or err_c > K2_TABLE_ATOL or err_l > K2_LOSS_ATOL:
@@ -186,7 +197,15 @@ def phase_k2(device, V=300_000, d=500, B=1024, n=4, K=5, lr=0.025) -> dict:
         raise RuntimeError("two K2 runs from the same inputs differ")
     if not math.isfinite(moved) or moved == 0.0:
         raise RuntimeError("K2 left the C table unchanged")
-    return {"max_abs_err": max(err_w, err_c, err_l)}
+    return max(err_w, err_c, err_l)
+
+
+def phase_k2(device, V=300_000, d=500, B=1024, n=4, K=5, lr=0.025) -> dict:
+    W, C, centers, contexts, table, seeds = _k2_inputs(device, V, d, B, n)
+    log(f"[k2] tables {2 * W.numel() * 4 / 1e9:.1f} GB (+ copies for the plain "
+        f"and repeat runs)")
+    return {"max_abs_err": _check_k2("k2", W, C, centers, contexts, table, seeds,
+                                     lr, K, repeat=True)}
 
 
 def phase_main(device, num_workers=10, dim=500, steps=64, steps_per_chunk=32):
@@ -194,7 +213,8 @@ def phase_main(device, num_workers=10, dim=500, steps=64, steps_per_chunk=32):
     import torch
     from repro_torch.core.driver import train_submodels
     from repro_torch.core.merge import merge
-    from repro_torch.core.sgns import SGNSConfig
+    from repro_torch import prng
+    from repro_torch.core.sgns import SGNSConfig, init_params
     from repro_torch.data.corpus import SemanticCorpusModel
     from repro_torch.eval.benchmarks import BenchmarkSuite, evaluate_all
     from repro_torch.kernels import sgns_fused
@@ -220,12 +240,12 @@ def phase_main(device, num_workers=10, dim=500, steps=64, steps_per_chunk=32):
     V = res.union_vocab.size
     taken = res.timings["steps_per_epoch"]
     log(f"[main] trained {num_workers} x {V} x {dim} sub-models: {taken} steps, "
-        f"init {res.timings['init_s']:.2f} s, train {res.timings['train_s']:.3f} s "
+        f"vocab {res.timings['vocab_s']:.2f} s, init {res.timings['init_s']:.2f} s, train {res.timings['train_s']:.3f} s "
         f"({res.timings['chunk_wait_s']:.3f} s blocked on chunks), setup+init+train "
         f"{wall:.1f} s")
     for k, cl in enumerate(res.chunk_losses):
         log(f"[main]   chunk {k} mean loss per worker: "
-            + " ".join(f"{x:.4f}" for x in cl.mean(axis=1)))
+            + " ".join(f"{x:.7f}" for x in cl.mean(axis=1)))
     log(f"[main] launches during training: {launches}")
     if launches["sgns_fused_step"] != taken or launches["sample_negatives"] != taken:
         raise RuntimeError(f"expected {taken} launches of each kernel, got {launches}")
@@ -239,6 +259,15 @@ def phase_main(device, num_workers=10, dim=500, steps=64, steps_per_chunk=32):
         raise RuntimeError(f"first-step loss {first} != (K+1)·log 2 = {plateau}")
     if not torch.isfinite(res.stacked.models).all():
         raise RuntimeError("non-finite sub-model tables")
+    # dW is a sum of C rows and C starts at zero, so W leaves its init only
+    # if K2's updates of C landed (and then W's).
+    keys = prng.split(prng.PRNGKey(cfg.seed), num_workers)
+    cfg_v = replace(cfg, vocab_size=V)
+    moved = [float((res.stacked.models[i] - init_params(k, cfg_v, device=device)["W"])
+                   .abs().max()) for i, k in enumerate(keys)]
+    log("[main] max |W - W_init| per worker: " + " ".join(f"{m:.3e}" for m in moved))
+    if not all(math.isfinite(m) and m > 0.0 for m in moved):
+        raise RuntimeError("a sub-model's W never left its init: C was not updated")
 
     t0 = time.perf_counter()
     emb, valid = merge(res.stacked, "alir_pca", out_dim=dim, device=device)
@@ -277,9 +306,11 @@ def _time_ms(fn, device, reps: int, warmup: int = 3) -> float:
 
 
 def phase_time(device, main: dict) -> dict:
-    """Times at the main path's shapes: its noise table (the shuffle
-    vocabulary's unigram^0.75 alias table, shared by all workers), ids
-    drawn from its unigram distribution, random tables."""
+    """Checks, then times, each kernel and its plain version at the main
+    path's shapes: its noise table (the shuffle vocabulary's unigram^0.75
+    alias table, shared by all workers), ids drawn from its unigram
+    distribution, random tables. The checks run first, on clones, since
+    the timing loops update the tables in place."""
     import numpy as np
     import torch
     from repro_torch.data.pairs import build_noise_table
@@ -301,6 +332,8 @@ def phase_time(device, main: dict) -> dict:
     C = 0.1 * torch.randn((n, V, d), generator=gen, device=device)
 
     out = {}
+    k1_err = _check_k1("time", seeds, table, (B, K))
+    k2_err = _check_k2("time", W, C, centers, contexts, table, seeds, lr, K)
     # K1 at the step's draw shape (n, B, K)
     draws = n * B * K
     k1 = _time_ms(lambda: sample_negatives(seeds, table["prob"], table["alias"],
@@ -311,6 +344,7 @@ def phase_time(device, main: dict) -> dict:
     k1_bytes = draws * (4 + 4 + 4) + n * 8          # prob+alias read, id written
     k1_flops = draws * 2                            # u·V and the compare
     out["sample_negatives"] = _bound(k1, k1p, k1_bytes, k1_flops)
+    out["sample_negatives"]["max_abs_err"] = k1_err
 
     # K2: the whole step (K1 draw, planning sorts, both phases)
     pk = {"W": W.clone(), "C": C.clone()}
@@ -333,6 +367,7 @@ def phase_time(device, main: dict) -> dict:
     # dots 2d(K+1), dW 2d(K+1), dC d(K+1), apply 2d(K+1) C + 2d W, per pair
     k2_flops = n * B * d * (7 * (K + 1) + 2)
     out["sgns_fused_step"] = _bound(k2, k2p, k2_bytes, k2_flops)
+    out["sgns_fused_step"]["max_abs_err"] = k2_err
     out["sgns_fused_step"]["touched_rows"] = {"W": uniq_w, "C": uniq_c,
                                               "gathered": n * B * (K + 2)}
     for name, r in out.items():
@@ -469,13 +504,14 @@ def main(argv=None) -> int:
 
     if {"k1", "k2", "main", "time"} <= set(phases):
         kernels = []
-        for name, check in (("sample_negatives", "k1"), ("sgns_fused_step", "k2")):
+        for name in ("sample_negatives", "sgns_fused_step"):
             t = results["time"][name]
             kernels.append({
                 "name": name, "route": "cuda", "source": SOURCES[name],
                 "replaces": REPLACES[name],
                 "launches": results["main"]["launches"][name],
-                "max_abs_err": results[check]["max_abs_err"],
+                # against the plain version at the main path's shapes
+                "max_abs_err": t["max_abs_err"],
                 "ms": t["ms"], "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
                 "bound_by": t["bound_by"],
                 # no single PyTorch call computes either function

@@ -22,7 +22,7 @@ package, for tests and benchmark rows.
 
 from __future__ import annotations
 
-from dataclasses import dataclass, replace
+from dataclasses import dataclass
 
 from repro_torch.core import sgns
 from repro_torch.core.sgns import SGNSConfig
@@ -30,20 +30,12 @@ from repro_torch.core.sgns import SGNSConfig
 
 @dataclass(frozen=True)
 class UpdateEngine:
-    """Base engine: negative draw + step construction."""
+    """Base engine: step construction for one noise-table layout."""
 
-    sampler: str = "alias"
     name = "base"
-
-    @property
-    def table_kind(self) -> str:
-        """Noise-table layout this engine's steps consume ("cdf" |
-        "alias") — pass to ``build_noise_table(kind=...)``."""
-        return self.sampler
-
-    def sample(self, table, seeds, shape: tuple[int, ...]):
-        """Draw ``(n, *shape)`` negative ids outside a step."""
-        raise NotImplementedError
+    #: Noise-table layout this engine's steps consume — pass to
+    #: ``build_noise_table(kind=...)``.
+    table_kind = "alias"
 
     def make_step(self, cfg: SGNSConfig, total_steps: int):
         """Returns ``step(params, centers, contexts, neg_table, seeds,
@@ -54,28 +46,15 @@ class UpdateEngine:
         """Check dials that only make sense against a model shape."""
 
     def describe(self) -> str:
-        return f"{self.name}:{self.sampler}"
+        return f"{self.name}:{self.table_kind}"
 
 
 @dataclass(frozen=True)
 class FusedEngine(UpdateEngine):
     """One kernel call per step for all workers: in-kernel alias
-    negative sampling + forward + row grads + apply. Alias tables only."""
+    negative sampling + forward + row grads + apply."""
 
-    sampler: str = "alias"
     name = "fused"
-
-    def __post_init__(self):
-        if self.sampler != "alias":
-            raise ValueError(
-                f"{self.name} samples in-kernel from alias tables; "
-                f"sampler {self.sampler!r} is not supported")
-
-    def sample(self, table, seeds, shape):
-        """The ids an in-kernel step with these seeds draws (K1)."""
-        from repro_torch.kernels.sgns_fused import sample_negatives
-
-        return sample_negatives(seeds, table["prob"], table["alias"], shape)
 
     def make_step(self, cfg: SGNSConfig, total_steps: int):
         from repro_torch.kernels.sgns_fused import sgns_fused_step
@@ -99,17 +78,11 @@ ENGINE_NAMES = tuple(ENGINES)
 REFERENCE_ENGINE = {"fused": "pallas_fused"}
 
 
-def get_engine(spec: str | UpdateEngine = "fused", **overrides) -> UpdateEngine:
-    """Resolve an engine spec: an instance (returned as-is, or with
-    field overrides applied) or a ``"name"`` / ``"name:sampler"``
-    string."""
+def get_engine(spec: str | UpdateEngine = "fused") -> UpdateEngine:
+    """Resolve an engine spec: an instance (returned as-is) or a name."""
     if isinstance(spec, UpdateEngine):
-        return replace(spec, **overrides) if overrides else spec
-    name, _, sampler = str(spec).partition(":")
-    if name not in ENGINES:
+        return spec
+    if spec not in ENGINES:
         raise ValueError(
-            f"unknown update engine {name!r}; expected one of "
-            f"{sorted(ENGINES)} (optionally 'name:sampler')")
-    if sampler:
-        overrides.setdefault("sampler", sampler)
-    return ENGINES[name](**overrides)
+            f"unknown update engine {spec!r}; expected one of {sorted(ENGINES)}")
+    return ENGINES[spec]()

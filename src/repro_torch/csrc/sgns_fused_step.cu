@@ -1,6 +1,7 @@
-// K2: one whole SGNS step for n workers — gathers, log-sigmoid forward,
-// the three row gradients and the accumulating apply — with every gradient
-// taken from the pre-step tables.
+// K2: one whole SGNS step for n workers — gathers, the forward in the
+// softplus form max(x, 0) + log1p(exp(-|x|)) of the TPU kernel, the three
+// row gradients and the accumulating apply — with every gradient taken from
+// the pre-step tables.
 //
 // Replaces: repro/kernels/sgns_fused.py `_sgns_fused_kernel` (reached
 // through `sgns_fused_step`). The TPU kernel holds both (V, d) tables in

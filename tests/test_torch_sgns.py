@@ -88,11 +88,11 @@ def test_engine_registry():
     eng = get_engine("fused")
     assert isinstance(eng, FusedEngine) and isinstance(eng, UpdateEngine)
     assert eng.table_kind == "alias" and eng.describe() == "fused:alias"
-    assert get_engine(eng) is eng and get_engine("fused:alias") == eng
+    assert get_engine(eng) is eng and get_engine("fused") == eng
     assert REFERENCE_ENGINE == {"fused": "pallas_fused"}
     from repro.core.engine import ENGINES as J_ENGINES
     assert set(REFERENCE_ENGINE.values()) <= set(J_ENGINES)
-    with pytest.raises(ValueError, match="alias"):
+    with pytest.raises(ValueError, match="unknown update engine"):
         get_engine("fused:cdf")
     with pytest.raises(ValueError, match="unknown update engine"):
         get_engine("sparse")
