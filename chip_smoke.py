@@ -3,6 +3,7 @@
 
     python3 chip_smoke.py                      # every phase, one GPU
     python3 chip_smoke.py --phases build,k1,k2
+    python3 chip_smoke.py --phases build,random,hbm
 
 Phases:
 
@@ -22,13 +23,30 @@ Phases:
    and ``evaluate_all``. The kernel launch counts are reset just before and
    read just after training; K2 and K1 must each have launched once per
    step, and every sub-model's W must have left its init.
-5. ``time`` — at the main path's shapes (n = 10, V = 89,611, its noise
-   table), each kernel held against its plain version (K1 ids bitwise,
-   K2 ids bitwise and W′, C′ and loss within tolerance), then both timed
-   with CUDA events, beside the least time the card could take.
-6. ``profile`` — the main path's training again under ``torch.profiler``:
-   device time per step by kernel and the device's idle share of the
-   training loop (summary printed; ``chiprun_out/profile_main*.json``).
+5. ``random`` — the same configuration divided by the ``random`` strategy
+   (rate 1/10: every worker its own vocabulary and noise table, trained in
+   the union index space) on the ``rowgrad`` engine (the ``jax.random``
+   CDF draw, torch gathers, K3 ``sgns_row_grads``, ``index_add_``): 64
+   steps, then ``merge(..., "alir_pca")``, the missing rows reconstructed,
+   and ``evaluate_all``. K3 must have launched once per step, every W left
+   its init, the merged table must be finite and cover exactly the union
+   presence mask.
+6. ``hbm`` — the main configuration on the ``fused_hbm`` engine (K4a,
+   ``block_pairs=256``: four blocks a step) for 64 steps, then
+   ``sequential=True`` (K4b) for 8 steps; K4 and K1 once per step each,
+   and W moved.
+7. ``time`` — each kernel held against its plain version at its path's
+   shapes, then it and its plain version timed with CUDA events beside the
+   least time the card could take: K1 (ids bitwise) and K2 (ids bitwise,
+   W′, C′ and loss within tolerance, repeat bitwise) at the main path's
+   shapes (n = 10, V = 89,611, its noise table); K3 on n·B = 10,240 pairs
+   gathered from random tables; K4a (ids bitwise, W′, C′ and loss within
+   K2's tolerance, repeat bitwise; and with ``block_pairs >= B`` against
+   K2) and K4b (against its plain per-pair loop) at the main path's shapes.
+8. ``profile`` — the main path's and the ``random``/``rowgrad`` path's
+   training again under ``torch.profiler``: device time per step by kernel
+   (gathers and scatter apart) and the device's idle share of the training
+   loop (summary printed; ``chiprun_out/profile_{main,random}*.json``).
 
 It prints a ``{"kernels": [...]}`` JSON line, then the card's name and power
 limit as ``nvidia-smi`` reports them, then ``{"ok": true, ...}`` last. Any
@@ -62,16 +80,34 @@ PEAK_FP32_FLOP_PER_S = 67e12
 # hundreds of addends stays under these bounds.
 K2_TABLE_ATOL = 1e-5
 K2_LOSS_ATOL = 1e-4
+# K3 against its plain version: per-pair outputs, no accumulation; the two
+# sum the K + 1 dot products in different orders, so outputs of O(0.1) and
+# losses of O(1) differ by a few ulps. K2's bounds, with room to spare.
+K3_GRAD_ATOL = 1e-5
+K3_LOSS_ATOL = 1e-4
+# K4 against its plain version: K2's tolerances (the plain version's CUDA
+# index_add_ accumulates duplicate rows with atomics; K4b's plain loop is
+# a chain of batch-1 steps, reduced in another order than the kernel's).
 
-PHASES = ("build", "k1", "k2", "main", "time", "profile")
+PHASES = ("build", "k1", "k2", "main", "random", "hbm", "time", "profile")
 REPLACES = {
     "sample_negatives": "src/repro/kernels/sgns_fused.py:197",
     "sgns_fused_step": "src/repro/kernels/sgns_fused.py:105",
+    "sgns_row_grads": "src/repro/kernels/sgns_update.py:52",
+    "sgns_fused_hbm_step": "src/repro/kernels/sgns_fused_hbm.py:128",
+    "sgns_fused_hbm_step_sequential": "src/repro/kernels/sgns_fused_hbm.py:185",
 }
 SOURCES = {
     "sample_negatives": "src/repro_torch/csrc/sample_negatives.cu",
     "sgns_fused_step": "src/repro_torch/csrc/sgns_fused_step.cu",
+    "sgns_row_grads": "src/repro_torch/csrc/sgns_row_grads.cu",
+    "sgns_fused_hbm_step": "src/repro_torch/csrc/sgns_fused_hbm.cu",
+    "sgns_fused_hbm_step_sequential": "src/repro_torch/csrc/sgns_fused_hbm.cu",
 }
+# The main path's configuration (examples/train_w2v_100m.py, cut to 64 steps).
+VOCAB = 100_000
+NUM_WORKERS, DIM, BATCH, STEPS, STEPS_PER_CHUNK = 10, 500, 1024, 64, 32
+_WORLD: dict = {}
 
 
 def log(msg: str) -> None:
@@ -154,22 +190,21 @@ def _k2_inputs(device, V, d, B, n, seed=0):
     return W, C, centers, contexts, table, seeds_for(n, 3, device)
 
 
-def _check_k2(tag, W, C, centers, contexts, table, seeds, lr, K,
-              repeat=False) -> float:
-    """One K2 step against one plain step from clones of the same inputs:
-    ids bitwise equal, W′/C′/loss within tolerance, C updated; with
-    ``repeat``, a second K2 run must be bitwise identical to the first."""
+def _check_step(tag, label, step, plain_step, W, C, centers, contexts, table,
+                seeds, lr, K, repeat=False, **kw) -> float:
+    """One kernel step (``step``: K2's or K4's wrapper) against one plain
+    step from clones of the same inputs: ids bitwise equal, W′/C′/loss
+    within K2's tolerances, C updated; with ``repeat``, a second kernel run
+    must be bitwise identical to the first."""
     import torch
-    from repro_torch.kernels.sgns_fused import sgns_fused_step, sgns_fused_step_plain
 
     runs = []
     for _ in range(2 if repeat else 1):
         p = {"W": W.clone(), "C": C.clone()}
-        runs.append(sgns_fused_step(p, centers, contexts, table, seeds, lr,
-                                    negatives=K))
+        runs.append(step(p, centers, contexts, table, seeds, lr, negatives=K, **kw))
     plain = {"W": W.clone(), "C": C.clone()}
-    plain, loss_p, ids_p = sgns_fused_step_plain(plain, centers, contexts, table,
-                                                 seeds, lr, negatives=K)
+    plain, loss_p, ids_p = plain_step(plain, centers, contexts, table, seeds, lr,
+                                      negatives=K, **kw)
     torch.cuda.synchronize(W.device)
     p1, l1, i1 = runs[0]
     id_mismatch = int((i1 != ids_p).sum())
@@ -178,7 +213,7 @@ def _check_k2(tag, W, C, centers, contexts, table, seeds, lr, K,
     err_l = float((l1 - loss_p).abs().max())
     moved = float((p1["C"] - C).abs().max())
     n, V, d = W.shape
-    msg = (f"[{tag}] K2 n={n} V={V} d={d} B={centers.shape[1]} K={K}: ids "
+    msg = (f"[{tag}] {label} n={n} V={V} d={d} B={centers.shape[1]} K={K}: ids "
            f"{id_mismatch} mismatches; max |ΔW′| {err_w:.3e}, max |ΔC′| {err_c:.3e} "
            f"(tol {K2_TABLE_ATOL:g}; largest C update {moved:.3e}); max |Δloss| "
            f"{err_l:.3e} (tol {K2_LOSS_ATOL:g})")
@@ -189,103 +224,189 @@ def _check_k2(tag, W, C, centers, contexts, table, seeds, lr, K,
                 and torch.equal(l1, l2) and torch.equal(i1, i2))
         msg += f"; repeat run bitwise identical: {same}"
     log(msg)
+    del runs, plain
     if id_mismatch:
-        raise RuntimeError("K2's negatives differ from the plain version's")
+        raise RuntimeError(f"{label}'s negatives differ from the plain version's")
     if err_w > K2_TABLE_ATOL or err_c > K2_TABLE_ATOL or err_l > K2_LOSS_ATOL:
-        raise RuntimeError("K2 disagrees with its plain version beyond tolerance")
+        raise RuntimeError(f"{label} disagrees with its plain version beyond tolerance")
     if not same:
-        raise RuntimeError("two K2 runs from the same inputs differ")
+        raise RuntimeError(f"two {label} runs from the same inputs differ")
     if not math.isfinite(moved) or moved == 0.0:
-        raise RuntimeError("K2 left the C table unchanged")
+        raise RuntimeError(f"{label} left the C table unchanged")
     return max(err_w, err_c, err_l)
 
 
 def phase_k2(device, V=300_000, d=500, B=1024, n=4, K=5, lr=0.025) -> dict:
+    from repro_torch.kernels.sgns_fused import sgns_fused_step, sgns_fused_step_plain
+
     W, C, centers, contexts, table, seeds = _k2_inputs(device, V, d, B, n)
     log(f"[k2] tables {2 * W.numel() * 4 / 1e9:.1f} GB (+ copies for the plain "
         f"and repeat runs)")
-    return {"max_abs_err": _check_k2("k2", W, C, centers, contexts, table, seeds,
-                                     lr, K, repeat=True)}
+    return {"max_abs_err": _check_step("k2", "K2", sgns_fused_step, sgns_fused_step_plain,
+                                       W, C, centers, contexts, table, seeds, lr, K,
+                                       repeat=True)}
 
 
-def phase_main(device, num_workers=10, dim=500, steps=64, steps_per_chunk=32):
+def world():
+    """The main path's synthetic corpus and benchmark suite, made once."""
+    if not _WORLD:
+        from repro_torch.data.corpus import SemanticCorpusModel
+        from repro_torch.eval.benchmarks import BenchmarkSuite
+
+        t0 = time.perf_counter()
+        gen = SemanticCorpusModel.create(vocab_size=VOCAB, num_topics=64, seed=0)
+        corpus = gen.generate(num_sentences=120_000, seed=1)
+        _WORLD.update(corpus=corpus,
+                      suite=BenchmarkSuite.from_model(gen, top_words=min(20_000, VOCAB)))
+        log(f"[world] corpus: {corpus.num_sentences} sentences, {corpus.num_tokens} "
+            f"tokens ({time.perf_counter() - t0:.1f} s)")
+    return _WORLD["corpus"], _WORLD["suite"]
+
+
+def train_kw(strategy: str, engine) -> dict:
+    """``train_submodels`` arguments of the main configuration."""
+    from repro_torch.core.sgns import SGNSConfig
+
+    cfg = SGNSConfig(vocab_size=0, dim=DIM, window=5, negatives=5)
+    return dict(strategy=strategy, num_workers=NUM_WORKERS, cfg=cfg, epochs=1,
+                batch_size=BATCH, window=5, max_vocab=VOCAB, base_min_count=10,
+                max_steps_per_epoch=STEPS, steps_per_chunk=STEPS_PER_CHUNK,
+                engine=engine)
+
+
+def _train(tag: str, device, kw: dict, kernels: tuple, steps: int | None = None):
+    """``train_submodels`` with every launch count set to 0 just before and
+    read just after. Each kernel in ``kernels`` must have launched once per
+    step; losses finite, the first step's exactly (K + 1)·log 2 (C starts
+    at zero), the tables finite, and every worker's W moved from its init
+    (dW is a sum of C rows, so W moves only if the C updates landed)."""
     import numpy as np
     import torch
-    from repro_torch.core.driver import train_submodels
-    from repro_torch.core.merge import merge
     from repro_torch import prng
-    from repro_torch.core.sgns import SGNSConfig, init_params
-    from repro_torch.data.corpus import SemanticCorpusModel
-    from repro_torch.eval.benchmarks import BenchmarkSuite, evaluate_all
+    from repro_torch.core.driver import train_submodels
+    from repro_torch.core.sgns import init_params
     from repro_torch.kernels import sgns_fused
 
-    vocab = 100_000
-    t0 = time.perf_counter()
-    gen = SemanticCorpusModel.create(vocab_size=vocab, num_topics=64, seed=0)
-    corpus = gen.generate(num_sentences=120_000, seed=1)
-    suite = BenchmarkSuite.from_model(gen, top_words=min(20_000, vocab))
-    log(f"[main] corpus: {corpus.num_sentences} sentences, {corpus.num_tokens} "
-        f"tokens ({time.perf_counter() - t0:.1f} s)")
-
-    cfg = SGNSConfig(vocab_size=0, dim=dim, window=5, negatives=5)
-    train_kw = dict(strategy="shuffle", num_workers=num_workers, cfg=cfg, epochs=1,
-                    batch_size=1024, window=5, max_vocab=vocab, base_min_count=10,
-                    max_steps_per_epoch=steps, steps_per_chunk=steps_per_chunk,
-                    engine="fused")
+    corpus, _ = world()
+    if steps is not None:
+        kw = {**kw, "max_steps_per_epoch": steps, "steps_per_chunk": steps}
+    cfg = kw["cfg"]
     sgns_fused.reset_launch_counts()
     t0 = time.perf_counter()
-    res = train_submodels(corpus, vocab, device=device, **train_kw)
+    res = train_submodels(corpus, VOCAB, device=device, **kw)
     launches = dict(sgns_fused.LAUNCHES)
     wall = time.perf_counter() - t0
     V = res.union_vocab.size
     taken = res.timings["steps_per_epoch"]
-    log(f"[main] trained {num_workers} x {V} x {dim} sub-models: {taken} steps, "
-        f"vocab {res.timings['vocab_s']:.2f} s, init {res.timings['init_s']:.2f} s, train {res.timings['train_s']:.3f} s "
+    log(f"[{tag}] trained {NUM_WORKERS} x {V} x {DIM} sub-models ({kw['strategy']}, "
+        f"{kw['engine']}): {taken} steps, vocab {res.timings['vocab_s']:.2f} s, init "
+        f"{res.timings['init_s']:.2f} s, train {res.timings['train_s']:.3f} s "
         f"({res.timings['chunk_wait_s']:.3f} s blocked on chunks), setup+init+train "
         f"{wall:.1f} s")
     for k, cl in enumerate(res.chunk_losses):
-        log(f"[main]   chunk {k} mean loss per worker: "
+        log(f"[{tag}]   chunk {k} mean loss per worker: "
             + " ".join(f"{x:.7f}" for x in cl.mean(axis=1)))
-    log(f"[main] launches during training: {launches}")
-    if launches["sgns_fused_step"] != taken or launches["sample_negatives"] != taken:
-        raise RuntimeError(f"expected {taken} launches of each kernel, got {launches}")
+    log(f"[{tag}] launches during training: {launches}")
+    for name in kernels:
+        if launches[name] != taken:
+            raise RuntimeError(f"expected {taken} launches of {name}, got {launches}")
     if not all(np.isfinite(c).all() for c in res.chunk_losses):
         raise RuntimeError("non-finite training loss")
-    # C starts at zero, so every logit of the first step is 0 and its loss
-    # is exactly (K + 1)·log 2 per pair.
     first = res.chunk_losses[0][:, 0]
     plateau = (cfg.negatives + 1) * math.log(2.0)
     if np.abs(first - plateau).max() > 1e-5:
         raise RuntimeError(f"first-step loss {first} != (K+1)·log 2 = {plateau}")
     if not torch.isfinite(res.stacked.models).all():
         raise RuntimeError("non-finite sub-model tables")
-    # dW is a sum of C rows and C starts at zero, so W leaves its init only
-    # if K2's updates of C landed (and then W's).
-    keys = prng.split(prng.PRNGKey(cfg.seed), num_workers)
+    keys = prng.split(prng.PRNGKey(cfg.seed), NUM_WORKERS)
     cfg_v = replace(cfg, vocab_size=V)
     moved = [float((res.stacked.models[i] - init_params(k, cfg_v, device=device)["W"])
                    .abs().max()) for i, k in enumerate(keys)]
-    log("[main] max |W - W_init| per worker: " + " ".join(f"{m:.3e}" for m in moved))
+    log(f"[{tag}] max |W - W_init| per worker: " + " ".join(f"{m:.3e}" for m in moved))
     if not all(math.isfinite(m) and m > 0.0 for m in moved):
         raise RuntimeError("a sub-model's W never left its init: C was not updated")
+    return res, launches, taken
 
+
+def _merge_and_score(tag, res, device, full_cover: bool):
+    """ALiR-merge the sub-models, check the table, and score it."""
+    import numpy as np
+    import torch
+    from repro_torch.core.merge import merge
+    from repro_torch.eval.benchmarks import evaluate_all
+
+    _, suite = world()
+    V = res.union_vocab.size
     t0 = time.perf_counter()
-    emb, valid = merge(res.stacked, "alir_pca", out_dim=dim, device=device)
-    if device.type == "cuda":
-        torch.cuda.synchronize(device)
+    emb, valid = merge(res.stacked, "alir_pca", out_dim=DIM, device=device)
+    torch.cuda.synchronize(device)
     merge_s = time.perf_counter() - t0
     emb_np, valid_np = emb.cpu().numpy(), valid.cpu().numpy()
-    log(f"[main] ALiR merge of {num_workers} x ({V}, {dim}): {merge_s:.2f} s")
-    if emb_np.shape != (V, dim) or not np.isfinite(emb_np).all():
+    log(f"[{tag}] ALiR merge of {NUM_WORKERS} x ({V}, {DIM}): {merge_s:.2f} s")
+    if emb_np.shape != (V, DIM) or not np.isfinite(emb_np).all():
         raise RuntimeError(f"bad merged table: shape {emb_np.shape}")
-    if int(valid_np.sum()) != V:
+    union = res.stacked.mask.any(0).cpu().numpy()
+    if not np.array_equal(valid_np, union):
+        raise RuntimeError("the merged table's valid rows are not the union presence mask")
+    if full_cover and int(valid_np.sum()) != V:
         raise RuntimeError("shuffle's merged table must cover the whole vocabulary")
     scores = evaluate_all(emb_np, valid_np, res.union_vocab, suite)
-    log(f"[main] merged model: sim rho={scores['similarity']:.3f} "
+    log(f"[{tag}] merged model: sim rho={scores['similarity']:.3f} "
         f"analogy={scores['analogy']:.3f} purity={scores['categorization']:.3f}")
+    return emb, scores
+
+
+def phase_main(device):
+    kw = train_kw("shuffle", "fused")
+    res, launches, taken = _train("main", device, kw,
+                                  ("sgns_fused_step", "sample_negatives"))
+    _merge_and_score("main", res, device, full_cover=True)
     return {"launches": launches, "steps": taken, "counts": res.union_vocab.counts,
-            "V": V, "n": num_workers, "dim": dim, "B": 1024, "K": cfg.negatives,
-            "lr": cfg.lr, "corpus": corpus, "vocab": vocab, "train_kw": train_kw}
+            "V": res.union_vocab.size, "n": NUM_WORKERS, "dim": DIM, "B": BATCH,
+            "K": kw["cfg"].negatives, "lr": kw["cfg"].lr, "train_kw": kw}
+
+
+def phase_random(device):
+    """The ``random`` strategy on the ``rowgrad`` engine: per-worker
+    vocabularies and CDF noise tables on the card, K3 in every step, and
+    the merge rebuilding the rows each worker never saw."""
+    import torch
+    from repro_torch.core.merge import reconstruct_missing
+
+    kw = train_kw("random", "rowgrad")
+    res, launches, taken = _train("random", device, kw, ("sgns_row_grads",))
+    mask = res.stacked.mask
+    sizes = mask.sum(1).tolist()
+    V = res.union_vocab.size
+    log(f"[random] union vocabulary {V} rows; per-worker vocabularies {sizes}; "
+        f"{int((~mask).sum())} of {mask.numel()} worker rows missing")
+    if min(sizes) == V:
+        raise RuntimeError("every worker saw the whole union: nothing to reconstruct")
+    emb, _ = _merge_and_score("random", res, device, full_cover=False)
+    completed = reconstruct_missing(res.stacked, emb)
+    torch.cuda.synchronize(device)
+    if not torch.isfinite(completed).all():
+        raise RuntimeError("non-finite reconstructed rows")
+    if not torch.equal(completed[mask], res.stacked.models[mask]):
+        raise RuntimeError("reconstruct_missing changed a present row")
+    log(f"[random] reconstructed {int((~mask).sum())} missing rows; all finite")
+    return {"launches": launches, "steps": taken, "V": V, "mask": mask,
+            "counts": res.union_vocab.counts, "train_kw": kw}
+
+
+def phase_hbm(device, block_pairs=256, sequential_steps=8):
+    """The main configuration on ``fused_hbm``: K4a by blocks, then K4b."""
+    from repro_torch.core.engine import get_engine
+
+    kw = train_kw("shuffle", get_engine("fused_hbm", block_pairs=block_pairs))
+    _, launches, taken = _train("hbm", device, kw,
+                                ("sgns_fused_hbm_step", "sample_negatives"))
+    kw_seq = train_kw("shuffle", get_engine("fused_hbm", sequential=True))
+    _, launches_seq, taken_seq = _train("hbm-seq", device, kw_seq,
+                                        ("sgns_fused_hbm_step", "sample_negatives"),
+                                        steps=sequential_steps)
+    return {"launches": launches, "steps": taken, "launches_seq": launches_seq,
+            "steps_seq": taken_seq, "block_pairs": block_pairs}
 
 
 # ---------------------------------------------------------------------------
@@ -305,18 +426,28 @@ def _time_ms(fn, device, reps: int, warmup: int = 3) -> float:
     return start.elapsed_time(end) / reps
 
 
-def phase_time(device, main: dict) -> dict:
-    """Checks, then times, each kernel and its plain version at the main
-    path's shapes: its noise table (the shuffle vocabulary's unigram^0.75
-    alias table, shared by all workers), ids drawn from its unigram
-    distribution, random tables. The checks run first, on clones, since
-    the timing loops update the tables in place."""
+def _unique_rows(ids: "torch.Tensor") -> int:
+    """Distinct rows per worker of ``ids`` ``(n, ...)``, summed over workers."""
+    return sum(int(ids[w].unique().numel()) for w in range(ids.shape[0]))
+
+
+def phase_time(device, main: dict, rand: dict) -> dict:
+    """Checks, then times, each kernel and its plain version at its path's
+    shapes. K1, K2 and K4 at the main path's: its noise table (the shuffle
+    vocabulary's unigram^0.75 alias table, shared by all workers), ids
+    drawn from its unigram distribution, random tables. K3 at the
+    ``random`` path's: its union vocabulary, n·B pairs gathered from
+    random tables. The checks run first, on clones, since the timing loops
+    update the tables in place."""
     import numpy as np
     import torch
     from repro_torch.data.pairs import build_noise_table
     from repro_torch.kernels.sgns_fused import (
         sample_negatives, sample_negatives_plain, sgns_fused_step,
         sgns_fused_step_plain)
+    from repro_torch.kernels.sgns_fused_hbm import (
+        sgns_fused_hbm_step, sgns_fused_hbm_step_plain)
+    from repro_torch.kernels.sgns_update import sgns_row_grads, sgns_row_grads_plain
 
     n, V, d, B, K, lr = (main[k] for k in ("n", "V", "dim", "B", "K", "lr"))
     one = build_noise_table(main["counts"], kind="alias")
@@ -333,7 +464,8 @@ def phase_time(device, main: dict) -> dict:
 
     out = {}
     k1_err = _check_k1("time", seeds, table, (B, K))
-    k2_err = _check_k2("time", W, C, centers, contexts, table, seeds, lr, K)
+    k2_err = _check_step("time", "K2", sgns_fused_step, sgns_fused_step_plain, W, C,
+                         centers, contexts, table, seeds, lr, K)
     # K1 at the step's draw shape (n, B, K)
     draws = n * B * K
     k1 = _time_ms(lambda: sample_negatives(seeds, table["prob"], table["alias"],
@@ -357,9 +489,8 @@ def phase_time(device, main: dict) -> dict:
                    device, reps=10)
     del pp
     ids = sample_negatives(seeds, table["prob"], table["alias"], (B, K))
-    uniq_w = sum(int(torch.unique(centers[w]).numel()) for w in range(n))
-    uniq_c = sum(int(torch.unique(torch.cat([contexts[w], ids[w].reshape(-1)]))
-                     .numel()) for w in range(n))
+    uniq_w = _unique_rows(centers)
+    uniq_c = _unique_rows(torch.cat([contexts, ids.view(n, -1)], 1))
     row = d * 4
     k2_bytes = (2 * row * (uniq_w + uniq_c)        # touched rows read + written
                 + n * B * (4 + 4 + 4)              # centers, contexts, loss
@@ -370,32 +501,155 @@ def phase_time(device, main: dict) -> dict:
     out["sgns_fused_step"]["max_abs_err"] = k2_err
     out["sgns_fused_step"]["touched_rows"] = {"W": uniq_w, "C": uniq_c,
                                               "gathered": n * B * (K + 2)}
+
+    # K4a: the block chain, checked (ids bitwise, tolerance, repeat), then
+    # with one block against K2 on the same inputs, then timed.
+    blk = 256
+    hbm_kw = dict(block_pairs=blk)
+    k4_err = _check_step("time", "K4a", sgns_fused_hbm_step, sgns_fused_hbm_step_plain,
+                         W, C, centers, contexts, table, seeds, lr, K, repeat=True,
+                         **hbm_kw)
+    one, _, _ = sgns_fused_hbm_step({"W": W.clone(), "C": C.clone()}, centers, contexts,
+                                    table, seeds, lr, negatives=K, block_pairs=B)
+    k2p_, _, _ = sgns_fused_step({"W": W.clone(), "C": C.clone()}, centers, contexts,
+                                 table, seeds, lr, negatives=K)
+    torch.cuda.synchronize(device)
+    err_one = max(float((one[k] - k2p_[k]).abs().max()) for k in ("W", "C"))
+    bitwise_one = all(torch.equal(one[k], k2p_[k]) for k in ("W", "C"))
+    log(f"[time] K4a with block_pairs >= B against K2: max |Δtable| {err_one:.3e} "
+        f"(tol {K2_TABLE_ATOL:g}); bitwise equal: {bitwise_one}")
+    del one, k2p_
+    if err_one > K2_TABLE_ATOL:
+        raise RuntimeError("K4a with one block disagrees with K2 beyond tolerance")
+    pk = {"W": W.clone(), "C": C.clone()}
+    k4 = _time_ms(lambda: sgns_fused_hbm_step(pk, centers, contexts, table, seeds, lr,
+                                              negatives=K, **hbm_kw), device, reps=20)
+    del pk
+    pp = {"W": W.clone(), "C": C.clone()}
+    k4p = _time_ms(lambda: sgns_fused_hbm_step_plain(pp, centers, contexts, table, seeds,
+                                                     lr, negatives=K, **hbm_kw),
+                   device, reps=5, warmup=1)
+    del pp
+    # each block reads and writes its own distinct rows once
+    uniq_bw = sum(_unique_rows(centers[:, b0:b0 + blk]) for b0 in range(0, B, blk))
+    uniq_bc = sum(_unique_rows(torch.cat([contexts[:, b0:b0 + blk],
+                                          ids[:, b0:b0 + blk].reshape(n, -1)], 1))
+                  for b0 in range(0, B, blk))
+    k4_bytes = (2 * row * (uniq_bw + uniq_bc) + n * B * (4 + 4 + 4)
+                + n * B * K * 8 + n * 8)
+    out["sgns_fused_hbm_step"] = _bound(k4, k4p, k4_bytes, k2_flops)
+    out["sgns_fused_hbm_step"]["max_abs_err"] = k4_err
+    out["sgns_fused_hbm_step"]["touched_rows"] = {"W": uniq_bw, "C": uniq_bc,
+                                                  "blocks": -(-B // blk)}
+    out["sgns_fused_hbm_step"]["one_block_vs_k2"] = {"max_abs_err": err_one,
+                                                     "bitwise": bitwise_one}
+
+    # K4b: word2vec's per-pair order against its plain per-pair loop.
+    seq_kw = dict(sequential=True)
+    k4s_err = _check_step("time", "K4b", sgns_fused_hbm_step, sgns_fused_hbm_step_plain,
+                          W, C, centers, contexts, table, seeds, lr, K, **seq_kw)
+    pk = {"W": W.clone(), "C": C.clone()}
+    k4s = _time_ms(lambda: sgns_fused_hbm_step(pk, centers, contexts, table, seeds, lr,
+                                               negatives=K, **seq_kw), device, reps=5,
+                   warmup=1)
+    del pk
+    pp = {"W": W.clone(), "C": C.clone()}
+    k4sp = _time_ms(lambda: sgns_fused_hbm_step_plain(pp, centers, contexts, table, seeds,
+                                                      lr, negatives=K, **seq_kw),
+                    device, reps=1, warmup=1)
+    del pp
+    # the least work: each distinct row of the step read once, written once
+    out["sgns_fused_hbm_step_sequential"] = _bound(k4s, k4sp, k2_bytes, k2_flops)
+    out["sgns_fused_hbm_step_sequential"]["max_abs_err"] = k4s_err
+    del W, C
+    torch.cuda.empty_cache()
+
+    # K3 at the random path's shapes: n·B pairs gathered from random tables
+    # with ids from its union unigram distribution.
+    Vr = rand["V"]
+    Wr = 0.1 * torch.randn((n, Vr, d), generator=gen, device=device)
+    Cr = 0.1 * torch.randn((n, Vr, d), generator=gen, device=device)
+    uni_r = torch.tensor(rand["counts"], dtype=torch.float32, device=device)
+    draw = lambda m: torch.multinomial(uni_r, m, replacement=True, generator=gen)
+    off = (torch.arange(n, device=device) * Vr)[:, None]
+    cen_r = (draw(n * B).view(n, B) + off).reshape(-1)
+    ctx_r = (draw(n * B).view(n, B) + off).reshape(-1)
+    neg_r = (draw(n * B * K).view(n, B * K) + off).reshape(-1)
+    Wf, Cf = Wr.view(n * Vr, d), Cr.view(n * Vr, d)
+    w_rows, cp_rows, cn_rows = Wf[cen_r], Cf[ctx_r], Cf[neg_r].view(n * B, K, d)
+    del Wr, Cr, Wf, Cf
+    k3_err = _check_k3("time", w_rows, cp_rows, cn_rows)
+    k3 = _time_ms(lambda: sgns_row_grads(w_rows, cp_rows, cn_rows), device, reps=50)
+    k3p = _time_ms(lambda: sgns_row_grads_plain(w_rows, cp_rows, cn_rows), device,
+                   reps=10)
+    N = n * B
+    k3_bytes = 2 * N * (K + 2) * row + N * 4       # rows in, gradients out, loss
+    k3_flops = N * d * 5 * (K + 1)                 # dots 2d(K+1), dW 2d(K+1), dC d(K+1)
+    out["sgns_row_grads"] = _bound(k3, k3p, k3_bytes, k3_flops)
+    out["sgns_row_grads"]["max_abs_err"] = k3_err
+    del w_rows, cp_rows, cn_rows
+    torch.cuda.empty_cache()
+
     for name, r in out.items():
         log(f"[time] {name}: {r['ms']:.4f} ms (plain {r['plain_ms']:.4f} ms), "
             f"bound {r['bound_ms']:.5f} ms by {r['bound_by']} "
             f"({r['bytes']} B, {r['flops']} flop)")
     log(f"[time] K2 touched rows per step: {out['sgns_fused_step']['touched_rows']}")
-    del W, C
-    torch.cuda.empty_cache()
+    log(f"[time] K4a touched rows per step, summed over blocks: "
+        f"{out['sgns_fused_hbm_step']['touched_rows']}")
     return out
 
 
-def phase_profile(device, main: dict) -> None:
-    """The main path's training once more under torch.profiler: the
-    device's busy time inside the driver's ``repro_torch.train_loop``
-    span (the union of kernel and copy intervals), its idle share, and
-    device time per step by kernel."""
+def _check_k3(tag, w, c_pos, c_neg) -> float:
+    """K3 against its plain version on the same gathered rows."""
+    import torch
+    from repro_torch.kernels.sgns_update import sgns_row_grads, sgns_row_grads_plain
+
+    got = sgns_row_grads(w, c_pos, c_neg)
+    ref = sgns_row_grads_plain(w, c_pos, c_neg)
+    torch.cuda.synchronize(w.device)
+    err_l = float((got[0] - ref[0]).abs().max())
+    err_g = max(float((g - r).abs().max()) for g, r in zip(got[1:], ref[1:]))
+    log(f"[{tag}] K3 N={w.shape[0]} d={w.shape[1]} K={c_neg.shape[1]}: max |Δgrad| "
+        f"{err_g:.3e} (tol {K3_GRAD_ATOL:g}), max |Δloss| {err_l:.3e} "
+        f"(tol {K3_LOSS_ATOL:g}); largest |dW| {float(got[1].abs().max()):.3e}")
+    if err_g > K3_GRAD_ATOL or err_l > K3_LOSS_ATOL:
+        raise RuntimeError("K3 disagrees with its plain version beyond tolerance")
+    if not all(bool(torch.isfinite(t).all()) for t in got):
+        raise RuntimeError("K3 produced non-finite values")
+    return max(err_g, err_l)
+
+
+
+
+PROFILE_GROUPS = {
+    "main": (("K2 phase 1", ("sgns_pairs_kernel",)), ("K2 apply", ("sgns_apply_kernel",)),
+             ("K1", ("sample_negatives_kernel",)), ("planning sorts", ("sort",)),
+             ("copies", ("memcpy",))),
+    "random": (("K3", ("sgns_row_grads_kernel",)),
+               ("scatter (index_add_)", ("indexfunc", "index_add")),
+               ("gathers (indexing)", ("index_elementwise", "gather", "indexselect")),
+               ("-lr x gradients", ("aunaryfunctor<float, float, float",)),
+               ("CDF draw: searchsorted", ("searchsorted",)),
+               ("int64 ops (the CDF draw's threefry, id offsets)", ("<long", "add<long>")),
+               ("copies", ("memcpy",))),
+}
+
+
+def phase_profile(device, label: str, kw: dict) -> None:
+    """A path's training once more under torch.profiler: the device's busy
+    time inside the driver's ``repro_torch.train_loop`` span (the union of
+    kernel and copy intervals), its idle share, and device time per step
+    by kernel group (``PROFILE_GROUPS[label]``; the rest is "other")."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     from repro_torch.core.driver import train_submodels
 
-    groups = (("K2 phase 1", "sgns_pairs_kernel"), ("K2 apply", "sgns_apply_kernel"),
-              ("K1", "sample_negatives_kernel"), ("planning sorts", "sort"),
-              ("copies", "memcpy"))
+    corpus, _ = world()
+    groups = PROFILE_GROUPS[label]
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        res = train_submodels(main["corpus"], main["vocab"], device=device,
-                              **main["train_kw"])
+        res = train_submodels(corpus, VOCAB, device=device, **kw)
         torch.cuda.synchronize(device)
     events = list(prof.events())
     loop = next(e for e in events if e.name == "repro_torch.train_loop")
@@ -421,7 +675,8 @@ def phase_profile(device, main: dict) -> None:
     per_step = {g: 0.0 for g, _ in groups}
     per_step["other"] = 0.0
     for name, (_, us) in by_kernel.items():
-        g = next((g for g, pat in groups if pat in name.lower()), "other")
+        g = next((g for g, pats in groups if any(p in name.lower() for p in pats)),
+                 "other")
         per_step[g] += us / steps
     window = t1 - t0
     summary = {"steps": steps, "train_loop_us": window, "device_busy_us": busy,
@@ -433,14 +688,17 @@ def phase_profile(device, main: dict) -> None:
                                  key=lambda k: -k["device_us"])}
     out = ROOT / "chiprun_out"
     out.mkdir(exist_ok=True)
-    (out / "profile_main.json").write_text(json.dumps(summary, indent=1))
-    prof.export_chrome_trace(str(out / "profile_main_trace.json"))
-    log(f"[profile] train loop {window / 1e3:.1f} ms for {steps} steps "
-        f"({window / steps / 1e3:.3f} ms/step), of which {res.timings['chunk_wait_s'] * 1e3:.1f}"
-        f" ms blocked on chunks; device busy {busy / 1e3:.1f} ms, idle share "
-        f"{summary['idle_share']:.3f}")
+    (out / f"profile_{label}.json").write_text(json.dumps(summary, indent=1))
+    prof.export_chrome_trace(str(out / f"profile_{label}_trace.json"))
+    log(f"[profile] {label} ({kw['strategy']}, {kw['engine']}): train loop "
+        f"{window / 1e3:.1f} ms for {steps} steps ({window / steps / 1e3:.3f} ms/step), "
+        f"of which {res.timings['chunk_wait_s'] * 1e3:.1f} ms blocked on chunks; device "
+        f"busy {busy / 1e3:.1f} ms, idle share {summary['idle_share']:.3f}")
     for g, v in per_step.items():
         log(f"[profile]   {g}: {v:.1f} us/step")
+    for k in summary["kernels"][:8]:
+        log(f"[profile]     {k['device_us'] / steps:8.1f} us/step  x{k['count']:<5d} "
+            f"{k['name'][:90]}")
 
 
 def _bound(ms, plain_ms, nbytes, flops) -> dict:
@@ -467,8 +725,8 @@ def main(argv=None) -> int:
     unknown = set(phases) - set(PHASES)
     if unknown:
         ap.error(f"unknown phases {sorted(unknown)}")
-    if {"time", "profile"} & set(phases) and "main" not in phases:
-        ap.error("the time and profile phases need the main phase")
+    if {"time", "profile"} & set(phases) and not {"main", "random"} <= set(phases):
+        ap.error("the time and profile phases need the main and random phases")
 
     import torch
 
@@ -497,24 +755,39 @@ def main(argv=None) -> int:
     if "main" in phases:
         results["main"] = phase_main(device)
         torch.cuda.empty_cache()
+    if "random" in phases:
+        results["random"] = phase_random(device)
+        torch.cuda.empty_cache()
+    if "hbm" in phases:
+        results["hbm"] = phase_hbm(device)
+        torch.cuda.empty_cache()
     if "time" in phases:
-        results["time"] = phase_time(device, results["main"])
+        results["time"] = phase_time(device, results["main"], results["random"])
     if "profile" in phases:
-        phase_profile(device, results["main"])
+        phase_profile(device, "main", results["main"]["train_kw"])
+        phase_profile(device, "random", results["random"]["train_kw"])
 
-    if {"k1", "k2", "main", "time"} <= set(phases):
+    if set(PHASES) - {"build", "profile"} <= set(phases):
+        # launches: each kernel's count over its own path's training run
+        launches = {
+            "sample_negatives": results["main"]["launches"]["sample_negatives"],
+            "sgns_fused_step": results["main"]["launches"]["sgns_fused_step"],
+            "sgns_row_grads": results["random"]["launches"]["sgns_row_grads"],
+            "sgns_fused_hbm_step": results["hbm"]["launches"]["sgns_fused_hbm_step"],
+            "sgns_fused_hbm_step_sequential":
+                results["hbm"]["launches_seq"]["sgns_fused_hbm_step"],
+        }
         kernels = []
-        for name in ("sample_negatives", "sgns_fused_step"):
+        for name, n_launches in launches.items():
             t = results["time"][name]
             kernels.append({
                 "name": name, "route": "cuda", "source": SOURCES[name],
-                "replaces": REPLACES[name],
-                "launches": results["main"]["launches"][name],
-                # against the plain version at the main path's shapes
+                "replaces": REPLACES[name], "launches": n_launches,
+                # against the plain version at the path's shapes
                 "max_abs_err": t["max_abs_err"],
                 "ms": t["ms"], "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
                 "bound_by": t["bound_by"],
-                # no single PyTorch call computes either function
+                # no single PyTorch call computes any of these functions
                 # (torch.multinomial draws other ids from the distribution)
                 "library_ms": None,
             })

@@ -3,15 +3,19 @@
 The counterpart of ``repro.core.async_trainer``. The paper's reducers
 each train one SGNS sub-model with **no parameter synchronization**; here
 the n sub-models are stacked ``(n, V, d)`` tables on one device and the
-worker axis lives in the kernel grid: one engine step (one K2 call)
-advances all n workers by one micro-batch. Nothing in the train path
-calls ``torch.distributed``.
+worker axis lives in the kernel grid: one engine step (one K2 or K4 call,
+or one batched gather → row grads → scatter for ``dense``, ``sparse``
+and ``rowgrad``, worker w's ids offset by ``w·V``) advances all n workers
+by one micro-batch. Nothing in the train path calls ``torch.distributed``.
 
 Random streams follow the reference exactly: each worker's chunk key is
 split off the chunk key, and each step's seed is the ``sub`` of a
 ``key, sub = split(key)`` chain (``lax.scan`` in the reference). The
 port derives a chunk's ``(n, S, 2)`` seed words on the host with
 :mod:`repro_torch.prng` and copies them to the device once per chunk.
+Every engine consumes the same per-step ``(n, 2)`` words: the fused
+kernels as their counter-hash seed, the ``jax.random`` samplers as each
+worker's key.
 """
 
 from __future__ import annotations
@@ -68,7 +72,8 @@ class AsyncShardTrainer:
     """Trains n sub-models fully asynchronously on one device.
 
     ``engine`` — an :class:`repro_torch.core.engine.UpdateEngine` or
-    spec string (``"fused"``) that owns the per-step compute.
+    spec string (``"fused"``, ``"fused_hbm"``, ``"rowgrad:cdf"``,
+    ``"sparse:alias"``, ``"dense"``) that owns the per-step compute.
     ``device`` — where the tables live; ``None`` is the GPU (raising
     without one), ``"cpu"`` runs the kernels' plain versions.
     """
@@ -105,8 +110,9 @@ class AsyncShardTrainer:
 
     def epoch(self, params, centers, contexts, neg_table, key, step0=0):
         """params: (n,V,d) dict, updated in place; centers/contexts:
-        (n,S,B) int32 tensors or arrays; neg_table: {'prob','alias'} of
-        (n,V) on the trainer's device; key: the chunk's (2,) key.
+        (n,S,B) int32 tensors or arrays; neg_table: (n,V) CDFs or
+        {'prob','alias'} of (n,V), as ``engine.table_kind`` says, on the
+        trainer's device; key: the chunk's (2,) key.
         Returns ``(params, losses (n, S))``."""
         keys = prng.split(key, self.num_workers)
         return self._epoch_fn()(params, _tensor(centers), _tensor(contexts),
@@ -115,11 +121,12 @@ class AsyncShardTrainer:
     def worker_epoch(self, params, centers, contexts, neg_table, key, step0=0):
         """One worker's chunk: params ``(V, d)`` tables (updated in
         place), centers/contexts ``(S, B)``, the worker's own ``(V,)``
-        table, and ``key`` the exact per-(worker, chunk) key the stacked
+        table(s), and ``key`` the exact per-(worker, chunk) key the stacked
         :meth:`epoch` would have split out for it. Returns
         ``(params, losses (S,))``."""
         stacked = {k: v.unsqueeze(0) for k, v in params.items()}
-        table = {k: v.unsqueeze(0) for k, v in neg_table.items()}
+        table = ({k: v.unsqueeze(0) for k, v in neg_table.items()}
+                 if isinstance(neg_table, dict) else neg_table.unsqueeze(0))
         keys = np.asarray(key, dtype=np.uint32)[None]
         _, losses = self._epoch_fn()(stacked, _tensor(centers)[None],
                                      _tensor(contexts)[None], table, keys,

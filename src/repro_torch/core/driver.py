@@ -240,7 +240,13 @@ def train_submodels(
     device=None,
 ) -> PipelineResult:
     """Divide and train the n sub-models on ``device`` (the GPU unless
-    ``device="cpu"``). Single process: ``process_count > 1`` raises."""
+    ``device="cpu"``). Single process: ``process_count > 1`` raises.
+
+    ``engine`` is a spec string (``"rowgrad:cdf"``, ``"sparse:alias"``)
+    or an engine instance carrying its dials (``get_engine("fused_hbm",
+    block_pairs=128)``); the noise tables are built in its layout and
+    moved to ``device``. The port defaults to ``fused``, its main-path
+    engine (the reference defaults to ``sparse``)."""
     if (process_count or 1) > 1:
         raise ValueError("the port trains in one process; process_count > 1 "
                          "is not supported")
@@ -319,7 +325,8 @@ def run_pipeline(
     device=None,
     **kw,
 ) -> PipelineResult:
-    """Train the sub-models and merge them with each of ``merge_methods``."""
+    """Train the sub-models (``**kw`` go to :func:`train_submodels`,
+    ``engine`` among them) and merge them with each of ``merge_methods``."""
     cfg = cfg or SGNSConfig(vocab_size=0, dim=64)
     res = train_submodels(corpus, raw_vocab_size, strategy, num_workers, cfg,
                           device=device, **kw)

@@ -5,37 +5,78 @@ everything a training step does between receiving a ``(centers,
 contexts)`` micro-batch and returning updated parameters: the negative
 draw (and the noise-table layout it consumes), the row gradients, and
 the parameter apply. The port's steps are **worker-batched**: one call
-covers all n sub-models, with params ``(n, V, d)``, centers/contexts
-``(n, B)`` and seeds ``(n, 2)``.
+covers all n sub-models, with params ``(n, V, d)`` (updated in place),
+centers/contexts ``(n, B)`` and seeds ``(n, 2)``.
 
 Registry (``get_engine``):
 
+``dense``
+    Autograd through the gathers; a dense ``(n·V, d)`` gradient. The
+    oracle — simple and slow.
+``sparse``
+    Manual per-row gradients and an accumulating scatter-add
+    (``index_add_``), plain torch.
+``rowgrad``
+    ``sparse`` with the row gradients computed by K3
+    (``kernels/sgns_update.py``); the draw, the gathers and the scatter
+    stay torch. The counterpart of ``pallas``.
 ``fused``
     The whole step in one kernel call (``kernels/sgns_fused.py``, K2):
     negatives drawn in-kernel from the alias tables by the counter hash,
-    forward, row gradients and the deterministic accumulating apply,
-    tables updated in place. The counterpart of ``pallas_fused``.
+    forward, row gradients and the deterministic accumulating apply. The
+    counterpart of ``pallas_fused``; the port's main-path engine.
+``fused_hbm``
+    The fused step as a chain of pair blocks, or in word2vec's per-pair
+    order (``kernels/sgns_fused_hbm.py``, K4). Fields ``block_pairs`` (a
+    shorter tail block covers any remainder) and ``sequential``. The
+    counterpart of ``pallas_fused_hbm``.
+
+Engine specs are engine instances or strings, optionally carrying a
+sampler: ``"sparse"``, ``"sparse:alias"``, ``"rowgrad:cdf"``. ``dense``,
+``sparse`` and ``rowgrad`` draw with the ``jax.random`` samplers of
+``data/pairs.py`` (``cdf`` by default, as in the reference); the fused
+engines draw with the counter hash from alias tables, so ``"alias"`` is
+their only valid sampler. The reference's TPU-only dials (``interpret``,
+``block_b``) change no result and are not carried over.
 
 :data:`REFERENCE_ENGINE` names each engine's counterpart in the JAX
-package, for tests and benchmark rows.
+package, for tests and benchmark rows. Engines are frozen dataclasses,
+so they hash and compare by value.
 """
 
 from __future__ import annotations
 
-from dataclasses import dataclass
+from dataclasses import dataclass, replace
 
 from repro_torch.core import sgns
 from repro_torch.core.sgns import SGNSConfig
+from repro_torch.data.pairs import negative_sampler_fn
 
 
 @dataclass(frozen=True)
 class UpdateEngine:
-    """Base engine: step construction for one noise-table layout."""
+    """Base engine: negative draw + step construction.
 
+    ``sampler`` names the negative draw ("cdf" | "alias") and fixes
+    :attr:`table_kind`, the noise-table layout the engine's steps consume
+    — ``(n, V)`` CDFs or ``{"prob", "alias"}`` alias tables (see
+    ``repro_torch.data.pairs.build_noise_table``)."""
+
+    sampler: str = "cdf"
     name = "base"
-    #: Noise-table layout this engine's steps consume — pass to
-    #: ``build_noise_table(kind=...)``.
-    table_kind = "alias"
+
+    def __post_init__(self):
+        negative_sampler_fn(self.sampler)           # rejects unknown names
+
+    @property
+    def table_kind(self) -> str:
+        """Noise-table layout this engine's steps consume — pass to
+        ``build_noise_table(kind=...)``."""
+        return self.sampler
+
+    def sample(self, table, seeds, shape: tuple[int, ...]):
+        """``(n, *shape)`` negative ids drawn outside a kernel."""
+        return negative_sampler_fn(self.sampler)(table, seeds, shape)
 
     def make_step(self, cfg: SGNSConfig, total_steps: int):
         """Returns ``step(params, centers, contexts, neg_table, seeds,
@@ -46,15 +87,76 @@ class UpdateEngine:
         """Check dials that only make sense against a model shape."""
 
     def describe(self) -> str:
-        return f"{self.name}:{self.table_kind}"
+        return f"{self.name}:{self.sampler}"
+
+
+@dataclass(frozen=True)
+class DenseEngine(UpdateEngine):
+    """Autograd + dense gradient — the numerical oracle."""
+
+    name = "dense"
+
+    def make_step(self, cfg: SGNSConfig, total_steps: int):
+        def step(params, centers, contexts, neg_table, seeds, step_idx):
+            negs = self.sample(neg_table, seeds, (centers.shape[1], cfg.negatives))
+            lr = sgns.linear_lr(step_idx, total_steps, cfg)
+            loss = sgns.train_step_dense_(params, centers, contexts, negs, lr)
+            return params, loss.mean(dim=1)
+
+        return step
+
+
+@dataclass(frozen=True)
+class SparseEngine(UpdateEngine):
+    """Manual row grads + scatter-add; :meth:`row_grads` is the seam the
+    row-gradient kernel plugs into."""
+
+    name = "sparse"
+
+    def row_grads(self):
+        """``(w, c_pos, c_neg) -> (loss (N,), dW, dC_pos, dC_neg)`` on the
+        step's gathered rows."""
+        return sgns.sparse_row_grads_per_pair
+
+    def make_step(self, cfg: SGNSConfig, total_steps: int):
+        row_grads = self.row_grads()
+
+        def step(params, centers, contexts, neg_table, seeds, step_idx):
+            negs = self.sample(neg_table, seeds, (centers.shape[1], cfg.negatives))
+            lr = sgns.linear_lr(step_idx, total_steps, cfg)
+            loss = sgns.train_step_sparse_(params, centers, contexts, negs, lr,
+                                           row_grads=row_grads)
+            return params, loss.mean(dim=1)
+
+        return step
+
+
+@dataclass(frozen=True)
+class RowGradEngine(SparseEngine):
+    """The sparse step with K3 computing the row gradients; the draw and
+    the gather/scatter stay torch."""
+
+    name = "rowgrad"
+
+    def row_grads(self):
+        from repro_torch.kernels.sgns_update import sgns_row_grads
+
+        return sgns_row_grads
 
 
 @dataclass(frozen=True)
 class FusedEngine(UpdateEngine):
     """One kernel call per step for all workers: in-kernel alias
-    negative sampling + forward + row grads + apply."""
+    negative sampling + forward + row grads + apply. Alias tables only."""
 
+    sampler: str = "alias"
     name = "fused"
+
+    def __post_init__(self):
+        if self.sampler != "alias":
+            raise ValueError(
+                f"{self.name} samples in-kernel from alias tables; "
+                f"sampler {self.sampler!r} is not supported")
 
     def make_step(self, cfg: SGNSConfig, total_steps: int):
         from repro_torch.kernels.sgns_fused import sgns_fused_step
@@ -69,20 +171,68 @@ class FusedEngine(UpdateEngine):
         return step
 
 
+@dataclass(frozen=True)
+class FusedHBMEngine(FusedEngine):
+    """The fused step as a chain of pair blocks (K4).
+
+    ``block_pairs`` — pairs per block (a shorter tail block covers any
+    batch remainder).
+    ``sequential``  — word2vec's per-pair apply order (each pair's grads
+    see every earlier pair's updates) instead of per-block semantics.
+    Slower; the update-order oracle.
+    """
+
+    block_pairs: int = 256
+    sequential: bool = False
+    name = "fused_hbm"
+
+    def __post_init__(self):
+        super().__post_init__()
+        if self.block_pairs < 1:
+            raise ValueError(
+                f"{self.name} needs block_pairs >= 1 (pairs per block), got "
+                f"{self.block_pairs}")
+
+    def make_step(self, cfg: SGNSConfig, total_steps: int):
+        from repro_torch.kernels.sgns_fused_hbm import sgns_fused_hbm_step
+
+        def step(params, centers, contexts, neg_table, seeds, step_idx):
+            lr = sgns.linear_lr(step_idx, total_steps, cfg)
+            params, loss, _ = sgns_fused_hbm_step(
+                params, centers, contexts, neg_table, seeds, float(lr),
+                negatives=cfg.negatives, block_pairs=self.block_pairs,
+                sequential=self.sequential)
+            return params, loss.mean(dim=1)
+
+        return step
+
+
 ENGINES: dict[str, type[UpdateEngine]] = {
+    "dense": DenseEngine,
+    "sparse": SparseEngine,
+    "rowgrad": RowGradEngine,
     "fused": FusedEngine,
+    "fused_hbm": FusedHBMEngine,
 }
 ENGINE_NAMES = tuple(ENGINES)
 
 #: The JAX package's engine each port engine is held against.
-REFERENCE_ENGINE = {"fused": "pallas_fused"}
+REFERENCE_ENGINE = {"dense": "dense", "sparse": "sparse", "rowgrad": "pallas",
+                    "fused": "pallas_fused", "fused_hbm": "pallas_fused_hbm"}
 
 
-def get_engine(spec: str | UpdateEngine = "fused") -> UpdateEngine:
-    """Resolve an engine spec: an instance (returned as-is) or a name."""
+def get_engine(spec: str | UpdateEngine = "fused", **overrides) -> UpdateEngine:
+    """Resolve an engine spec: an instance (returned as-is, or with field
+    overrides applied) or a ``"name"`` / ``"name:sampler"`` string, e.g.
+    ``get_engine("sparse:alias")`` or ``get_engine("fused_hbm",
+    block_pairs=64)``."""
     if isinstance(spec, UpdateEngine):
-        return spec
-    if spec not in ENGINES:
+        return replace(spec, **overrides) if overrides else spec
+    name, _, sampler = str(spec).partition(":")
+    if name not in ENGINES:
         raise ValueError(
-            f"unknown update engine {spec!r}; expected one of {sorted(ENGINES)}")
-    return ENGINES[spec]()
+            f"unknown update engine {name!r}; expected one of "
+            f"{sorted(ENGINES)} (optionally 'name:sampler')")
+    if sampler:
+        overrides.setdefault("sampler", sampler)
+    return ENGINES[name](**overrides)

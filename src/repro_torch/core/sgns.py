@@ -4,11 +4,21 @@ word2vec's SGNS objective (Eq. 1 of the paper):
 
     log σ(w·c) + Σ_{k} E_{c'~P_D^{3/4}} log σ(−w·c')
 
-The counterpart of ``repro.core.sgns``: manual per-row gradients and an
-accumulating scatter-add (``train_step_sparse``), the linear learning
+The counterpart of ``repro.core.sgns``: two step functions with the same
+math — ``train_step_dense`` (autograd through the gathers, a dense
+``(V, d)`` gradient; the oracle) and ``train_step_sparse`` (manual
+per-row gradients and an accumulating scatter-add) — the linear learning
 rate, and word2vec's initialization W ~ U(−0.5/d, 0.5/d), C = 0, drawn
 through :mod:`repro_torch.prng` so that it is bitwise equal to the
 reference's from the same key.
+
+The update engines run the **worker-batched** forms
+(:func:`train_step_dense_`, :func:`train_step_sparse_`): stacked
+``(n, V, d)`` tables updated in place, ``(n, B)`` ids, worker w's ids
+offset by ``w·V`` into the flattened ``(n·V, d)`` views, so one gather,
+one row-gradient call and one scatter per table cover all n workers.
+Workers touch disjoint rows, so each worker's result is its own
+single-model step.
 """
 
 from __future__ import annotations
@@ -42,6 +52,52 @@ def init_params(key, cfg: SGNSConfig, device="cpu") -> dict:
     c = torch.zeros((cfg.vocab_size, cfg.dim), dtype=torch.float32,
                     device=device)
     return {"W": w, "C": c}
+
+
+def _pair_losses(w: torch.Tensor, c_pos: torch.Tensor,
+                 c_neg: torch.Tensor) -> torch.Tensor:
+    """Per-pair SGNS loss on gathered rows ``w, c_pos (..., d)``,
+    ``c_neg (..., K, d)``, in the reference's log σ form."""
+    s_pos = (w * c_pos).sum(-1)
+    s_neg = torch.einsum("...d,...kd->...k", w, c_neg)
+    return -F.logsigmoid(s_pos) - F.logsigmoid(-s_neg).sum(-1)
+
+
+def negative_logits_loss(w: torch.Tensor, c_pos: torch.Tensor,
+                         c_neg: torch.Tensor) -> torch.Tensor:
+    """Mean SGNS loss for gathered rows w (B,d), c_pos (B,d), c_neg (B,K,d)."""
+    return _pair_losses(w, c_pos, c_neg).mean()
+
+
+def loss_fn(params: dict, centers: torch.Tensor, contexts: torch.Tensor,
+            negatives: torch.Tensor) -> torch.Tensor:
+    """Mean SGNS loss of a batch, through the gathers."""
+    centers, contexts = centers.long(), contexts.long()
+    return negative_logits_loss(params["W"][centers], params["C"][contexts],
+                                params["C"][negatives.long()])
+
+
+def sum_loss_fn(params: dict, centers: torch.Tensor, contexts: torch.Tensor,
+                negatives: torch.Tensor) -> torch.Tensor:
+    """Sum-over-pairs loss — word2vec's update semantics: each (w, c)
+    pair applies its own lr·grad independently, so a minibatch applies
+    the *sum* of per-pair gradients (not the mean)."""
+    return loss_fn(params, centers, contexts, negatives) * centers.shape[0]
+
+
+def train_step_dense(params: dict, centers: torch.Tensor,
+                     contexts: torch.Tensor, negatives: torch.Tensor,
+                     lr: float):
+    """Autograd step: the gradient of :func:`sum_loss_fn` through the
+    gathers, a dense ``(V, d)`` gradient per table, ``p − lr·g`` over the
+    whole table. Returns ``(new tables, mean loss)`` like the reference."""
+    leaves = {k: v.detach().requires_grad_() for k, v in params.items()}
+    with torch.enable_grad():
+        sum_loss = sum_loss_fn(leaves, centers, contexts, negatives)
+        grads = torch.autograd.grad(sum_loss, [leaves["W"], leaves["C"]])
+    lr32 = float(np.float32(lr))
+    new = {k: params[k] - lr32 * g for k, g in zip(("W", "C"), grads)}
+    return new, sum_loss.detach() / centers.shape[0]
 
 
 def sparse_row_grads_per_pair(w: torch.Tensor, c_pos: torch.Tensor,
@@ -87,6 +143,65 @@ def train_step_sparse(params: dict, centers: torch.Tensor,
     C = C.index_add_(0, negatives.reshape(-1),
                      neg_lr * d_cn.reshape(-1, d_cn.shape[-1]))
     return {"W": W, "C": C}, loss
+
+
+# ---------------------------------------------------------------------------
+# Worker-batched, in-place steps (what the update engines run)
+# ---------------------------------------------------------------------------
+def _flat(params: dict, centers: torch.Tensor, contexts: torch.Tensor,
+          negatives: torch.Tensor):
+    """``(n·V, d)`` views of the stacked tables and each worker's ids
+    offset by ``w·V`` into them (int64, flattened)."""
+    W, C = params["W"], params["C"]
+    n, V, d = W.shape
+    off = torch.arange(n, dtype=torch.int64, device=W.device) * V
+    cen = (centers.long() + off[:, None]).reshape(-1)
+    ctx = (contexts.long() + off[:, None]).reshape(-1)
+    neg = (negatives.long() + off[:, None, None]).reshape(-1)
+    return W.view(n * V, d), C.view(n * V, d), cen, ctx, neg
+
+
+def train_step_sparse_(params: dict, centers: torch.Tensor,
+                       contexts: torch.Tensor, negatives: torch.Tensor,
+                       lr: float, row_grads=sparse_row_grads_per_pair):
+    """:func:`train_step_sparse` for n workers at once, **in place**:
+    params ``(n, V, d)``, centers/contexts ``(n, B)``, negatives
+    ``(n, B, K)``. ``row_grads(w, c_pos, c_neg) -> (loss (N,), dW, dC_pos,
+    dC_neg)`` on the ``N = n·B`` gathered pairs is the seam the
+    row-gradient kernel plugs into. The scatter-adds run in the
+    reference's order (W at centers, then C at contexts, then C at
+    negatives); duplicate ids accumulate. Returns the per-pair loss
+    ``(n, B)``."""
+    n, B = centers.shape
+    K = negatives.shape[-1]
+    Wf, Cf, cen, ctx, neg = _flat(params, centers, contexts, negatives)
+    d = Wf.shape[1]
+    loss, d_w, d_cp, d_cn = row_grads(Wf[cen], Cf[ctx], Cf[neg].view(n * B, K, d))
+    neg_lr = -float(np.float32(lr))
+    Wf.index_add_(0, cen, neg_lr * d_w)
+    Cf.index_add_(0, ctx, neg_lr * d_cp)
+    Cf.index_add_(0, neg, neg_lr * d_cn.reshape(-1, d))
+    return loss.view(n, B)
+
+
+def train_step_dense_(params: dict, centers: torch.Tensor,
+                      contexts: torch.Tensor, negatives: torch.Tensor,
+                      lr: float) -> torch.Tensor:
+    """:func:`train_step_dense` for n workers at once, **in place**: the
+    gradient of every worker's sum loss through the gathers (dense over
+    the ``(n·V, d)`` tables), then ``p − lr·g``. Returns the per-pair loss
+    ``(n, B)``."""
+    n, B = centers.shape
+    Wf, Cf, cen, ctx, neg = _flat(params, centers, contexts, negatives)
+    d = Wf.shape[1]
+    Wl, Cl = Wf.detach().requires_grad_(), Cf.detach().requires_grad_()
+    with torch.enable_grad():
+        loss = _pair_losses(Wl[cen], Cl[ctx], Cl[neg].view(n * B, -1, d))
+        gW, gC = torch.autograd.grad(loss.sum(), [Wl, Cl])
+    lr32 = float(np.float32(lr))
+    Wf.sub_(lr32 * gW)
+    Cf.sub_(lr32 * gC)
+    return loss.detach().view(n, B)
 
 
 def linear_lr(step: int, total_steps: int, cfg: SGNSConfig) -> np.float32:

@@ -7,11 +7,16 @@ The port's own copy of the host-side half of ``repro.data.pairs``:
 * frequent-word subsampling with the usual ``(sqrt(f/t)+1)·t/f`` keep
   probability;
 * the unigram^0.75 noise distribution as a CDF or a Vose alias table,
-  one per sub-model, stacked along a leading worker axis.
+  one per sub-model, stacked along a leading worker axis;
+* the two ``jax.random`` negative samplers that draw from those tables
+  (``cdf``: inverse-CDF lookup; ``alias``: Vose draw), worker-batched.
 
 Pair extraction is numpy and bitwise equal to the reference's; the
 noise tables are torch tensors (built in float64 on the host, stored as
-float32/int32).
+float32/int32). The samplers are plain torch ops on the tables' device
+(they are XLA ops, not Pallas kernels, in the reference); each worker's
+ids are bitwise equal to ``jax.vmap`` of the reference sampler over the
+same keys.
 """
 
 from __future__ import annotations
@@ -19,6 +24,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from repro_torch import prng
 from repro_torch.data.corpus import Corpus
 from repro_torch.data.vocab import Vocab, UNK
 
@@ -87,6 +93,65 @@ def extract_pairs(
     if max_pairs is not None:
         centers, contexts = centers[:max_pairs], contexts[:max_pairs]
     return centers, contexts
+
+
+# ---------------------------------------------------------------------------
+# Negative sampling: two interchangeable draws, worker-batched. Tables are
+# ``(n, V)`` (a CDF, or ``{"prob", "alias"}``), keys ``(n, 2)`` (numpy
+# uint32 words or a tensor holding their bits, as the trainer's per-step
+# seeds), ids ``(n, *shape)`` int32 on the tables' device.
+# ---------------------------------------------------------------------------
+def cdf_to_ids(cdf: torch.Tensor, u: torch.Tensor) -> torch.Tensor:
+    """Inverse-CDF lookup per worker: the id ``i`` with ``cdf[w, i-1] <=
+    u < cdf[w, i]``, for ``cdf`` ``(n, V)`` and ``u`` ``(n, ...)``.
+
+    ``right=True`` (jax's ``side="right"``) is load-bearing: an id with
+    zero probability (``cdf[i] == cdf[i-1]``, a union-vocabulary row this
+    worker never saw) is unreachable, even for ``u == 0.0`` or a ``u``
+    exactly on a repeated boundary."""
+    n, V = cdf.shape
+    idx = torch.searchsorted(cdf, u.reshape(n, -1), right=True)
+    return torch.clamp(idx, 0, V - 1).to(torch.int32).reshape(u.shape)
+
+
+def sample_negatives_cdf(cdf: torch.Tensor, keys,
+                         shape: tuple[int, ...]) -> torch.Tensor:
+    """``(n, *shape)`` ids: worker w's ``uniform(keys[w], shape)``
+    through its own CDF."""
+    u = prng.uniform(prng.key_tensor(keys, cdf.device), shape)
+    return cdf_to_ids(cdf, u)
+
+
+def sample_negatives_alias(table: dict, keys,
+                           shape: tuple[int, ...]) -> torch.Tensor:
+    """``(n, *shape)`` ids: worker w splits its key, draws a
+    ``randint`` index and a uniform, and keeps the index if the uniform
+    falls under its ``prob``, else takes its ``alias``."""
+    prob, alias = table["prob"], table["alias"]
+    n, V = prob.shape
+    k = prng.split(prng.key_tensor(keys, prob.device))          # (n, 2, 2)
+    idx = prng.randint(k[:, 0], shape, 0, V)
+    u = prng.uniform(k[:, 1], shape)
+    flat = idx.reshape(n, -1).long()
+    p = torch.gather(prob, 1, flat).reshape(idx.shape)
+    a = torch.gather(alias, 1, flat).reshape(idx.shape)
+    return torch.where(u < p, idx, a.to(torch.int32))
+
+
+NEGATIVE_SAMPLERS = {
+    "cdf": sample_negatives_cdf,
+    "alias": sample_negatives_alias,
+}
+
+
+def negative_sampler_fn(kind: str):
+    """``fn(table, keys, shape) -> (n, *shape) int32`` for ``kind``."""
+    try:
+        return NEGATIVE_SAMPLERS[kind]
+    except KeyError:
+        raise ValueError(
+            f"unknown negative sampler {kind!r}; expected one of "
+            f"{sorted(NEGATIVE_SAMPLERS)}") from None
 
 
 def unigram_noise_probs(vocab_counts: np.ndarray, power: float = 0.75) -> np.ndarray:

@@ -3,6 +3,12 @@ with their plain torch versions and wrappers.
 
 * ``sgns_fused`` — K1 ``sample_negatives`` (the counter-hash alias draw)
   and K2 ``sgns_fused_step`` (the whole SGNS step for n workers). Powers
-  the ``fused`` update engine.
+  the ``fused`` update engine. Holds the launch counters and the C
+  binding helpers the other kernel modules share.
+* ``sgns_update`` — K3 ``sgns_row_grads`` (forward and row gradients on
+  gathered rows). Powers the ``rowgrad`` engine; ``ops`` wraps it in the
+  reference's ``kernels/ops.py`` contract, ``ref`` holds its oracle.
+* ``sgns_fused_hbm`` — K4 ``sgns_fused_hbm_step`` (the step as a chain of
+  pair blocks, or pair by pair). Powers the ``fused_hbm`` engine.
 * ``build`` — ``nvcc`` build and ``ctypes`` loading of the sources.
 """

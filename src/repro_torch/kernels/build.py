@@ -24,8 +24,10 @@ CSRC = Path(__file__).resolve().parent.parent / "csrc"
 SOURCES = {
     "sample_negatives": "sample_negatives.cu",
     "sgns_fused_step": "sgns_fused_step.cu",
+    "sgns_row_grads": "sgns_row_grads.cu",
+    "sgns_fused_hbm": "sgns_fused_hbm.cu",
 }
-HEADERS = ("counter_prng.cuh",)
+HEADERS = ("counter_prng.cuh", "sgns_step.cuh")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC")
 

@@ -17,7 +17,9 @@ Two kernels (sources in ``repro_torch/csrc/``):
 Every wrapper takes stacked per-worker operands (a leading worker axis
 ``n``) and runs the plain version when its tensors lie on the CPU; on a
 CUDA tensor it launches the kernel or raises. :data:`LAUNCHES` counts the
-kernel launches of each wrapper.
+kernel launches of each wrapper, this module's and those of
+``sgns_update`` (K3) and ``sgns_fused_hbm`` (K4), which share its C
+binding helpers.
 
 Seeds are ``(n, 2)`` int32 tensors holding the bits of each worker's
 uint32 key words (:func:`seed_tensor`).
@@ -30,6 +32,7 @@ import ctypes
 import numpy as np
 import torch
 
+from repro_torch.core.sgns import train_step_sparse_
 from repro_torch.kernels.build import load
 
 _MASK = 0xFFFFFFFF
@@ -43,13 +46,20 @@ _SIGNATURES = {
         [_P] * 5 + [_I] * 5 + [_P] * 3 + [_I, _P],
     ("sgns_fused_step", "sgns_apply_launch"):
         [_P] * 9 + [_I] * 5 + [ctypes.c_float, _I, _P],
+    ("sgns_row_grads", "sgns_row_grads_launch"):
+        [_P] * 3 + [ctypes.c_longlong, _I, _I] + [_P] * 4 + [_I, _P],
+    ("sgns_fused_hbm", "sgns_hbm_blocks_launch"):
+        [_P] * 5 + [_I] * 6 + [_P] * 7 + [ctypes.c_float, _I, _P],
+    ("sgns_fused_hbm", "sgns_hbm_sequential_launch"):
+        [_P] * 5 + [_I] * 5 + [ctypes.c_float, _P, _P],
 }
 _entry_points: dict = {}
 MAX_NEGATIVES = 16
 
 #: Kernel launches per wrapper (plain integers; reset with
 #: :func:`reset_launch_counts`).
-LAUNCHES: dict[str, int] = {"sample_negatives": 0, "sgns_fused_step": 0}
+LAUNCHES: dict[str, int] = {"sample_negatives": 0, "sgns_fused_step": 0,
+                             "sgns_row_grads": 0, "sgns_fused_hbm_step": 0}
 
 
 def reset_launch_counts() -> None:
@@ -125,7 +135,7 @@ def sample_negatives_plain(seeds: torch.Tensor, prob: torch.Tensor,
 
 
 def _softplus(x: torch.Tensor) -> torch.Tensor:
-    # the TPU kernel's form (sgns_fused.py), not log-sigmoid
+    # the TPU kernels' form (sgns_fused.py, sgns_update.py), not log-sigmoid
     return torch.clamp_min(x, 0.0) + torch.log1p(torch.exp(-x.abs()))
 
 
@@ -133,38 +143,17 @@ def sgns_fused_step_plain(params: dict, centers: torch.Tensor,
                           contexts: torch.Tensor, table: dict,
                           seeds: torch.Tensor, lr: float, *,
                           negatives: int = 5):
-    """The step K2 computes, in torch: ``train_step_sparse`` on the
-    replayed ids with the fused kernel's softplus loss. Updates
-    ``params`` in place (accumulating ``index_add_`` at W[centers], then
-    C[contexts], then C[negatives]) and returns ``(params, loss (n, B),
-    ids (n, B, K))``."""
-    W, C = params["W"], params["C"]
-    n, V, d = W.shape
-    B = centers.shape[1]
-    K = negatives
-    ids = sample_negatives_plain(seeds, table["prob"], table["alias"], (B, K))
-    off = torch.arange(n, dtype=torch.int64, device=W.device) * V
-    cen = (centers.to(torch.int64) + off[:, None]).reshape(-1)
-    ctx = (contexts.to(torch.int64) + off[:, None]).reshape(-1)
-    neg = (ids.to(torch.int64) + off[:, None, None]).reshape(-1)
-    Wf, Cf = W.view(n * V, d), C.view(n * V, d)
-    w = Wf[cen].view(n, B, d)
-    cp = Cf[ctx].view(n, B, d)
-    cn = Cf[neg].view(n, B, K, d)
+    """The step K2 computes, in torch: the worker-batched
+    ``train_step_sparse_`` on the replayed ids, with the fused kernel's
+    softplus loss (K3's plain row gradients). Updates ``params`` in place
+    (accumulating ``index_add_`` at W[centers], then C[contexts], then
+    C[negatives]) and returns ``(params, loss (n, B), ids (n, B, K))``."""
+    from repro_torch.kernels.sgns_update import sgns_row_grads_plain
 
-    s_pos = (w * cp).sum(-1)
-    s_neg = (w[:, :, None, :] * cn).sum(-1)
-    loss = _softplus(-s_pos) + _softplus(s_neg).sum(-1)
-    g_pos = torch.sigmoid(s_pos) - 1.0
-    g_neg = torch.sigmoid(s_neg)
-    dw = g_pos[..., None] * cp + (g_neg[..., None] * cn).sum(2)
-    dcp = g_pos[..., None] * w
-    dcn = g_neg[..., None] * w[:, :, None, :]
-
-    neg_lr = -float(np.float32(lr))
-    Wf.index_add_(0, cen, neg_lr * dw.reshape(-1, d))
-    Cf.index_add_(0, ctx, neg_lr * dcp.reshape(-1, d))
-    Cf.index_add_(0, neg, neg_lr * dcn.reshape(-1, d))
+    ids = sample_negatives_plain(seeds, table["prob"], table["alias"],
+                                 (centers.shape[1], negatives))
+    loss = train_step_sparse_(params, centers, contexts, ids, lr,
+                              row_grads=sgns_row_grads_plain)
     return params, loss, ids
 
 

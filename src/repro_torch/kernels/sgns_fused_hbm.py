@@ -1,0 +1,154 @@
+"""K4: the SGNS step as a chain of pair blocks (K4a) or in word2vec's
+per-pair order (K4b) — CUDA kernels for Hopper, their plain torch
+versions, and the wrapper that chooses.
+
+Replaces the JAX package's ``_hbm_block_kernel`` and
+``_hbm_sequential_kernel`` (``repro/kernels/sgns_fused_hbm.py``, engine
+``pallas_fused_hbm``). Source: ``repro_torch/csrc/sgns_fused_hbm.cu``.
+The TPU kernel exists to keep the ``(V, d)`` tables in HBM; on the H100
+they are there anyway, and what this step adds over K2 is its
+**semantics**:
+
+* ``sequential=False`` — the batch is walked in blocks of ``block_pairs``
+  pairs (a shorter tail block covers any remainder). Within a block,
+  every gradient is taken from the tables as of block start, then applied
+  as accumulating adds in reference order (W at centers; C at contexts,
+  then at negatives). Block b+1 sees block b's writes. Equal to
+  ``train_step_sparse`` once per block on the step's negatives; with one
+  block, to one sparse step over the batch.
+* ``sequential=True`` — each pair's gradients are taken from the tables as
+  every earlier pair left them, and applied at once: a loop of batch-1
+  sparse steps. The update-order oracle, not a throughput path.
+
+The negatives sit at the pairs' global counters
+(:func:`block_negative_ids`), so one K1 draw of the whole step's
+``(n, B, K)`` ids is the blocks' draws. The loss is the log-sigmoid form
+of ``sparse_row_grads_per_pair``.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from repro_torch.core.sgns import train_step_sparse_
+from repro_torch.kernels.sgns_fused import (
+    LAUNCHES, MAX_NEGATIVES, _check, _entry, _kernel_device, _ptr, _raise_on,
+    _stream, alias_draw_from_counters, sample_negatives)
+
+
+def pick_block_pairs(B: int, block_pairs: int) -> int:
+    """The main block size: ``block_pairs`` clamped to the batch. A batch
+    that is not a multiple gets one shorter *tail* block for the
+    remainder — never a fall back to tiny blocks."""
+    return max(1, min(int(block_pairs), B))
+
+
+def block_negative_ids(seeds: torch.Tensor, prob: torch.Tensor,
+                       alias: torch.Tensor, pair0: int, blk: int,
+                       K: int) -> torch.Tensor:
+    """The draw of one pair block ``[pair0, pair0 + blk)`` for every
+    worker: ``(n, blk, K)`` ids at the pairs' global row-major counters,
+    so the blocks' draws concatenate to the whole step's draw."""
+    n = prob.shape[0]
+    row = torch.arange(blk, dtype=torch.int64, device=prob.device)[:, None]
+    col = torch.arange(K, dtype=torch.int64, device=prob.device)[None, :]
+    base = ((pair0 + row) * K + col).expand(n, blk, K)
+    return alias_draw_from_counters(seeds, prob, alias, base)
+
+
+def sgns_fused_hbm_step_plain(params: dict, centers: torch.Tensor,
+                              contexts: torch.Tensor, table: dict,
+                              seeds: torch.Tensor, lr: float, *,
+                              negatives: int = 5, block_pairs: int = 256,
+                              sequential: bool = False):
+    """The step K4 computes, in torch: the worker-batched sparse step once
+    per pair block on that block's draw (``sequential=False``), or once
+    per pair (``sequential=True``). Updates ``params`` in place; returns
+    ``(params, loss (n, B), ids (n, B, K))``."""
+    n, B = centers.shape
+    K = negatives
+    blk = 1 if sequential else pick_block_pairs(B, block_pairs)
+    loss = torch.empty((n, B), dtype=torch.float32, device=params["W"].device)
+    ids = []
+    for b0 in range(0, B, blk):
+        b1 = min(b0 + blk, B)
+        ids_b = block_negative_ids(seeds, table["prob"], table["alias"], b0,
+                                   b1 - b0, K)
+        loss[:, b0:b1] = train_step_sparse_(params, centers[:, b0:b1],
+                                            contexts[:, b0:b1], ids_b, lr)
+        ids.append(ids_b)
+    return params, loss, torch.cat(ids, dim=1)
+
+
+def _block_sort(keys: torch.Tensor, block_of: torch.Tensor, V: int):
+    """Each worker's touched rows ``keys`` ``(n, L)`` sorted stably by
+    (block, row): ``(rows int32, perm int64)``. Each block's entries end
+    up in one contiguous range, its rows in addend order."""
+    sorted_keys, perm = torch.sort(block_of * V + keys.long(), dim=1, stable=True)
+    return (sorted_keys % V).to(torch.int32), perm
+
+
+def sgns_fused_hbm_step(params: dict, centers: torch.Tensor,
+                        contexts: torch.Tensor, table: dict, seeds: torch.Tensor,
+                        lr: float, *, negatives: int = 5, block_pairs: int = 256,
+                        sequential: bool = False):
+    """K4: one SGNS step for every worker, by pair blocks or pair by pair.
+    ``params`` ``{"W", "C"}`` ``(n, V, d)`` float32 are updated **in
+    place**; ``centers``/``contexts`` ``(n, B)`` int32 ids in ``[0, V)``
+    (not bounds-checked; the trainer checks each chunk); ``table`` the
+    stacked ``{"prob", "alias"}`` alias tables; ``seeds`` ``(n, 2)``;
+    ``lr`` the step's learning rate.
+
+    Returns ``(params, loss (n, B), ids (n, B, K))``.
+    """
+    W, C = params["W"], params["C"]
+    device = W.device
+    n, V, d = W.shape
+    B = centers.shape[-1]
+    K = int(negatives)
+    if not 1 <= K <= MAX_NEGATIVES:
+        raise ValueError(f"negatives must be in [1, {MAX_NEGATIVES}], got {K}")
+    if int(block_pairs) < 1:
+        raise ValueError(f"block_pairs must be >= 1, got {block_pairs}")
+    _check(W, "W", torch.float32, (n, V, d), device)
+    _check(C, "C", torch.float32, (n, V, d), device)
+    _check(centers, "centers", torch.int32, (n, B), device)
+    _check(contexts, "contexts", torch.int32, (n, B), device)
+    _check(table["prob"], "prob", torch.float32, (n, V), device)
+    _check(table["alias"], "alias", torch.int32, (n, V), device)
+    _check(seeds, "seeds", torch.int32, (n, 2), device)
+    if device.type == "cpu":
+        return sgns_fused_hbm_step_plain(params, centers, contexts, table, seeds, lr,
+                                         negatives=K, block_pairs=block_pairs,
+                                         sequential=sequential)
+    _kernel_device(device)
+    neg_lr = -float(np.float32(lr))
+    loss = torch.empty((n, B), dtype=torch.float32, device=device)
+    ids = sample_negatives(seeds, table["prob"], table["alias"], (B, K))
+    if sequential:
+        fn = _entry("sgns_fused_hbm", "sgns_hbm_sequential_launch")
+        with torch.cuda.device(device):
+            err = fn(_ptr(W), _ptr(C), _ptr(centers), _ptr(contexts), _ptr(ids), n, V,
+                     d, B, K, neg_lr, _ptr(loss), _stream(device))
+        _raise_on(err, "sgns_fused_hbm_step (sequential)")
+        LAUNCHES["sgns_fused_hbm_step"] += 1
+        return params, loss, ids
+    blk = pick_block_pairs(B, block_pairs)
+    block_of = torch.arange(B, dtype=torch.int64, device=device) // blk
+    w_keys, w_perm = _block_sort(centers, block_of.expand(n, B), V)
+    c_keys, c_perm = _block_sort(
+        torch.cat([contexts, ids.view(n, B * K)], 1),
+        torch.cat([block_of, block_of.repeat_interleave(K)]).expand(n, B * (K + 1)), V)
+    coef = torch.empty((n, B, K + 1), dtype=torch.float32, device=device)
+    dW = torch.empty((n, B, d), dtype=torch.float32, device=device)
+    vec4 = int(d % 4 == 0 and W.data_ptr() % 16 == 0 and C.data_ptr() % 16 == 0)
+    fn = _entry("sgns_fused_hbm", "sgns_hbm_blocks_launch")
+    with torch.cuda.device(device):
+        err = fn(_ptr(W), _ptr(C), _ptr(centers), _ptr(contexts), _ptr(ids), n, V, d,
+                 B, K, blk, _ptr(loss), _ptr(coef), _ptr(dW), _ptr(c_keys),
+                 _ptr(c_perm), _ptr(w_keys), _ptr(w_perm), neg_lr, vec4,
+                 _stream(device))
+    _raise_on(err, "sgns_fused_hbm_step")
+    LAUNCHES["sgns_fused_hbm_step"] += 1
+    return params, loss, ids

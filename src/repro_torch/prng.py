@@ -19,7 +19,12 @@ that changes how ``split`` and ``random_bits`` lay out their counters:
 
 Key derivation is small and runs in numpy (uint32). Bulk bits run in
 torch on the target device, in int64 masked to 32 bits, because torch's
-uint32 support is partial.
+uint32 support is partial. The bulk functions (``random_bits``,
+``uniform``, ``randint``, and ``split`` given a tensor) also take a
+*stack* of keys as a ``(..., 2)`` tensor — int64 words, or the int32
+seed tensor the trainer keeps on the device — and draw every key's bits
+in one chain of ops, each key exactly as ``jax.vmap`` of the single-key
+function would.
 """
 
 from __future__ import annotations
@@ -54,11 +59,12 @@ def _threefry2x32_np(k1, k2, x1, x2):
     return x0, x1
 
 
-def _threefry2x32_torch(k1: int, k2: int, x1: torch.Tensor,
+def _threefry2x32_torch(k1, k2, x1: torch.Tensor,
                         x2: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
-    """The same hash on int64 tensors holding uint32 values; ``k1``,
-    ``k2`` are Python ints."""
-    ks = (int(k1), int(k2), int(k1) ^ int(k2) ^ _PARITY)
+    """The same hash on int64 tensors holding uint32 values; the key
+    words ``k1``, ``k2`` are int64 tensors too (e.g. ``(n, 1)``) that
+    broadcast against the counters."""
+    ks = (k1, k2, k1 ^ k2 ^ _PARITY)
     x0 = (x1 + ks[0]).bitwise_and_(_MASK)
     x1 = (x2 + ks[1]).bitwise_and_(_MASK)
     for i in range(5):
@@ -97,9 +103,16 @@ def fold_in(key, data: int) -> np.ndarray:
     return np.array([o0, o1], dtype=np.uint32)
 
 
-def split(key, num: int = 2) -> np.ndarray:
+def split(key, num: int = 2):
     """``jax.random.split(key, num)``. Also takes a stack of keys
-    ``(..., 2)`` and returns ``(..., num, 2)``: the split of each."""
+    ``(..., 2)`` and returns ``(..., num, 2)``: the split of each. A
+    tensor of keys is split on its device (an int64 tensor out)."""
+    if isinstance(key, torch.Tensor):
+        k = key_tensor(key)
+        lo = torch.arange(num, dtype=torch.int64, device=k.device)
+        o0, o1 = _threefry2x32_torch(k[..., 0:1], k[..., 1:2],
+                                     torch.zeros_like(lo), lo)
+        return torch.stack([o0, o1], dim=-1)
     k = _words(key)
     lead = k.shape[:-1]
     flat = k.reshape(-1, 1, 2)
@@ -120,17 +133,70 @@ def step_keys(keys, steps: int) -> np.ndarray:
 
 
 # ---------------------------------------------------------------------------
-# Bulk bits and floats (torch, on the target device)
+# Bulk bits, integers and floats (torch, on the target device)
 # ---------------------------------------------------------------------------
+def key_tensor(keys, device=None) -> torch.Tensor:
+    """``(..., 2)`` key words as an int64 tensor of uint32 values: from
+    numpy words, or from an int32/int64 tensor holding their bits (the
+    trainer's seed tensor). A tensor stays on its device unless
+    ``device`` says otherwise."""
+    if isinstance(keys, torch.Tensor):
+        t = keys.to(device=keys.device if device is None else device,
+                    dtype=torch.int64)
+    else:
+        t = torch.from_numpy(_words(keys).astype(np.int64)).to(device or "cpu")
+    if t.shape[-1:] != (2,):
+        raise ValueError(f"a key is (..., 2) uint32 words, got {tuple(t.shape)}")
+    return t & _MASK
+
+
 def random_bits(key, shape: tuple[int, ...], device="cpu") -> torch.Tensor:
     """``jax.random.bits(key, shape, uint32)`` as an int64 tensor of
-    values in ``[0, 2**32)``."""
-    k = _words(key)
-    n = math.prod(shape)
-    idx = torch.arange(n, dtype=torch.int64, device=device)
-    hi, lo = idx >> 32, idx & _MASK
-    b1, b2 = _threefry2x32_torch(int(k[0]), int(k[1]), hi, lo)
-    return b1.bitwise_xor_(b2).reshape(shape)
+    values in ``[0, 2**32)``. A numpy ``(2,)`` key draws on ``device``;
+    a ``(..., 2)`` key tensor draws ``(..., *shape)`` on its own device,
+    each key's bits those of the single-key call."""
+    k = key_tensor(key) if isinstance(key, torch.Tensor) else key_tensor(key, device)
+    idx = torch.arange(math.prod(shape), dtype=torch.int64, device=k.device)
+    b1, b2 = _threefry2x32_torch(k[..., 0:1], k[..., 1:2], idx >> 32, idx & _MASK)
+    return b1.bitwise_xor_(b2).reshape(*k.shape[:-1], *shape)
+
+
+_I32_MIN, _I32_MAX = -(2**31), 2**31 - 1
+
+
+def randint(key, shape: tuple[int, ...], minval: int, maxval: int,
+            device="cpu") -> torch.Tensor:
+    """``jax.random.randint(key, shape, minval, maxval, int32)`` as an
+    int32 tensor, following jax's ``_randint``: split the key, draw 32
+    higher and 32 lower bits per value, and fold them into ``span =
+    maxval − minval`` with ``(hi mod span)·(2**32 mod span) + lo mod
+    span`` — all in uint32 arithmetic that wraps, as XLA's does (so for
+    ``span > 2**16`` the multiplier wraps to 0 and only the lower bits
+    count). ``maxval <= minval`` returns ``minval``; bounds are clipped
+    to int32 first. Takes a key or a ``(..., 2)`` key tensor, as
+    :func:`random_bits` does."""
+    minval, maxval = int(minval), int(maxval)
+    out_of_range = maxval > _I32_MAX
+    lo = min(max(minval, _I32_MIN), _I32_MAX)
+    hi = min(max(maxval, _I32_MIN), _I32_MAX)
+    span = (hi - lo) & _MASK
+    if hi <= lo:
+        span = 1
+    elif out_of_range:
+        span = (span + 1) & _MASK
+
+    def rem(x, m):            # XLA's unsigned remainder: x mod 0 = x
+        return x if m == 0 else x % m
+
+    multiplier = rem(rem(2**16, span) ** 2 & _MASK, span)
+    ks = split(key)
+    higher = random_bits(ks[..., 0, :], shape, device)
+    lower = random_bits(ks[..., 1, :], shape, device)
+    offset = (rem(higher, span) * multiplier) & _MASK
+    offset = rem((offset + rem(lower, span)) & _MASK, span)
+    # int32 add that wraps, as jax's does
+    out = ((offset + lo + 2**31) & _MASK) - 2**31
+    return out.to(torch.int32)
 
 
 def uniform(key, shape: tuple[int, ...], minval: float = 0.0,

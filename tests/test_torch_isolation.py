@@ -32,7 +32,9 @@ def test_port_has_the_slice_modules():
     for m in ("repro_torch.prng", "repro_torch.convert", "repro_torch.core.driver",
               "repro_torch.core.merge", "repro_torch.core.async_trainer",
               "repro_torch.kernels.sgns_fused", "repro_torch.eval.benchmarks",
-              "repro_torch.data.pipeline"):
+              "repro_torch.data.pipeline", "repro_torch.kernels.sgns_update",
+              "repro_torch.kernels.ops", "repro_torch.kernels.sgns_fused_hbm",
+              "repro_torch.kernels.ref"):
         assert m in mods
 
 
@@ -97,5 +99,6 @@ def test_entry_points_refuse_to_run_on_the_cpu_by_default(monkeypatch):
 
 def test_version_and_package_data():
     assert repro_torch.__version__
-    for f in ("counter_prng.cuh", "sample_negatives.cu", "sgns_fused_step.cu"):
+    for f in ("counter_prng.cuh", "sample_negatives.cu", "sgns_fused_step.cu",
+              "sgns_step.cuh", "sgns_row_grads.cu", "sgns_fused_hbm.cu"):
         assert (PORT / "csrc" / f).exists()

@@ -181,7 +181,8 @@ def test_launch_counters_stay_zero_on_cpu(table):
     K.sgns_fused_step(p, torch.from_numpy(np.stack([c, c])),
                       torch.from_numpy(np.stack([x, x])), _stack(table, n),
                       K.seed_tensor(_keys(n)), 0.025)
-    assert K.LAUNCHES == {"sample_negatives": 0, "sgns_fused_step": 0}
+    assert K.LAUNCHES == {"sample_negatives": 0, "sgns_fused_step": 0,
+                          "sgns_row_grads": 0, "sgns_fused_hbm_step": 0}
 
 
 def test_wrappers_check_their_inputs(table):

@@ -84,18 +84,19 @@ def test_train_step_sparse_matches_reference():
 
 
 def test_engine_registry():
-    assert ENGINE_NAMES == ("fused",)
+    assert ENGINE_NAMES == ("dense", "sparse", "rowgrad", "fused", "fused_hbm")
     eng = get_engine("fused")
     assert isinstance(eng, FusedEngine) and isinstance(eng, UpdateEngine)
     assert eng.table_kind == "alias" and eng.describe() == "fused:alias"
     assert get_engine(eng) is eng and get_engine("fused") == eng
-    assert REFERENCE_ENGINE == {"fused": "pallas_fused"}
+    assert get_engine() == eng                       # the port's main-path engine
+    assert REFERENCE_ENGINE["fused"] == "pallas_fused"
     from repro.core.engine import ENGINES as J_ENGINES
     assert set(REFERENCE_ENGINE.values()) <= set(J_ENGINES)
-    with pytest.raises(ValueError, match="unknown update engine"):
+    with pytest.raises(ValueError, match="alias"):
         get_engine("fused:cdf")
     with pytest.raises(ValueError, match="unknown update engine"):
-        get_engine("sparse")
+        get_engine("pallas_fused")
 
 
 # ------------------------------------------------------------------ trainer
