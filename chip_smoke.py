@@ -4,6 +4,7 @@
     python3 chip_smoke.py                      # every phase, one GPU
     python3 chip_smoke.py --phases build,k1,k2
     python3 chip_smoke.py --phases build,random,hbm
+    python3 chip_smoke.py --phases build,hbm,pipe
 
 Phases:
 
@@ -35,18 +36,32 @@ Phases:
    ``block_pairs=256``: four blocks a step) for 64 steps, then
    ``sequential=True`` (K4b) for 8 steps; K4 and K1 once per step each,
    and W moved.
-7. ``time`` — each kernel held against its plain version at its path's
+7. ``pipe`` — the main configuration on ``fused_pipe`` (K5, ``block_pairs
+   =256``, ``ring_depth=2``) and then on ``fused_tiered`` (K6, ``hot_rows
+   =256``) for 64 steps each: K5 or K6 and K1 once per step, W moved, and
+   the trained W and every step's losses bitwise equal to the ``hbm``
+   phase's ``fused_hbm`` run (same seeds, same chunks): the whole training
+   run is held against K4a.
+8. ``time`` — each kernel held against its plain version at its path's
    shapes, then it and its plain version timed with CUDA events beside the
    least time the card could take: K1 (ids bitwise) and K2 (ids bitwise,
    W′, C′ and loss within tolerance, repeat bitwise) at the main path's
    shapes (n = 10, V = 89,611, its noise table); K3 on n·B = 10,240 pairs
    gathered from random tables; K4a (ids bitwise, W′, C′ and loss within
    K2's tolerance, repeat bitwise; and with ``block_pairs >= B`` against
-   K2) and K4b (against its plain per-pair loop) at the main path's shapes.
-8. ``profile`` — the main path's and the ``random``/``rowgrad`` path's
-   training again under ``torch.profiler``: device time per step by kernel
-   (gathers and scatter apart) and the device's idle share of the training
-   loop (summary printed; ``chiprun_out/profile_{main,random}*.json``).
+   K2) and K4b (against its plain per-pair loop) at the main path's shapes;
+   K5 at ``ring_depth`` 2 and 3 and K6 at ``hot_rows`` 256, 2,048 and V
+   there too (ids bitwise; W′, C′ and loss bitwise K4a's, also with every
+   hazard flag set; within K2's tolerances of the plain version; repeat
+   bitwise); and at the reference's ``@zipf50k`` shape (n = 1, V = 50,000,
+   d = 512, B = 8,192, 64 blocks of 128) the planner's row traffic on the
+   card (91,386 and 59,692 rows at ``hot_rows`` 0 and 2,048) and K5 and K6
+   bitwise against, and timed beside, K4a.
+9. ``profile`` — the main path's, the ``random``/``rowgrad`` path's and
+   (after ``pipe``) the ``fused_pipe`` path's training again under
+   ``torch.profiler``: device time per step by kernel (gathers and scatter
+   apart) and the device's idle share of the training loop (summary
+   printed; ``chiprun_out/profile_{main,random,pipe}*.json``).
 
 It prints a ``{"kernels": [...]}`` JSON line, then the card's name and power
 limit as ``nvidia-smi`` reports them, then ``{"ok": true, ...}`` last. Any
@@ -88,14 +103,17 @@ K3_LOSS_ATOL = 1e-4
 # K4 against its plain version: K2's tolerances (the plain version's CUDA
 # index_add_ accumulates duplicate rows with atomics; K4b's plain loop is
 # a chain of batch-1 steps, reduced in another order than the kernel's).
+# K5 and K6 likewise against theirs; against K4a they are bitwise.
 
-PHASES = ("build", "k1", "k2", "main", "random", "hbm", "time", "profile")
+PHASES = ("build", "k1", "k2", "main", "random", "hbm", "pipe", "time", "profile")
 REPLACES = {
     "sample_negatives": "src/repro/kernels/sgns_fused.py:197",
     "sgns_fused_step": "src/repro/kernels/sgns_fused.py:105",
     "sgns_row_grads": "src/repro/kernels/sgns_update.py:52",
     "sgns_fused_hbm_step": "src/repro/kernels/sgns_fused_hbm.py:128",
     "sgns_fused_hbm_step_sequential": "src/repro/kernels/sgns_fused_hbm.py:185",
+    "sgns_fused_pipe_step": "src/repro/kernels/sgns_fused_pipe.py:419",
+    "sgns_fused_tiered_step": "src/repro/kernels/sgns_fused_tiered.py:94",
 }
 SOURCES = {
     "sample_negatives": "src/repro_torch/csrc/sample_negatives.cu",
@@ -103,6 +121,8 @@ SOURCES = {
     "sgns_row_grads": "src/repro_torch/csrc/sgns_row_grads.cu",
     "sgns_fused_hbm_step": "src/repro_torch/csrc/sgns_fused_hbm.cu",
     "sgns_fused_hbm_step_sequential": "src/repro_torch/csrc/sgns_fused_hbm.cu",
+    "sgns_fused_pipe_step": "src/repro_torch/csrc/sgns_fused_pipe.cu",
+    "sgns_fused_tiered_step": "src/repro_torch/csrc/sgns_fused_tiered.cu",
 }
 # The main path's configuration (examples/train_w2v_100m.py, cut to 64 steps).
 VOCAB = 100_000
@@ -399,14 +419,44 @@ def phase_hbm(device, block_pairs=256, sequential_steps=8):
     from repro_torch.core.engine import get_engine
 
     kw = train_kw("shuffle", get_engine("fused_hbm", block_pairs=block_pairs))
-    _, launches, taken = _train("hbm", device, kw,
-                                ("sgns_fused_hbm_step", "sample_negatives"))
+    res, launches, taken = _train("hbm", device, kw,
+                                  ("sgns_fused_hbm_step", "sample_negatives"))
     kw_seq = train_kw("shuffle", get_engine("fused_hbm", sequential=True))
     _, launches_seq, taken_seq = _train("hbm-seq", device, kw_seq,
                                         ("sgns_fused_hbm_step", "sample_negatives"),
                                         steps=sequential_steps)
     return {"launches": launches, "steps": taken, "launches_seq": launches_seq,
-            "steps_seq": taken_seq, "block_pairs": block_pairs}
+            "steps_seq": taken_seq, "block_pairs": block_pairs,
+            "W": res.stacked.models, "chunk_losses": res.chunk_losses}
+
+
+def phase_pipe(device, hbm: dict, hot_rows=256):
+    """The main configuration on ``fused_pipe`` (K5) and ``fused_tiered``
+    (K6) at the ``hbm`` phase's ``block_pairs``: the trained W and every
+    step's losses must be bitwise the ``fused_hbm`` run's."""
+    import numpy as np
+    import torch
+    from repro_torch.core.engine import get_engine
+
+    out = {}
+    for tag, engine, kernel in (
+            ("pipe", get_engine("fused_pipe", block_pairs=hbm["block_pairs"], ring_depth=2),
+             "sgns_fused_pipe_step"),
+            ("tiered", get_engine("fused_tiered", block_pairs=hbm["block_pairs"],
+                                  hot_rows=hot_rows), "sgns_fused_tiered_step")):
+        res, launches, taken = _train(tag, device, train_kw("shuffle", engine),
+                                      (kernel, "sample_negatives"))
+        same_w = torch.equal(res.stacked.models, hbm["W"])
+        same_loss = (len(res.chunk_losses) == len(hbm["chunk_losses"]) and all(
+            np.array_equal(a, b) for a, b in zip(res.chunk_losses, hbm["chunk_losses"])))
+        log(f"[{tag}] against the hbm phase's fused_hbm run: W bitwise equal: {same_w}; "
+            f"every step's losses bitwise equal: {same_loss}")
+        if not (same_w and same_loss):
+            raise RuntimeError(f"{engine.describe()} training differs from fused_hbm's")
+        out[tag] = {"launches": launches, "steps": taken,
+                    "train_kw": train_kw("shuffle", engine)}
+        del res
+    return out
 
 
 # ---------------------------------------------------------------------------
@@ -544,6 +594,21 @@ def phase_time(device, main: dict, rand: dict) -> dict:
     out["sgns_fused_hbm_step"]["one_block_vs_k2"] = {"max_abs_err": err_one,
                                                      "bitwise": bitwise_one}
 
+    # K5 and K6 at the main path's shapes: each configuration checked
+    # (against K4a bitwise, also with every hazard set; against its plain
+    # version), then timed.
+    k4a = sgns_fused_hbm_step({"W": W.clone(), "C": C.clone()}, centers, contexts, table,
+                              seeds, lr, negatives=K, **hbm_kw)
+    inputs = (W, C, centers, contexts, table, seeds, lr, K)
+    for key, label, kw in (
+            ("sgns_fused_pipe_step", "K5 ring 2", dict(ring_depth=2)),
+            ("sgns_fused_pipe_step@ring3", "K5 ring 3", dict(ring_depth=3)),
+            ("sgns_fused_tiered_step", "K6 hot 256", dict(hot_rows=256)),
+            ("sgns_fused_tiered_step@hot2048", "K6 hot 2048", dict(hot_rows=2048)),
+            ("sgns_fused_tiered_step@hotV", "K6 hot V", dict(hot_rows=V))):
+        out[key] = _check_and_time_pipe(label, k4a, inputs, blk, kw, k2_flops)
+    del k4a
+
     # K4b: word2vec's per-pair order against its plain per-pair loop.
     seq_kw = dict(sequential=True)
     k4s_err = _check_step("time", "K4b", sgns_fused_hbm_step, sgns_fused_hbm_step_plain,
@@ -597,7 +662,138 @@ def phase_time(device, main: dict, rand: dict) -> dict:
     log(f"[time] K2 touched rows per step: {out['sgns_fused_step']['touched_rows']}")
     log(f"[time] K4a touched rows per step, summed over blocks: "
         f"{out['sgns_fused_hbm_step']['touched_rows']}")
+    for name in [k for k in out if k.startswith("sgns_fused_pipe") or
+                 k.startswith("sgns_fused_tiered")]:
+        r = out[name]
+        log(f"[time] {name}: launch alone (apply order + kernel) {r['launch_ms']:.4f} ms; "
+            f"row traffic {r['row_traffic']} rows; {r['hazards']} of {r['blocks']} blocks "
+            f"with a hazard")
+    out["zipf50k"] = _zipf50k(device, lr)
     return out
+
+
+def _pipe_steps(kw: dict):
+    """K5's or K6's wrapper and plain version, by the dials."""
+    from repro_torch.kernels import sgns_fused_pipe as P
+    from repro_torch.kernels import sgns_fused_tiered as T
+
+    if "hot_rows" in kw:
+        return T.sgns_fused_tiered_step, T.sgns_fused_tiered_step_plain
+    return P.sgns_fused_pipe_step, P.sgns_fused_pipe_step_plain
+
+
+def _pipe_bytes(plan, traffic: int, d: int, n: int, B: int, K: int) -> int:
+    """The least bytes a K5/K6 step moves: the planner's row transfers,
+    the plan's tensors read once, the ids and the loss, the draw's table
+    entries and seeds."""
+    plan_bytes = sum(t.numel() * t.element_size() for t in plan)
+    return (traffic * d * 4 + plan_bytes + n * B * (4 + 4 + 4)
+            + n * B * K * 8 + n * 8)
+
+
+def _check_and_time_pipe(label, k4a, inputs, blk, kw, flops) -> dict:
+    """One K5/K6 configuration at the main path's shapes: against its
+    plain version (ids bitwise, tolerance, repeat bitwise), bitwise against
+    the K4a step ``k4a`` on the same inputs, and so again with every
+    hazard flag set; then timed beside its plain version, and its launch
+    alone (apply order + kernel) on a fixed plan."""
+    import torch
+    from repro_torch.kernels.sgns_fused_pipe import plan_blocks, plan_row_traffic, run_plan
+
+    W, C, centers, contexts, table, seeds, lr, K = inputs
+    device = W.device
+    n, V, d = W.shape
+    B = centers.shape[1]
+    step, plain = _pipe_steps(kw)
+    kw = dict(kw, block_pairs=blk)
+    hot, S = min(kw.get("hot_rows", 0), V), kw.get("ring_depth", 2)
+    err = _check_step("time", label, step, plain, W, C, centers, contexts, table, seeds, lr,
+                      K, repeat=True, **kw)
+    ref_p, ref_l, ref_ids = k4a
+    p, loss, ids = step({"W": W.clone(), "C": C.clone()}, centers, contexts, table, seeds,
+                        lr, negatives=K, **kw)
+    plan = plan_blocks(centers, contexts, ids, V, blk, hot_rows=hot, ring_depth=S)
+    ph = {"W": W.clone(), "C": C.clone()}
+    lh = run_plan(ph, plan._replace(hazard=torch.ones_like(plan.hazard)), lr, B,
+                  hot_rows=hot, ring_depth=S)
+    torch.cuda.synchronize(device)
+    same = (torch.equal(ids, ref_ids) and torch.equal(loss, ref_l)
+            and all(torch.equal(p[k], ref_p[k]) for k in ("W", "C")))
+    same_hz = torch.equal(lh, ref_l) and all(torch.equal(ph[k], ref_p[k]) for k in ("W", "C"))
+    log(f"[time] {label}: ids, W′, C′ and loss bitwise K4a's: {same}; with every hazard "
+        f"flag set: {same_hz}")
+    del p, ph
+    if not (same and same_hz):
+        raise RuntimeError(f"{label} is not bitwise equal to K4a")
+    pk = {"W": W.clone(), "C": C.clone()}
+    ms = _time_ms(lambda: step(pk, centers, contexts, table, seeds, lr, negatives=K, **kw),
+                  device, reps=20)
+    launch_ms = _time_ms(lambda: run_plan(pk, plan, lr, B, hot_rows=hot, ring_depth=S),
+                         device, reps=20)
+    del pk
+    pp = {"W": W.clone(), "C": C.clone()}
+    plain_ms = _time_ms(lambda: plain(pp, centers, contexts, table, seeds, lr, negatives=K,
+                                      **kw), device, reps=5, warmup=1)
+    del pp
+    traffic = plan_row_traffic(plan, hot)
+    r = _bound(ms, plain_ms, _pipe_bytes(plan, traffic, d, n, B, K), flops)
+    r.update(max_abs_err=err, launch_ms=launch_ms, row_traffic=traffic,
+             hazards=int((plan.hazard != 0).sum()), blocks=plan.hazard.numel())
+    return r
+
+
+def _zipf50k(device, lr) -> dict:
+    """The reference's ``@zipf50k`` shape: the planner's row traffic on the
+    card at ``hot_rows`` 0 and 2,048 (the reference counts 91,386 and
+    59,692), then K4a, K5 and K6 (hot 2,048) at ``block_pairs=128`` on
+    random tables — K5 and K6 bitwise K4a's — each timed."""
+    import torch
+    from repro_torch.analysis.workloads import ZIPF50K, zipf50k_ids, zipf50k_row_traffic
+    from repro_torch.kernels.sgns_fused_hbm import sgns_fused_hbm_step
+    from repro_torch.kernels.sgns_fused_pipe import plan_blocks, plan_row_traffic
+
+    V, d, B, K = ZIPF50K["V"], ZIPF50K["D"], ZIPF50K["B"], ZIPF50K["K"]
+    blk, hot = ZIPF50K["BLK"], ZIPF50K["HOT"]
+    traffic = {h: zipf50k_row_traffic(h, device) for h in (0, hot)}
+    log(f"[time] @zipf50k planner row traffic on {device}: {traffic[0]} rows at "
+        f"hot_rows=0, {traffic[hot]} at hot_rows={hot}")
+    if (traffic[0], traffic[hot]) != (91_386, 59_692):
+        raise RuntimeError(f"@zipf50k row traffic {traffic} != the reference's "
+                           f"(91386, 59692)")
+    c, x, _, table, seeds = zipf50k_ids(device)
+    gen = torch.Generator(device=device).manual_seed(11)
+    W = 0.1 * torch.randn((1, V, d), generator=gen, device=device)
+    C = 0.1 * torch.randn((1, V, d), generator=gen, device=device)
+    steps = (("sgns_fused_hbm_step", sgns_fused_hbm_step, {}),
+             ("sgns_fused_pipe_step", _pipe_steps({})[0], {}),
+             ("sgns_fused_tiered_step", _pipe_steps({"hot_rows": hot})[0],
+              {"hot_rows": hot}))
+    ref = None
+    res = {}
+    for name, step, kw in steps:
+        p, loss, ids = step({"W": W.clone(), "C": C.clone()}, c, x, table, seeds, lr,
+                            negatives=K, block_pairs=blk, **kw)
+        torch.cuda.synchronize(device)
+        if ref is None:
+            ref = (p, loss, ids)
+        same = (torch.equal(loss, ref[1]) and torch.equal(ids, ref[2])
+                and all(torch.equal(p[k], ref[0][k]) for k in ("W", "C")))
+        pk = {"W": W.clone(), "C": C.clone()}
+        ms = _time_ms(lambda: step(pk, c, x, table, seeds, lr, negatives=K, block_pairs=blk,
+                                   **kw), device, reps=20)
+        del pk
+        h = kw.get("hot_rows", 0)
+        plan = plan_blocks(c, x, ids, V, blk, hot_rows=h)
+        rows = plan_row_traffic(plan, h)
+        nbytes = _pipe_bytes(plan, rows, d, 1, B, K)
+        res[name] = {"ms": ms, "row_traffic": rows, "bytes": nbytes,
+                     "bound_ms": nbytes / PEAK_BYTES_PER_S * 1e3, "bitwise_k4a": same}
+        log(f"[time] @zipf50k {name} (block_pairs={blk}{f', hot_rows={h}' if h else ''}): "
+            f"{ms:.4f} ms; bitwise K4a's: {same}; row traffic {rows} rows, bound "
+            f"{res[name]['bound_ms']:.5f} ms ({nbytes} B)")
+        if not same:
+            raise RuntimeError(f"@zipf50k {name} is not bitwise equal to K4a")
+    return res
 
 
 def _check_k3(tag, w, c_pos, c_neg) -> float:
@@ -625,6 +821,11 @@ def _check_k3(tag, w, c_pos, c_neg) -> float:
 PROFILE_GROUPS = {
     "main": (("K2 phase 1", ("sgns_pairs_kernel",)), ("K2 apply", ("sgns_apply_kernel",)),
              ("K1", ("sample_negatives_kernel",)), ("planning sorts", ("sort",)),
+             ("copies", ("memcpy",))),
+    # "searchsorted" before "sort": a name goes to the first group it matches
+    "pipe": (("K5", ("pipe_kernel",)), ("K1", ("sample_negatives_kernel",)),
+             ("searchsorted (planner)", ("searchsorted",)),
+             ("sorts (planner, apply order)", ("sort",)),
              ("copies", ("memcpy",))),
     "random": (("K3", ("sgns_row_grads_kernel",)),
                ("scatter (index_add_)", ("indexfunc", "index_add")),
@@ -727,6 +928,8 @@ def main(argv=None) -> int:
         ap.error(f"unknown phases {sorted(unknown)}")
     if {"time", "profile"} & set(phases) and not {"main", "random"} <= set(phases):
         ap.error("the time and profile phases need the main and random phases")
+    if "pipe" in phases and "hbm" not in phases:
+        ap.error("the pipe phase needs the hbm phase")
 
     import torch
 
@@ -761,11 +964,16 @@ def main(argv=None) -> int:
     if "hbm" in phases:
         results["hbm"] = phase_hbm(device)
         torch.cuda.empty_cache()
+    if "pipe" in phases:
+        results["pipe"] = phase_pipe(device, results["hbm"])
+        torch.cuda.empty_cache()
     if "time" in phases:
         results["time"] = phase_time(device, results["main"], results["random"])
     if "profile" in phases:
         phase_profile(device, "main", results["main"]["train_kw"])
         phase_profile(device, "random", results["random"]["train_kw"])
+        if "pipe" in results:
+            phase_profile(device, "pipe", results["pipe"]["pipe"]["train_kw"])
 
     if set(PHASES) - {"build", "profile"} <= set(phases):
         # launches: each kernel's count over its own path's training run
@@ -776,6 +984,10 @@ def main(argv=None) -> int:
             "sgns_fused_hbm_step": results["hbm"]["launches"]["sgns_fused_hbm_step"],
             "sgns_fused_hbm_step_sequential":
                 results["hbm"]["launches_seq"]["sgns_fused_hbm_step"],
+            "sgns_fused_pipe_step":
+                results["pipe"]["pipe"]["launches"]["sgns_fused_pipe_step"],
+            "sgns_fused_tiered_step":
+                results["pipe"]["tiered"]["launches"]["sgns_fused_tiered_step"],
         }
         kernels = []
         for name, n_launches in launches.items():

@@ -30,6 +30,17 @@ Registry (``get_engine``):
     order (``kernels/sgns_fused_hbm.py``, K4). Fields ``block_pairs`` (a
     shorter tail block covers any remainder) and ``sequential``. The
     counterpart of ``pallas_fused_hbm``.
+``fused_pipe``
+    The same block chain in one kernel launch a step, each block's rows
+    deduplicated and staged through a ring of ``ring_depth`` slots
+    (``kernels/sgns_fused_pipe.py``, K5); bitwise ``fused_hbm`` at the
+    same ``block_pairs``. ``sequential=True`` runs K4b. The counterpart of
+    ``pallas_fused_pipe``.
+``fused_tiered``
+    ``fused_pipe`` with the ``hot_rows`` most frequent rows of each table
+    kept in a per-worker hot copy for the whole step
+    (``kernels/sgns_fused_tiered.py``, K6); bitwise ``fused_hbm`` too. The
+    counterpart of ``pallas_fused_tiered``.
 
 Engine specs are engine instances or strings, optionally carrying a
 sampler: ``"sparse"``, ``"sparse:alias"``, ``"rowgrad:cdf"``. ``dense``,
@@ -207,18 +218,101 @@ class FusedHBMEngine(FusedEngine):
         return step
 
 
+@dataclass(frozen=True)
+class FusedPipeEngine(FusedHBMEngine):
+    """The block chain in one kernel launch a step (K5): each block
+    gathers its unique rows once into a ring slot and writes each back
+    once, hazard-ordered by the block planner. Bitwise ``fused_hbm`` at
+    the same ``block_pairs``.
+
+    ``ring_depth`` — ring slots (>= 2): a deeper ring lets more blocks'
+    write-backs stay in flight before a slot is reused.
+    ``sequential`` — word2vec's per-pair order cannot be pipelined;
+    ``True`` runs ``fused_hbm``'s sequential kernel (K4b).
+    """
+
+    ring_depth: int = 2
+    name = "fused_pipe"
+
+    def __post_init__(self):
+        super().__post_init__()
+        if self.ring_depth < 2:
+            raise ValueError(
+                f"{self.name} needs ring_depth >= 2 (gathers of block b+1 must "
+                f"overlap scatters of block b), got {self.ring_depth}")
+
+    def _step_fn(self):
+        from repro_torch.kernels.sgns_fused_pipe import sgns_fused_pipe_step
+
+        return sgns_fused_pipe_step, {"ring_depth": self.ring_depth}
+
+    def make_step(self, cfg: SGNSConfig, total_steps: int):
+        if self.sequential:
+            return FusedHBMEngine.make_step(self, cfg, total_steps)
+        fn, dials = self._step_fn()
+
+        def step(params, centers, contexts, neg_table, seeds, step_idx):
+            lr = sgns.linear_lr(step_idx, total_steps, cfg)
+            params, loss, _ = fn(params, centers, contexts, neg_table, seeds, float(lr),
+                                 negatives=cfg.negatives, block_pairs=self.block_pairs,
+                                 **dials)
+            return params, loss.mean(dim=1)
+
+        return step
+
+
+@dataclass(frozen=True)
+class FusedTieredEngine(FusedPipeEngine):
+    """``fused_pipe`` with a hot tier (K6): rows ``[0, hot_rows)`` — the
+    most frequent, since vocab ids are frequency-sorted — are read and
+    updated in a per-worker copy for the whole step; the rest go through
+    the ring. Bitwise ``fused_hbm`` at every ``hot_rows``.
+
+    ``hot_rows`` — rows in the hot tier (>= 0; 0 is ``fused_pipe``). The
+    trainer rejects ``hot_rows > V`` (:meth:`validate`); direct kernel
+    calls clamp.
+    """
+
+    hot_rows: int = 256
+    name = "fused_tiered"
+
+    def __post_init__(self):
+        super().__post_init__()
+        if self.hot_rows < 0:
+            raise ValueError(f"{self.name} needs hot_rows >= 0, got {self.hot_rows}")
+
+    def validate(self, *, vocab_size: int | None = None) -> None:
+        """Reject a hot tier larger than the table it is a prefix of."""
+        super().validate(vocab_size=vocab_size)
+        if vocab_size and self.hot_rows > vocab_size:
+            raise ValueError(
+                f"{self.name} hot_rows={self.hot_rows} exceeds vocab_size={vocab_size}; "
+                f"the hot tier is a prefix of the (V, d) table — use hot_rows <= V "
+                f"(hot_rows=V keeps every row in the hot tier)")
+
+    def _step_fn(self):
+        from repro_torch.kernels.sgns_fused_tiered import sgns_fused_tiered_step
+
+        return sgns_fused_tiered_step, {"ring_depth": self.ring_depth,
+                                        "hot_rows": self.hot_rows}
+
+
 ENGINES: dict[str, type[UpdateEngine]] = {
     "dense": DenseEngine,
     "sparse": SparseEngine,
     "rowgrad": RowGradEngine,
     "fused": FusedEngine,
     "fused_hbm": FusedHBMEngine,
+    "fused_pipe": FusedPipeEngine,
+    "fused_tiered": FusedTieredEngine,
 }
 ENGINE_NAMES = tuple(ENGINES)
 
 #: The JAX package's engine each port engine is held against.
 REFERENCE_ENGINE = {"dense": "dense", "sparse": "sparse", "rowgrad": "pallas",
-                    "fused": "pallas_fused", "fused_hbm": "pallas_fused_hbm"}
+                    "fused": "pallas_fused", "fused_hbm": "pallas_fused_hbm",
+                    "fused_pipe": "pallas_fused_pipe",
+                    "fused_tiered": "pallas_fused_tiered"}
 
 
 def get_engine(spec: str | UpdateEngine = "fused", **overrides) -> UpdateEngine:

@@ -1,5 +1,6 @@
 // Device code shared by the SGNS step kernels: K2 (`sgns_fused_step.cu`),
-// K3 (`sgns_row_grads.cu`) and K4 (`sgns_fused_hbm.cu`).
+// K3 (`sgns_row_grads.cu`), K4 (`sgns_fused_hbm.cu`) and, through
+// `sgns_pipe.cuh`, K5 and K6 (`sgns_fused_pipe.cu`, `sgns_fused_tiered.cu`).
 //
 // * 16-byte or scalar row loads, warp reductions, and the loss and sigmoid
 //   forms of the JAX package's kernels;
@@ -13,7 +14,8 @@
 //       each worker's stably sorted touched-row list: applies that row's
 //       addends one by one in pair order and stores the row once. No float
 //       atomics, so the same inputs give the same bits on every run.
-//   K2 runs them once over the whole batch; K4 once per pair block.
+//   K2 runs them once over the whole batch; K4 once per pair block. K5 and K6
+//   run the pair body (`pair_step`) on rows staged in their ring.
 //
 // Rounding: every product and sum of the apply and of dW is a separate
 // round-to-nearest operation (__fmul_rn/__fadd_rn, never contracted into an
@@ -73,36 +75,17 @@ __device__ __forceinline__ float sigmoid(float x) {
 }
 
 // ---------------------------------------------------------------------------
-// Phase 1: one warp per (worker, pair p in [p0, p0 + nb)). W, C (n, V, d);
-// centers, contexts (n, B); ids (n, B, K); loss (n, B); coef (n, B, K + 1)
-// and dW (n, B, d) scratch. LOGSIG picks the loss form.
+// One pair's forward and row gradients, by one warp: the K + 1 dot products
+// of `wrow` with `cpos` and the `cneg` rows (per-lane partial sums, then warp
+// reductions), the loss (LOGSIG picks its form), the K + 1 sigmoid
+// coefficients and dW = g_pos c_pos + sum_k g_k c_k, summed over k in order.
+// Writes *loss_out, coef_out[0 .. K] and dw_out[0 .. d).
 // ---------------------------------------------------------------------------
 template <int VEC, bool LOGSIG>
-__global__ void __launch_bounds__(kWarps * 32)
-sgns_pairs_kernel(const float* __restrict__ W, const float* __restrict__ C,
-                  const int* __restrict__ centers, const int* __restrict__ contexts,
-                  const int* __restrict__ ids, int V, int d, int B, int K, int p0,
-                  int nb, float* __restrict__ loss, float* __restrict__ coef,
-                  float* __restrict__ dW) {
-  const int w = blockIdx.y;
-  const int lane = threadIdx.x & 31;
-  const int p = p0 + blockIdx.x * kWarps + (threadIdx.x >> 5);
-  if (p >= p0 + nb) return;
-  const long long wp = static_cast<long long>(w) * B + p;
-  const long long table = static_cast<long long>(w) * V;
-
-  const int my_id = lane < K ? ids[wp * K + lane] : 0;
-  const float* Wt = W + table * d;
-  const float* Ct = C + table * d;
-  const float* wrow = Wt + static_cast<long long>(centers[wp]) * d;
-  const float* cpos = Ct + static_cast<long long>(contexts[wp]) * d;
-  const float* cneg[kMaxNegatives];
-#pragma unroll
-  for (int k = 0; k < kMaxNegatives; ++k) {
-    const int id = __shfl_sync(kFull, my_id, k < K ? k : 0);
-    cneg[k] = Ct + static_cast<long long>(id) * d;
-  }
-
+__device__ __forceinline__ void pair_step(const float* wrow, const float* cpos,
+                                          const float* const (&cneg)[kMaxNegatives], int K,
+                                          int d, int lane, float* loss_out, float* coef_out,
+                                          float* dw_out) {
   // K + 1 dot products: per-lane partial sums, then warp reductions.
   float s_pos = 0.0f;
   float s_neg[kMaxNegatives];
@@ -138,18 +121,17 @@ sgns_pairs_kernel(const float* __restrict__ W, const float* __restrict__ C,
   }
   const float g_pos = sigmoid(s_pos) - 1.0f;
   if (lane == 0) {
-    loss[wp] = LOGSIG ? -log_sigmoid(s_pos) - l_neg : softplus(-s_pos) + l_neg;
-    coef[wp * (K + 1)] = g_pos;
+    *loss_out = LOGSIG ? -log_sigmoid(s_pos) - l_neg : softplus(-s_pos) + l_neg;
+    coef_out[0] = g_pos;
   }
   float g_lane = 0.0f;   // g_neg[lane], without dynamic register indexing
 #pragma unroll
   for (int k = 0; k < kMaxNegatives; ++k) {
     if (k == lane) g_lane = g_neg[k];
   }
-  if (lane < K) coef[wp * (K + 1) + 1 + lane] = g_lane;
+  if (lane < K) coef_out[1 + lane] = g_lane;
 
   // dW = g_pos * c_pos + sum_k g_k * c_k, summed over k in order.
-  float* dwrow = dW + wp * d;
   for (int e = lane * VEC; e < d; e += 32 * VEC) {
     float acc[VEC], cv[VEC];
     load_vec<VEC>(cneg[0] + e, cv);
@@ -166,8 +148,42 @@ sgns_pairs_kernel(const float* __restrict__ W, const float* __restrict__ C,
     load_vec<VEC>(cpos + e, cv);
 #pragma unroll
     for (int v = 0; v < VEC; ++v) acc[v] = __fadd_rn(__fmul_rn(g_pos, cv[v]), acc[v]);
-    store_vec<VEC>(dwrow + e, acc);
+    store_vec<VEC>(dw_out + e, acc);
   }
+}
+
+// ---------------------------------------------------------------------------
+// Phase 1: one warp per (worker, pair p in [p0, p0 + nb)). W, C (n, V, d);
+// centers, contexts (n, B); ids (n, B, K); loss (n, B); coef (n, B, K + 1)
+// and dW (n, B, d) scratch. LOGSIG picks the loss form.
+// ---------------------------------------------------------------------------
+template <int VEC, bool LOGSIG>
+__global__ void __launch_bounds__(kWarps * 32)
+sgns_pairs_kernel(const float* __restrict__ W, const float* __restrict__ C,
+                  const int* __restrict__ centers, const int* __restrict__ contexts,
+                  const int* __restrict__ ids, int V, int d, int B, int K, int p0,
+                  int nb, float* __restrict__ loss, float* __restrict__ coef,
+                  float* __restrict__ dW) {
+  const int w = blockIdx.y;
+  const int lane = threadIdx.x & 31;
+  const int p = p0 + blockIdx.x * kWarps + (threadIdx.x >> 5);
+  if (p >= p0 + nb) return;
+  const long long wp = static_cast<long long>(w) * B + p;
+  const long long table = static_cast<long long>(w) * V;
+
+  const int my_id = lane < K ? ids[wp * K + lane] : 0;
+  const float* Wt = W + table * d;
+  const float* Ct = C + table * d;
+  const float* wrow = Wt + static_cast<long long>(centers[wp]) * d;
+  const float* cpos = Ct + static_cast<long long>(contexts[wp]) * d;
+  const float* cneg[kMaxNegatives];
+#pragma unroll
+  for (int k = 0; k < kMaxNegatives; ++k) {
+    const int id = __shfl_sync(kFull, my_id, k < K ? k : 0);
+    cneg[k] = Ct + static_cast<long long>(id) * d;
+  }
+  pair_step<VEC, LOGSIG>(wrow, cpos, cneg, K, d, lane, loss + wp, coef + wp * (K + 1),
+                         dW + wp * d);
 }
 
 // ---------------------------------------------------------------------------

@@ -10,5 +10,10 @@ with their plain torch versions and wrappers.
   reference's ``kernels/ops.py`` contract, ``ref`` holds its oracle.
 * ``sgns_fused_hbm`` — K4 ``sgns_fused_hbm_step`` (the step as a chain of
   pair blocks, or pair by pair). Powers the ``fused_hbm`` engine.
+* ``sgns_fused_pipe`` — K5 ``sgns_fused_pipe_step`` (the block chain in
+  one launch, each block's rows deduplicated through a ring), with the
+  block planner (``plan_blocks``) and the schedule. Powers ``fused_pipe``.
+* ``sgns_fused_tiered`` — K6 ``sgns_fused_tiered_step`` (K5 with a hot
+  tier of the most frequent rows). Powers ``fused_tiered``.
 * ``build`` — ``nvcc`` build and ``ctypes`` loading of the sources.
 """

@@ -145,3 +145,89 @@ def test_sgns_fused_hbm_one_block_equals_the_fused_step(device):
     for k in ("W", "C"):
         assert torch.equal(ph[k], pf[k])
     assert float((lh - lf).abs().max()) <= 1e-5
+
+
+# K5 and K6 against K4a: the same draw, the same pair body, the same addends
+# in the same order per row, so the tables and the loss are bitwise K4a's at
+# the same block size, at every ring depth and hot tier and under any hazard
+# vector; against their plain versions within K2's tolerances.
+@pytest.mark.parametrize("d", (48, 50))          # 16-byte path and scalar path
+@pytest.mark.parametrize("ring_depth", (2, 3))
+def test_sgns_fused_pipe_kernel_bitwise_equals_hbm(device, d, ring_depth):
+    from repro_torch.kernels import sgns_fused_hbm as H
+    from repro_torch.kernels import sgns_fused_pipe as P
+
+    W, C, cen, ctx, t, seeds = _hbm_inputs(device, d)
+    kw = dict(negatives=5, block_pairs=128)
+    ph, lh, ih = H.sgns_fused_hbm_step({"W": W.clone(), "C": C.clone()}, cen, ctx, t, seeds,
+                                       0.05, **kw)
+    outs = []
+    for _ in range(2):
+        before = K.LAUNCHES["sgns_fused_pipe_step"]
+        p = {"W": W.clone(), "C": C.clone()}
+        outs.append(P.sgns_fused_pipe_step(p, cen, ctx, t, seeds, 0.05,
+                                           ring_depth=ring_depth, **kw))
+        assert K.LAUNCHES["sgns_fused_pipe_step"] == before + 1
+    plain = P.sgns_fused_pipe_step_plain({"W": W.clone(), "C": C.clone()}, cen, ctx, t,
+                                         seeds, 0.05, ring_depth=ring_depth, **kw)
+    (p1, l1, i1), (p2, l2, i2) = outs
+    assert torch.equal(i1, ih) and torch.equal(i1, plain[2])
+    assert torch.equal(l1, lh) and torch.equal(l1, l2)
+    for k in ("W", "C"):
+        assert torch.equal(p1[k], ph[k]) and torch.equal(p1[k], p2[k])
+        assert float((p1[k] - plain[0][k]).abs().max()) <= 1e-5
+    assert float((l1 - plain[1]).abs().max()) <= 1e-4
+    # all-ones hazards: every gather waits for the write-backs; same bits
+    B = cen.shape[1]
+    plan = P.plan_blocks(cen, ctx, i1, W.shape[1], 128, ring_depth=ring_depth)
+    p3 = {"W": W.clone(), "C": C.clone()}
+    l3 = P.run_plan(p3, plan._replace(hazard=torch.ones_like(plan.hazard)), 0.05, B,
+                    ring_depth=ring_depth)
+    assert torch.equal(l3, lh)
+    for k in ("W", "C"):
+        assert torch.equal(p3[k], ph[k])
+
+
+@pytest.mark.parametrize("d", (48, 50))
+@pytest.mark.parametrize("hot_rows", (1, 256, 5000))
+def test_sgns_fused_tiered_kernel_bitwise_equals_hbm(device, d, hot_rows):
+    from repro_torch.kernels import sgns_fused_hbm as H
+    from repro_torch.kernels import sgns_fused_pipe as P
+    from repro_torch.kernels import sgns_fused_tiered as T
+
+    W, C, cen, ctx, t, seeds = _hbm_inputs(device, d)       # V = 5000
+    kw = dict(negatives=5, block_pairs=128)
+    ph, lh, _ = H.sgns_fused_hbm_step({"W": W.clone(), "C": C.clone()}, cen, ctx, t, seeds,
+                                      0.05, **kw)
+    outs = []
+    for _ in range(2):
+        before = K.LAUNCHES["sgns_fused_tiered_step"]
+        p = {"W": W.clone(), "C": C.clone()}
+        outs.append(T.sgns_fused_tiered_step(p, cen, ctx, t, seeds, 0.05, hot_rows=hot_rows,
+                                             **kw))
+        assert K.LAUNCHES["sgns_fused_tiered_step"] == before + 1
+    plain = T.sgns_fused_tiered_step_plain({"W": W.clone(), "C": C.clone()}, cen, ctx, t,
+                                           seeds, 0.05, hot_rows=hot_rows, **kw)
+    (p1, l1, i1), (p2, l2, _) = outs
+    assert torch.equal(l1, lh) and torch.equal(l1, l2)
+    for k in ("W", "C"):
+        assert torch.equal(p1[k], ph[k]) and torch.equal(p1[k], p2[k])
+        assert float((p1[k] - plain[0][k]).abs().max()) <= 1e-5
+    assert float((l1 - plain[1]).abs().max()) <= 1e-4
+    plan = P.plan_blocks(cen, ctx, i1, W.shape[1], 128, hot_rows=hot_rows)
+    p3 = {"W": W.clone(), "C": C.clone()}
+    P.run_plan(p3, plan._replace(hazard=torch.ones_like(plan.hazard)), 0.05, cen.shape[1],
+               hot_rows=hot_rows)
+    for k in ("W", "C"):
+        assert torch.equal(p3[k], ph[k])
+
+
+def test_sgns_fused_tiered_with_no_hot_rows_runs_k5(device):
+    from repro_torch.kernels import sgns_fused_tiered as T
+
+    W, C, cen, ctx, t, seeds = _hbm_inputs(device, 48)
+    before = dict(K.LAUNCHES)
+    T.sgns_fused_tiered_step({"W": W.clone(), "C": C.clone()}, cen, ctx, t, seeds, 0.05,
+                             negatives=5, block_pairs=128, hot_rows=0)
+    assert K.LAUNCHES["sgns_fused_pipe_step"] == before["sgns_fused_pipe_step"] + 1
+    assert K.LAUNCHES["sgns_fused_tiered_step"] == before["sgns_fused_tiered_step"]

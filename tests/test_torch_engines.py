@@ -3,9 +3,9 @@
 * the engine registry, spec parsing and dial errors, as
   ``tests/test_engine.py`` checks the reference's;
 * one step of every engine (``dense``, ``sparse:cdf``, ``sparse:alias``,
-  ``rowgrad``, ``fused_hbm`` by blocks and pair by pair) for n = 3
-  workers against ``jax.vmap`` of its reference engine on the same
-  params, ids and keys;
+  ``rowgrad``, ``fused_hbm`` by blocks and pair by pair, ``fused_pipe``,
+  ``fused_tiered``) for n = 3 workers against ``jax.vmap`` of its
+  reference engine on the same params, ids and keys;
 * K3's plain version against the reference's Pallas kernel (interpret
   mode, which pads d to 128 lanes) and its jnp oracle;
 * K4's plain versions against ``sgns_fused_hbm_step(interpret=True)``,
@@ -36,7 +36,8 @@ from repro_torch import convert, prng
 from repro_torch.core import sgns as tsgns
 from repro_torch.core.engine import (
     ENGINE_NAMES, REFERENCE_ENGINE, DenseEngine, FusedEngine, FusedHBMEngine,
-    RowGradEngine, SparseEngine, UpdateEngine, get_engine)
+    FusedPipeEngine, FusedTieredEngine, RowGradEngine, SparseEngine, UpdateEngine,
+    get_engine)
 from repro_torch.core.sgns import SGNSConfig as TCfg
 from repro_torch.data.pairs import stack_noise_tables as t_stack_tables
 from repro_torch.kernels import ops, ref
@@ -51,7 +52,8 @@ N_WORKERS, V, D, B, NEG = 3, 200, 24, 21, 5
 
 # ------------------------------------------------------------------ registry
 def test_registry_resolves_all_names():
-    assert ENGINE_NAMES == ("dense", "sparse", "rowgrad", "fused", "fused_hbm")
+    assert ENGINE_NAMES == ("dense", "sparse", "rowgrad", "fused", "fused_hbm",
+                            "fused_pipe", "fused_tiered")
     for name in ENGINE_NAMES:
         eng = get_engine(name)
         assert isinstance(eng, UpdateEngine) and eng.name == name
@@ -95,6 +97,8 @@ def test_fused_engines_are_alias_only():
         get_engine("fused:cdf")
     with pytest.raises(ValueError, match="alias"):
         get_engine("fused_hbm:cdf")
+    with pytest.raises(ValueError, match="alias"):
+        get_engine("fused_tiered:cdf")
 
 
 def test_fused_hbm_fields_and_dials():
@@ -107,6 +111,55 @@ def test_fused_hbm_fields_and_dials():
         get_engine("fused_hbm", block_pairs=0)
     with pytest.raises(ValueError, match="block_pairs >= 1"):
         get_engine("fused_hbm", block_pairs=-3)
+
+
+def test_fused_pipe_and_tiered_fields_dials_and_validate():
+    pipe, tiered = get_engine("fused_pipe"), get_engine("fused_tiered")
+    assert isinstance(pipe, FusedPipeEngine) and isinstance(pipe, FusedHBMEngine)
+    assert isinstance(tiered, FusedTieredEngine) and isinstance(tiered, FusedPipeEngine)
+    assert (pipe.block_pairs, pipe.ring_depth, pipe.sequential) == (256, 2, False)
+    assert (tiered.block_pairs, tiered.ring_depth, tiered.hot_rows) == (256, 2, 256)
+    assert get_engine("fused_pipe", ring_depth=3).ring_depth == 3
+    assert get_engine(tiered, hot_rows=0).hot_rows == 0
+    for bad in (1, 0, -2):
+        with pytest.raises(ValueError, match="ring_depth >= 2"):
+            get_engine("fused_pipe", ring_depth=bad)
+        with pytest.raises(ValueError, match="ring_depth >= 2"):
+            get_engine("fused_tiered", ring_depth=bad)
+    with pytest.raises(ValueError, match="hot_rows >= 0"):
+        get_engine("fused_tiered", hot_rows=-1)
+    with pytest.raises(ValueError, match="block_pairs >= 1"):
+        get_engine("fused_tiered", block_pairs=0)
+    tiered.validate(vocab_size=256)                 # hot_rows == V is allowed
+    tiered.validate(vocab_size=None)
+    with pytest.raises(ValueError, match="exceeds vocab_size"):
+        tiered.validate(vocab_size=255)
+    from repro_torch.core.async_trainer import AsyncShardTrainer
+
+    with pytest.raises(ValueError, match="exceeds vocab_size"):
+        AsyncShardTrainer(cfg=TCfg(vocab_size=100, dim=8), num_workers=1, total_steps=1,
+                          engine=get_engine("fused_tiered", hot_rows=101), device="cpu")
+
+
+def test_fused_pipe_sequential_runs_the_sequential_kernel(world):
+    """``sequential=True`` on either block engine is ``fused_hbm``'s
+    per-pair step (K4b), as the reference's engines fall back."""
+    cfg = TCfg(vocab_size=V, dim=D, negatives=NEG)
+    tt = t_stack_tables(world["counts"], kind="alias")
+    seeds = K.seed_tensor(world["keys"])
+    runs = []
+    for spec in ("fused_hbm", "fused_pipe", "fused_tiered"):
+        step = get_engine(spec, block_pairs=8, sequential=True).make_step(cfg, 100)
+        runs.append(step(_tparams(world), torch.from_numpy(world["c"]),
+                         torch.from_numpy(world["x"]), tt, seeds, 7))
+    blocks = get_engine("fused_pipe", block_pairs=8).make_step(cfg, 100)(
+        _tparams(world), torch.from_numpy(world["c"]), torch.from_numpy(world["x"]), tt,
+        seeds, 7)
+    for p, loss in runs[1:]:
+        assert torch.equal(loss, runs[0][1])
+        for k in ("W", "C"):
+            assert torch.equal(p[k], runs[0][0][k])
+    assert not torch.equal(blocks[0]["C"], runs[0][0]["C"])
 
 
 # ------------------------------------------------------------- one step
@@ -132,7 +185,10 @@ def _tparams(w):
 ENGINE_CASES = (("dense", {}), ("sparse:cdf", {}), ("sparse:alias", {}),
                 ("rowgrad", {}), ("rowgrad:alias", {}),
                 ("fused_hbm", {"block_pairs": 8}),
-                ("fused_hbm", {"block_pairs": 8, "sequential": True}))
+                ("fused_hbm", {"block_pairs": 8, "sequential": True}),
+                ("fused_pipe", {"block_pairs": 8}),
+                ("fused_pipe", {"block_pairs": 8, "ring_depth": 3}),
+                ("fused_tiered", {"block_pairs": 8, "hot_rows": 16}))
 
 
 @pytest.mark.parametrize("spec,dials", ENGINE_CASES,
@@ -411,8 +467,12 @@ def test_trainer_runs_every_engine_and_the_loss_drops():
     c = rng.integers(0, 30, (n, S, Bt)).astype(np.int32)
     x = ((c + 1) % 30).astype(np.int32)
     counts = [rng.zipf(1.3, cfg.vocab_size).astype(np.float64)] * n
-    for spec in ("dense", "sparse:alias", "rowgrad", "fused_hbm"):
-        eng = get_engine(spec, **({"block_pairs": 16} if spec == "fused_hbm" else {}))
+    for spec in ("dense", "sparse:alias", "rowgrad", "fused_hbm", "fused_pipe",
+                 "fused_tiered"):
+        dials = {"block_pairs": 16} if spec.startswith("fused_") else {}
+        if spec == "fused_tiered":
+            dials["hot_rows"] = 8
+        eng = get_engine(spec, **dials)
         tr = AsyncShardTrainer(cfg=cfg, num_workers=n, total_steps=S, engine=eng,
                                device="cpu")
         p = tr.init(prng.PRNGKey(0))

@@ -34,7 +34,8 @@ def test_port_has_the_slice_modules():
               "repro_torch.kernels.sgns_fused", "repro_torch.eval.benchmarks",
               "repro_torch.data.pipeline", "repro_torch.kernels.sgns_update",
               "repro_torch.kernels.ops", "repro_torch.kernels.sgns_fused_hbm",
-              "repro_torch.kernels.ref"):
+              "repro_torch.kernels.ref", "repro_torch.kernels.sgns_fused_pipe",
+              "repro_torch.kernels.sgns_fused_tiered", "repro_torch.analysis.workloads"):
         assert m in mods
 
 

@@ -89,14 +89,38 @@ def test_uniform_bitwise(seed, shape, bounds):
 
 @pytest.mark.parametrize("seed", SEEDS)
 def test_normal_within_erfinv_tolerance(seed):
-    """The uniforms under the normals are bitwise equal; torch's erfinv
-    and XLA's polynomial differ by a few ulps, up to ~6e-6 relative in
-    the tails where erfinv is steep (measured over 1e5 draws), hence
-    rtol 1e-5 / atol 1e-6."""
+    """Both packages' normals against the exact ``sqrt(2)·erfinv(u)`` in
+    float64, on the uniforms under them (bitwise equal, checked above).
+
+    Each may differ from it by a rounding of its own, counted in float32
+    ulps of the result, plus what half an ulp of ``u`` moves the exact
+    value (``sqrt(pi/2)·exp(x²/2)·ulp(u)/2``: an erfinv that is exact for
+    a uniform within half an ulp of the drawn one). The port (torch's
+    erfinv, refined by Newton steps) is held to 4 ulps; it measured 1.49 at
+    most over 1e5 draws of seven seeds, 0.32 of its bound. XLA's float32
+    polynomial is held to 16 ulps; it measured up to 5 ulps where u is
+    mid-range and up to 91 ulps (5.8e-6 relative) in the tails, where the
+    half-ulp term dominates: 0.83 of its bound at most. Comparing the two
+    packages directly (rtol 1e-5) left XLA's tail error 0.56 of the way to
+    the bound on one CPU and failed on another."""
+    from scipy.special import erfinv
+
     shape = (2000, 50)
     ref = np.asarray(jax.random.normal(_jkey(seed), shape, jnp.float32))
     got = prng.normal(prng.PRNGKey(seed), shape).numpy()
-    np.testing.assert_allclose(got, ref, rtol=1e-5, atol=1e-6)
+    lo = np.nextafter(np.float32(-1.0), np.float32(0.0), dtype=np.float32)
+    u = prng.uniform(prng.PRNGKey(seed), shape, float(lo), 1.0).numpy()
+    exact = np.sqrt(2.0) * erfinv(u.astype(np.float64))
+    ulp_x = np.spacing(np.abs(exact).astype(np.float32)).astype(np.float64)
+    half_ulp_u = 0.5 * np.spacing(np.abs(u)).astype(np.float64) \
+        * np.sqrt(np.pi / 2) * np.exp(exact ** 2 / 2)
+    for name, x, ulps in (("repro_torch", got, 4), ("jax", ref, 16)):
+        err = np.abs(x.astype(np.float64) - exact)
+        bound = ulps * ulp_x + half_ulp_u
+        worst = int(np.argmax(err / bound))
+        assert err.flat[worst] <= bound.flat[worst], (
+            f"{name}: |x - sqrt(2)·erfinv(u)| = {err.flat[worst]:.3e} > {bound.flat[worst]:.3e} "
+            f"at u = {u.flat[worst]!r}")
 
 
 def test_bits_on_requested_device():

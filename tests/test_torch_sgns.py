@@ -84,7 +84,8 @@ def test_train_step_sparse_matches_reference():
 
 
 def test_engine_registry():
-    assert ENGINE_NAMES == ("dense", "sparse", "rowgrad", "fused", "fused_hbm")
+    assert ENGINE_NAMES == ("dense", "sparse", "rowgrad", "fused", "fused_hbm",
+                            "fused_pipe", "fused_tiered")
     eng = get_engine("fused")
     assert isinstance(eng, FusedEngine) and isinstance(eng, UpdateEngine)
     assert eng.table_kind == "alias" and eng.describe() == "fused:alias"
