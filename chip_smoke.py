@@ -542,9 +542,7 @@ def phase_time(device, main: dict, rand: dict) -> dict:
     uniq_w = _unique_rows(centers)
     uniq_c = _unique_rows(torch.cat([contexts, ids.view(n, -1)], 1))
     row = d * 4
-    k2_bytes = (2 * row * (uniq_w + uniq_c)        # touched rows read + written
-                + n * B * (4 + 4 + 4)              # centers, contexts, loss
-                + n * B * K * 8 + n * 8)           # drawn table entries, seeds
+    k2_bytes = _step_bytes(centers, contexts, ids, d)
     # dots 2d(K+1), dW 2d(K+1), dC d(K+1), apply 2d(K+1) C + 2d W, per pair
     k2_flops = n * B * d * (7 * (K + 1) + 2)
     out["sgns_fused_step"] = _bound(k2, k2p, k2_bytes, k2_flops)
@@ -580,14 +578,14 @@ def phase_time(device, main: dict, rand: dict) -> dict:
                                                      lr, negatives=K, **hbm_kw),
                    device, reps=5, warmup=1)
     del pp
-    # each block reads and writes its own distinct rows once
+    # The chain computes K2's function on the same inputs, so its least
+    # traffic is K2's: each distinct row of the step read once, written
+    # once. The rows each block touches, which K4a moves, are reported.
     uniq_bw = sum(_unique_rows(centers[:, b0:b0 + blk]) for b0 in range(0, B, blk))
     uniq_bc = sum(_unique_rows(torch.cat([contexts[:, b0:b0 + blk],
                                           ids[:, b0:b0 + blk].reshape(n, -1)], 1))
                   for b0 in range(0, B, blk))
-    k4_bytes = (2 * row * (uniq_bw + uniq_bc) + n * B * (4 + 4 + 4)
-                + n * B * K * 8 + n * 8)
-    out["sgns_fused_hbm_step"] = _bound(k4, k4p, k4_bytes, k2_flops)
+    out["sgns_fused_hbm_step"] = _bound(k4, k4p, k2_bytes, k2_flops)
     out["sgns_fused_hbm_step"]["max_abs_err"] = k4_err
     out["sgns_fused_hbm_step"]["touched_rows"] = {"W": uniq_bw, "C": uniq_bc,
                                                   "blocks": -(-B // blk)}
@@ -606,7 +604,7 @@ def phase_time(device, main: dict, rand: dict) -> dict:
             ("sgns_fused_tiered_step", "K6 hot 256", dict(hot_rows=256)),
             ("sgns_fused_tiered_step@hot2048", "K6 hot 2048", dict(hot_rows=2048)),
             ("sgns_fused_tiered_step@hotV", "K6 hot V", dict(hot_rows=V))):
-        out[key] = _check_and_time_pipe(label, k4a, inputs, blk, kw, k2_flops)
+        out[key] = _check_and_time_pipe(label, k4a, inputs, blk, kw, k2_bytes, k2_flops)
     del k4a
 
     # K4b: word2vec's per-pair order against its plain per-pair loop.
@@ -682,16 +680,19 @@ def _pipe_steps(kw: dict):
     return P.sgns_fused_pipe_step, P.sgns_fused_pipe_step_plain
 
 
-def _pipe_bytes(plan, traffic: int, d: int, n: int, B: int, K: int) -> int:
-    """The least bytes a K5/K6 step moves: the planner's row transfers,
-    the plan's tensors read once, the ids and the loss, the draw's table
-    entries and seeds."""
-    plan_bytes = sum(t.numel() * t.element_size() for t in plan)
-    return (traffic * d * 4 + plan_bytes + n * B * (4 + 4 + 4)
-            + n * B * K * 8 + n * 8)
+def _step_bytes(centers, contexts, ids, d: int) -> int:
+    """The least bytes one step of K2's function moves, whatever its
+    schedule (K2, K4, K5, K6): each distinct row of each table read once
+    and written once, the ids and the loss, the draw's table entries and
+    seeds."""
+    import torch
+
+    n, B, K = ids.shape
+    rows = _unique_rows(centers) + _unique_rows(torch.cat([contexts, ids.view(n, -1)], 1))
+    return 2 * rows * d * 4 + n * B * (4 + 4 + 4) + n * B * K * 8 + n * 8
 
 
-def _check_and_time_pipe(label, k4a, inputs, blk, kw, flops) -> dict:
+def _check_and_time_pipe(label, k4a, inputs, blk, kw, nbytes, flops) -> dict:
     """One K5/K6 configuration at the main path's shapes: against its
     plain version (ids bitwise, tolerance, repeat bitwise), bitwise against
     the K4a step ``k4a`` on the same inputs, and so again with every
@@ -715,7 +716,7 @@ def _check_and_time_pipe(label, k4a, inputs, blk, kw, flops) -> dict:
     plan = plan_blocks(centers, contexts, ids, V, blk, hot_rows=hot, ring_depth=S)
     ph = {"W": W.clone(), "C": C.clone()}
     lh = run_plan(ph, plan._replace(hazard=torch.ones_like(plan.hazard)), lr, B,
-                  hot_rows=hot, ring_depth=S)
+                  hot_rows=hot)
     torch.cuda.synchronize(device)
     same = (torch.equal(ids, ref_ids) and torch.equal(loss, ref_l)
             and all(torch.equal(p[k], ref_p[k]) for k in ("W", "C")))
@@ -728,16 +729,17 @@ def _check_and_time_pipe(label, k4a, inputs, blk, kw, flops) -> dict:
     pk = {"W": W.clone(), "C": C.clone()}
     ms = _time_ms(lambda: step(pk, centers, contexts, table, seeds, lr, negatives=K, **kw),
                   device, reps=20)
-    launch_ms = _time_ms(lambda: run_plan(pk, plan, lr, B, hot_rows=hot, ring_depth=S),
+    launch_ms = _time_ms(lambda: run_plan(pk, plan, lr, B, hot_rows=hot),
                          device, reps=20)
     del pk
     pp = {"W": W.clone(), "C": C.clone()}
     plain_ms = _time_ms(lambda: plain(pp, centers, contexts, table, seeds, lr, negatives=K,
                                       **kw), device, reps=5, warmup=1)
     del pp
-    traffic = plan_row_traffic(plan, hot)
-    r = _bound(ms, plain_ms, _pipe_bytes(plan, traffic, d, n, B, K), flops)
-    r.update(max_abs_err=err, launch_ms=launch_ms, row_traffic=traffic,
+    # the bound counts the step's distinct rows (K2's and K4a's bytes); the
+    # planner's row transfers, which the kernel moves, are reported apart
+    r = _bound(ms, plain_ms, nbytes, flops)
+    r.update(max_abs_err=err, launch_ms=launch_ms, row_traffic=plan_row_traffic(plan, hot),
              hazards=int((plan.hazard != 0).sum()), blocks=plan.hazard.numel())
     return r
 
@@ -783,9 +785,8 @@ def _zipf50k(device, lr) -> dict:
                                    **kw), device, reps=20)
         del pk
         h = kw.get("hot_rows", 0)
-        plan = plan_blocks(c, x, ids, V, blk, hot_rows=h)
-        rows = plan_row_traffic(plan, h)
-        nbytes = _pipe_bytes(plan, rows, d, 1, B, K)
+        rows = plan_row_traffic(plan_blocks(c, x, ids, V, blk, hot_rows=h), h)
+        nbytes = _step_bytes(c, x, ids, d)
         res[name] = {"ms": ms, "row_traffic": rows, "bytes": nbytes,
                      "bound_ms": nbytes / PEAK_BYTES_PER_S * 1e3, "bitwise_k4a": same}
         log(f"[time] @zipf50k {name} (block_pairs={blk}{f', hot_rows={h}' if h else ''}): "
@@ -1003,6 +1004,8 @@ def main(argv=None) -> int:
                 # (torch.multinomial draws other ids from the distribution)
                 "library_ms": None,
             })
+            if "row_traffic" in t:     # K5/K6: the planner's row transfers a step
+                kernels[-1]["row_traffic"] = t["row_traffic"]
         print(json.dumps({"kernels": kernels}), flush=True)
     log(f"[env] phases {','.join(phases)} done in {time.perf_counter() - t_start:.1f} s")
     print(gpu, flush=True)

@@ -32,13 +32,14 @@ Registry (``get_engine``):
     counterpart of ``pallas_fused_hbm``.
 ``fused_pipe``
     The same block chain in one kernel launch a step, each block's rows
-    deduplicated and staged through a ring of ``ring_depth`` slots
-    (``kernels/sgns_fused_pipe.py``, K5); bitwise ``fused_hbm`` at the
+    deduplicated and staged through a ring of slots, the planner's hazards
+    looking ``ring_depth - 1`` blocks back (``kernels/sgns_fused_pipe.py``,
+    K5); bitwise ``fused_hbm`` at the
     same ``block_pairs``. ``sequential=True`` runs K4b. The counterpart of
     ``pallas_fused_pipe``.
 ``fused_tiered``
     ``fused_pipe`` with the ``hot_rows`` most frequent rows of each table
-    kept in a per-worker hot copy for the whole step
+    read and updated in place instead of through the ring
     (``kernels/sgns_fused_tiered.py``, K6); bitwise ``fused_hbm`` too. The
     counterpart of ``pallas_fused_tiered``.
 
@@ -225,8 +226,10 @@ class FusedPipeEngine(FusedHBMEngine):
     once, hazard-ordered by the block planner. Bitwise ``fused_hbm`` at
     the same ``block_pairs``.
 
-    ``ring_depth`` — ring slots (>= 2): a deeper ring lets more blocks'
-    write-backs stay in flight before a slot is reused.
+    ``ring_depth`` — the reference's ring slots (>= 2): the planner flags
+    a hazard where a block's rows meet the previous ``ring_depth - 1``
+    blocks'. The kernel's two-slot ring serves every depth; a deeper one
+    only flags more hazards.
     ``sequential`` — word2vec's per-pair order cannot be pipelined;
     ``True`` runs ``fused_hbm``'s sequential kernel (K4b).
     """
@@ -265,8 +268,7 @@ class FusedPipeEngine(FusedHBMEngine):
 class FusedTieredEngine(FusedPipeEngine):
     """``fused_pipe`` with a hot tier (K6): rows ``[0, hot_rows)`` — the
     most frequent, since vocab ids are frequency-sorted — are read and
-    updated in a per-worker copy for the whole step; the rest go through
-    the ring. Bitwise ``fused_hbm`` at every ``hot_rows``.
+    updated in place, never gathered; the rest go through the ring. Bitwise ``fused_hbm`` at every ``hot_rows``.
 
     ``hot_rows`` — rows in the hot tier (>= 0; 0 is ``fused_pipe``). The
     trainer rejects ``hot_rows > V`` (:meth:`validate`); direct kernel

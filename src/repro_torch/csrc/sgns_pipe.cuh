@@ -8,10 +8,12 @@
 // the frequency-sorted tables in VMEM for the whole step. The H100 has no
 // VMEM of that size: one slot holds blk (K + 2) rows (3.6 MB per worker at
 // blk = 256, d = 500), far beyond an SM's 227 KB of shared memory. So the
-// ring, (S, n, R_W + R_C, d), and K6's hot copy, (n, 2, kH, d), live in
-// device memory, allocated by the wrapper. What the kernel keeps is the
-// chain's semantics and the reference's row traffic: per block, each unique
-// row is gathered once and written back once.
+// ring, (2, n, R_W + R_C, d), lives in device memory, allocated by the
+// wrapper, and K6 reads and updates its hot rows in place in the tables: a
+// copy in device memory would only move them from HBM to HBM, and the hot
+// rows the steps keep touching stay in the 50 MB L2 on their own. What the
+// kernel keeps is the chain's semantics and the reference's row traffic: per
+// block, each unique cold row is gathered once and written back once.
 //
 // One persistent grid, two CTAs of 8 warps an SM, co-resident by cooperative
 // launch (a grid that cannot be co-resident is refused by the launch and the
@@ -19,11 +21,10 @@
 // its items (a slot, a pair, a position of the sorted lists) over all warps,
 // one item a warp:
 //
-//   [K6] hot load:  each worker's rows [0, kH) of W and C -> hot copy
 //   gather(0)
-//   for each block b (slot s = b % S):
+//   for each block b (slot s = b % 2):
 //     pairs(b)      one warp per (worker, pair): K2's pair body (`pair_step`)
-//                   on the slot's rows (K6: a hot id's row from the hot copy);
+//                   on the slot's rows (K6: a hot id's row in the table);
 //                   loss, coefficients and dW to scratch. Padded pairs
 //                   (global index >= B) do nothing.
 //                   + gather(b + 1) for the workers whose hazard[b + 1] == 0
@@ -36,14 +37,20 @@
 //                   coefficients at once; the adds stay serial, in order.
 //     apply W(b)    the same over the W elements, addends -lr dW
 //     gather(b + 1) for the workers whose hazard[b + 1] != 0
-//   [K6] hot store: the hot copy back to rows [0, kH)
+//
+// Two slots are enough at any ring depth the planner was run with: block
+// b + 1's gathers, the earliest, run after every read of block b - 1's slot
+// (its applies end before pairs(b) starts), so no more than two slots are
+// ever live. A plan made for a deeper ring only flags more hazards: its
+// look-behind covers block b, the one this order needs.
 //
 // Hazards: block b + 1's gathers overtake block b's write-backs only where
-// the planner found no row in common (hazard[b + 1] == 0); a hazard moves the
-// gathers after the applies and never changes the result. The C apply reads
-// the W rows of the block's pairs, so the W apply (which rewrites hot W rows
-// in place in K6) comes after it. Cold W stores go to the table, not to the
-// slot, so the slot keeps the block-start rows the C apply reads.
+// the planner found no cold row in common (hazard[b + 1] == 0); a hazard
+// moves the gathers after the applies and never changes the result. Hot rows
+// are never gathered, so they need no flag. The C apply reads the W rows of
+// the block's pairs, so the W apply (which rewrites hot W rows in place in K6)
+// comes after it. Cold W stores go to the table, not to the slot, so the slot
+// keeps the block-start rows the C apply reads.
 //
 // Bits: the pair body, the addends (__fmul_rn(neg_lr, __fmul_rn(g, w)) and
 // __fmul_rn(neg_lr, dW)) and their order per row are K4a's
@@ -51,11 +58,12 @@
 // reads, so the tables and the loss are bitwise K4a's at the same block size.
 // No float atomics: the same inputs give the same bits on every run.
 //
-// Bound on the H100: memory. Per step each block's unique rows are read and
-// written once (the planner's row traffic, `plan_row_traffic`); the ring's
-// copy of each gathered row is extra traffic the bound does not count. The
-// phases run far from that bound: each is a round of dependent loads per
-// warp, and a grid barrier separates them.
+// Bound on the H100: memory. The least a step must move is each distinct row
+// it touches read once and written once, K4a's and K2's count; per block the
+// kernel moves each unique cold row in and out (the planner's row traffic,
+// `plan_row_traffic`) and copies it through the ring, all above that bound.
+// The phases run far from it: each is a round of dependent loads per warp,
+// and a grid barrier separates them.
 #pragma once
 
 #include <cooperative_groups.h>
@@ -84,11 +92,10 @@ struct PipeArgs {
   const int* w_el;           // (n, nb blk) element (pair) index within its block
   const int* c_tgt;          // (n, nb LC), LC = blk (K + 1)
   const int* c_el;           // (n, nb LC) element index: context j, or blk + j K + k
-  float* ring;               // (S, n, RW + RC, d)
+  float* ring;               // (2, n, RW + RC, d)
   float* coef;               // (n, blk, K + 1)
   float* dW;                 // (n, blk, d)
-  float* hot;                // (n, 2, kH, d): W rows, then C rows
-  int n, V, d, B, K, blk, nb, S, kH;
+  int n, V, d, B, K, blk, nb, kH;
   float neg_lr;
 };
 
@@ -101,14 +108,14 @@ __device__ __forceinline__ void copy_row(float* dst, const float* src, int d, in
   }
 }
 
-// Gather block b's valid rows into slot b % S for the workers whose
+// Gather block b's valid rows into slot b % 2 for the workers whose
 // hazard[b] == want (want < 0: every worker), one warp per slot. The flag,
 // the count and the row id are read together, not one after another.
 template <int VEC>
 __device__ void gather_block(const PipeArgs& a, int b, int want, long long warp,
                              long long nwarps, int lane) {
   const int RW = a.blk, RC = a.blk * (a.K + 1), R = RW + RC;
-  const int s = b % a.S;
+  const int s = b % 2;
   const long long items = static_cast<long long>(a.n) * R;
   for (long long it = warp; it < items; it += nwarps) {
     const int w = static_cast<int>(it / R);
@@ -126,29 +133,12 @@ __device__ void gather_block(const PipeArgs& a, int b, int want, long long warp,
   }
 }
 
-// Copy each worker's rows [0, kH) of W and C to the hot copy (load) or back.
-template <int VEC>
-__device__ void move_hot(const PipeArgs& a, bool load, long long warp, long long nwarps,
-                         int lane) {
-  const long long items = static_cast<long long>(a.n) * 2 * a.kH;
-  for (long long it = warp; it < items; it += nwarps) {
-    const int w = static_cast<int>(it / (2 * a.kH));
-    const int t = static_cast<int>((it / a.kH) % 2);
-    const int h = static_cast<int>(it % a.kH);
-    float* row = (t == 0 ? a.W : a.C) + (static_cast<long long>(w) * a.V + h) * a.d;
-    float* hrow = a.hot + it * a.d;
-    if (load) {
-      copy_row<VEC>(hrow, row, a.d, lane);
-    } else {
-      copy_row<VEC>(row, hrow, a.d, lane);
-    }
-  }
-}
-
+// An element's row: K6's hot id in place in the worker's table rows
+// `rows`, else its slot.
 template <bool TIERED>
 __device__ __forceinline__ const float* hot_or_slot(const PipeArgs& a, const float* slot_base,
-                                                    const float* hot_base, int id, int pos) {
-  if (TIERED && id < a.kH) return hot_base + static_cast<long long>(id) * a.d;
+                                                    const float* rows, int id, int pos) {
+  if (TIERED && id < a.kH) return rows + static_cast<long long>(id) * a.d;
   return slot_base + static_cast<long long>(pos) * a.d;
 }
 
@@ -156,7 +146,7 @@ template <int VEC, bool TIERED>
 __device__ void pairs_block(const PipeArgs& a, int b, long long warp, long long nwarps,
                             int lane) {
   const int RW = a.blk, RC = a.blk * (a.K + 1), R = RW + RC;
-  const int s = b % a.S;
+  const int s = b % 2;
   const long long items = static_cast<long long>(a.n) * a.blk;
   for (long long it = warp; it < items; it += nwarps) {
     const int w = static_cast<int>(it / a.blk);
@@ -166,11 +156,11 @@ __device__ void pairs_block(const PipeArgs& a, int b, long long warp, long long 
     const long long e = (static_cast<long long>(w) * a.nb + b) * a.blk + j;
     const float* slot_w = a.ring + (static_cast<long long>(s) * a.n + w) * R * a.d;
     const float* slot_c = slot_w + static_cast<long long>(RW) * a.d;
-    const float* hot_w = a.hot + static_cast<long long>(w) * 2 * a.kH * a.d;
-    const float* hot_c = hot_w + static_cast<long long>(a.kH) * a.d;
-    const float* wrow = hot_or_slot<TIERED>(a, slot_w, hot_w, TIERED ? a.cen[e] : 0,
+    const float* table_w = a.W + static_cast<long long>(w) * a.V * a.d;
+    const float* table_c = a.C + static_cast<long long>(w) * a.V * a.d;
+    const float* wrow = hot_or_slot<TIERED>(a, slot_w, table_w, TIERED ? a.cen[e] : 0,
                                             a.w_pos[e]);
-    const float* cpos = hot_or_slot<TIERED>(a, slot_c, hot_c, TIERED ? a.ctx[e] : 0,
+    const float* cpos = hot_or_slot<TIERED>(a, slot_c, table_c, TIERED ? a.ctx[e] : 0,
                                             a.cp_pos[e]);
     const int my_pos = lane < a.K ? a.cn_pos[e * a.K + lane] : 0;
     const int my_id = TIERED && lane < a.K ? a.neg[e * a.K + lane] : 0;
@@ -180,7 +170,7 @@ __device__ void pairs_block(const PipeArgs& a, int b, long long warp, long long 
       const int src = k < a.K ? k : 0;
       const int pos = __shfl_sync(kFull, my_pos, src);
       const int id = __shfl_sync(kFull, my_id, src);
-      cneg[k] = hot_or_slot<TIERED>(a, slot_c, hot_c, id, pos);
+      cneg[k] = hot_or_slot<TIERED>(a, slot_c, table_c, id, pos);
     }
     const long long wj = static_cast<long long>(w) * a.blk + j;
     pair_step<VEC, true>(wrow, cpos, cneg, a.K, a.d, lane,
@@ -198,7 +188,7 @@ template <int VEC, bool TIERED, bool C_TABLE>
 __device__ void apply_run(const PipeArgs& a, int b, int w, int i0, int lane) {
   const int RW = a.blk, RC = a.blk * (a.K + 1), R = RW + RC;
   const int L = C_TABLE ? RC : RW;         // elements (and slots) per block
-  const int s = b % a.S;
+  const int s = b % 2;
   const long long wb = static_cast<long long>(w) * a.nb + b;
   const int* tgt = (C_TABLE ? a.c_tgt : a.w_tgt) + wb * L;
   const int* el = (C_TABLE ? a.c_el : a.w_el) + wb * L;
@@ -216,19 +206,19 @@ __device__ void apply_run(const PipeArgs& a, int b, int w, int i0, int lane) {
 
   float* slot = a.ring + ((static_cast<long long>(s) * a.n + w) * R + (C_TABLE ? RW : 0)) *
                              a.d;
-  float* hot_t = a.hot + (static_cast<long long>(w) * 2 + (C_TABLE ? 1 : 0)) * a.kH * a.d;
+  float* rows = (C_TABLE ? a.C : a.W) + static_cast<long long>(w) * a.V * a.d;
   const float* src;
   float* dst;
   if (t < L) {
     if (t >= (C_TABLE ? a.n_c[wb] : a.n_w[wb])) return;   // a pad slot: never written back
     const int row = (C_TABLE ? a.uc : a.uw)[wb * L + t];
     src = slot + static_cast<long long>(t) * a.d;
-    dst = (C_TABLE ? a.C : a.W) + (static_cast<long long>(w) * a.V + row) * a.d;
+    dst = rows + static_cast<long long>(row) * a.d;
   } else {
-    src = dst = hot_t + static_cast<long long>(t - L) * a.d;
+    src = dst = rows + static_cast<long long>(t - L) * a.d;   // a hot row, in place
   }
   const float* slot_w = a.ring + (static_cast<long long>(s) * a.n + w) * R * a.d;
-  const float* hot_w = a.hot + static_cast<long long>(w) * 2 * a.kH * a.d;
+  const float* w_rows = a.W + static_cast<long long>(w) * a.V * a.d;
   constexpr int kChunk = 32 * VEC * kTile;
   for (int c0 = 0; c0 < a.d; c0 += kChunk) {
     float acc[kTile][VEC];
@@ -252,7 +242,7 @@ __device__ void apply_run(const PipeArgs& a, int b, int w, int i0, int lane) {
             g = a.coef[(static_cast<long long>(w) * a.blk + q) * (a.K + 1) + k1];
             const long long e = wb * a.blk + q;
             ptr = reinterpret_cast<unsigned long long>(
-                hot_or_slot<TIERED>(a, slot_w, hot_w, TIERED ? a.cen[e] : 0, a.w_pos[e]));
+                hot_or_slot<TIERED>(a, slot_w, w_rows, TIERED ? a.cen[e] : 0, a.w_pos[e]));
           } else {
             ptr = reinterpret_cast<unsigned long long>(
                 a.dW + (static_cast<long long>(w) * a.blk + q) * a.d);
@@ -323,7 +313,6 @@ __global__ void __launch_bounds__(kWarps * 32, 2) pipe_kernel(PipeArgs a) {
   const long long warp = static_cast<long long>(blockIdx.x) * kWarps + (threadIdx.x >> 5);
   const long long nwarps = static_cast<long long>(gridDim.x) * kWarps;
 
-  if (TIERED) move_hot<VEC>(a, true, warp, nwarps, lane);
   gather_block<VEC>(a, 0, -1, warp, nwarps, lane);
   grid.sync();
   for (int b = 0; b < a.nb; ++b) {
@@ -340,7 +329,6 @@ __global__ void __launch_bounds__(kWarps * 32, 2) pipe_kernel(PipeArgs a) {
       grid.sync();
     }
   }
-  if (TIERED) move_hot<VEC>(a, false, warp, nwarps, lane);
 }
 
 // Sizes the persistent grid to what the card holds at once and launches it
@@ -371,11 +359,10 @@ int pipe_launch(void* W, void* C, void* loss, const void* uw, const void* uc,
                 const void* n_w, const void* n_c, const void* hazard, const void* w_pos,
                 const void* cp_pos, const void* cn_pos, const void* cen, const void* ctx,
                 const void* neg, const void* w_tgt, const void* w_el, const void* c_tgt,
-                const void* c_el, void* ring, void* coef, void* dW, void* hot, int n, int V,
-                int d, int B, int K, int blk, int nb, int S, int kH, float neg_lr, int vec4,
-                void* stream) {
+                const void* c_el, void* ring, void* coef, void* dW, int n, int V, int d, int B,
+                int K, int blk, int nb, int kH, float neg_lr, int vec4, void* stream) {
   if (n == 0 || B == 0) return 0;
-  if (K < 1 || K > kMaxNegatives || blk < 1 || nb < 1 || S < 2 || kH < 0 ||
+  if (K < 1 || K > kMaxNegatives || blk < 1 || nb < 1 || kH < 0 ||
       (TIERED && kH < 1)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
@@ -401,8 +388,7 @@ int pipe_launch(void* W, void* C, void* loss, const void* uw, const void* uc,
   a.ring = static_cast<float*>(ring);
   a.coef = static_cast<float*>(coef);
   a.dW = static_cast<float*>(dW);
-  a.hot = static_cast<float*>(hot);
-  a.n = n; a.V = V; a.d = d; a.B = B; a.K = K; a.blk = blk; a.nb = nb; a.S = S;
+  a.n = n; a.V = V; a.d = d; a.B = B; a.K = K; a.blk = blk; a.nb = nb;
   a.kH = TIERED ? kH : 0;
   a.neg_lr = neg_lr;
   auto s = static_cast<cudaStream_t>(stream);

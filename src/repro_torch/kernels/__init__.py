@@ -12,7 +12,7 @@ with their plain torch versions and wrappers.
   pair blocks, or pair by pair). Powers the ``fused_hbm`` engine.
 * ``sgns_fused_pipe`` — K5 ``sgns_fused_pipe_step`` (the block chain in
   one launch, each block's rows deduplicated through a ring), with the
-  block planner (``plan_blocks``) and the schedule. Powers ``fused_pipe``.
+  block planner (``plan_blocks``). Powers ``fused_pipe``.
 * ``sgns_fused_tiered`` — K6 ``sgns_fused_tiered_step`` (K5 with a hot
   tier of the most frequent rows). Powers ``fused_tiered``.
 * ``build`` — ``nvcc`` build and ``ctypes`` loading of the sources.

@@ -53,9 +53,9 @@ _SIGNATURES = {
     ("sgns_fused_hbm", "sgns_hbm_sequential_launch"):
         [_P] * 5 + [_I] * 5 + [ctypes.c_float, _P, _P],
     ("sgns_fused_pipe", "sgns_pipe_launch"):
-        [_P] * 22 + [_I] * 9 + [ctypes.c_float, _I, _P],
+        [_P] * 21 + [_I] * 8 + [ctypes.c_float, _I, _P],
     ("sgns_fused_tiered", "sgns_tiered_launch"):
-        [_P] * 22 + [_I] * 9 + [ctypes.c_float, _I, _P],
+        [_P] * 21 + [_I] * 8 + [ctypes.c_float, _I, _P],
 }
 _entry_points: dict = {}
 MAX_NEGATIVES = 16

@@ -1,6 +1,6 @@
 """K5: the SGNS step as a chain of pair blocks over deduplicated rows
-through an S-slot ring — the block planner, the schedule, the CUDA kernel's
-wrapper and its plain torch version.
+through a ring of slots — the block planner, the CUDA kernel's wrapper and
+its plain torch version.
 
 Replaces the JAX package's ``_pipe_kernel`` (``repro/kernels/
 sgns_fused_pipe.py``, engine ``pallas_fused_pipe``). Source:
@@ -17,9 +17,9 @@ each row's addends in the same order.
   trip): per block the sorted unique rows of each table, every pair's
   position in them, and the hazard flags that say when a block's gathers
   may not overtake the write-backs still in flight. Integer-exact: equal
-  to ``jax.vmap`` of the reference's ``plan_blocks``.
-* :func:`kernel_schedule` / :func:`resolve_schedule` — the reference's
-  static pipeline schedule (plain Python, copied).
+  to ``jax.vmap`` of the reference's ``plan_blocks`` (whose pair mask the
+  kernel reads off the pair's index instead: a pair is real iff its index
+  in the batch is below ``B``).
 * :func:`sgns_fused_pipe_step` — draw (K1), plan, then one K5 launch for
   all workers; :func:`sgns_fused_pipe_step_plain` follows the same plan in
   torch.
@@ -42,10 +42,6 @@ from repro_torch.kernels.sgns_fused_hbm import pick_block_pairs
 
 NUM_SLOTS = 2   # default ring depth: gathers of b+1 overlap write-backs of b
 
-# DMA semantics of the schedule ops: each start op and the wait op that
-# retires it, on the same per-slot ring.
-DMA_WAIT_FOR_START = {"gather": "wait_gather", "scatter": "wait_scatter"}
-
 
 # ---------------------------------------------------------------------------
 # Block planner
@@ -55,9 +51,9 @@ class PipelinePlan(NamedTuple):
 
     Every field has a leading worker axis ``n`` and a block axis
     ``nblocks``: ``nblocks`` blocks of ``blk`` pairs (the batch is padded
-    to whole blocks with its *first* pair; padded pairs carry
-    ``mask == 0``). ``R_W = blk`` and ``R_C = blk·(K+1)`` are the slot
-    capacities. With a hot tier (``hot_rows > 0``) the unique sets,
+    to whole blocks with its *first* pair; a padded pair, index ``>= B``
+    in the batch, updates nothing). ``R_W = blk`` and ``R_C = blk·(K+1)``
+    are the slot capacities. With a hot tier (``hot_rows > 0``) the unique sets,
     counts and hazards cover cold rows only (ids ``>= hot_rows``); a hot
     element's position points at a pad slot of its buffer.
     """
@@ -69,7 +65,6 @@ class PipelinePlan(NamedTuple):
     w_pos: torch.Tensor    # (n, nb, blk) int32 — pair j's center → uw slot
     cp_pos: torch.Tensor   # (n, nb, blk) int32 — pair j's context → uc slot
     cn_pos: torch.Tensor   # (n, nb, blk·K) int32 — pair j's k-th negative → uc slot
-    mask: torch.Tensor     # (n, nb, blk) float32 — 1 for real pairs, 0 for padding
     hazard: torch.Tensor   # (n, nb) int32 — touched(b) ∩ written(b-1 .. b-(S-1)) ≠ ∅
     cen: torch.Tensor      # (n, nb, blk) int32 — blocked center ids
     ctx: torch.Tensor      # (n, nb, blk) int32 — blocked context ids
@@ -163,79 +158,18 @@ def plan_blocks(centers: torch.Tensor, contexts: torch.Tensor,
     hz = torch.zeros((n, nblocks), dtype=torch.bool, device=device)
     for m in range(1, min(ring_depth, nblocks)):
         hz[:, m:] |= hit(uw, m) | hit(uc, m)
-
-    mask = (torch.arange(nblocks * blk, device=device) < B).to(torch.float32)
     return PipelinePlan(
         uw=uw, uc=uc, n_w=n_w, n_c=n_c, w_pos=w_pos,
         cp_pos=c_pos[..., :blk].contiguous(), cn_pos=c_pos[..., blk:].contiguous(),
-        mask=mask.reshape(1, nblocks, blk).expand(n, nblocks, blk).contiguous(),
         hazard=hz.to(torch.int32), cen=cen, ctx=ctx, neg=negf)
 
 
-# ---------------------------------------------------------------------------
-# The static pipeline schedule (the reference's, plain Python)
-# ---------------------------------------------------------------------------
-def kernel_schedule(nblocks: int, num_slots: int = NUM_SLOTS):
-    """The unrolled pipeline as ``(op, block, slot, guard)`` events.
-
-    ``op`` ∈ {gather, wait_gather, compute, scatter, wait_scatter};
-    ``guard`` is ``None`` (unconditional) or a tuple of ``(b, want)``
-    conditions meaning "only when bool(hazard[b]) == want for every
-    condition". For each block, the guards over its wait_scatter sites
-    partition the hazard outcomes of its look-behind window, so every
-    copy is started and waited exactly once for every hazard vector:
-
-    * block b+1's gathers are issued *before* outstanding scatters when
-      ``hazard[b+1]`` is clear, else after every still-in-flight
-      write-back has drained;
-    * block j's scatters drain at the first hazard in its window
-      ``hazard[j+1 .. j+S-1]`` that fires, or — when none fires — at the
-      slot-recycling default (top of position ``j+S-1``, before block
-      ``j+S``'s gathers reuse block j's slot).
-    """
-    S = num_slots
-    if S < 2:
-        raise ValueError(f"ring needs at least 2 slots, got {S}")
-
-    def clear(lo, hi):
-        g = tuple((f, False) for f in range(lo, hi + 1))
-        return g or None
-
-    ev = [("gather", 0, 0, None)]
-    for b in range(nblocks):
-        s = b % S
-        g = b + 1
-        j = g - S
-        if j >= 0:
-            ev.append(("wait_scatter", j, j % S, clear(j + 1, j + S - 1)))
-        if g < nblocks:
-            ev.append(("gather", g, g % S, ((g, False),)))
-        ev.append(("wait_gather", b, s, None))
-        ev.append(("compute", b, s, None))
-        ev.append(("scatter", b, s, None))
-        if g < nblocks:
-            for j2 in range(max(0, g - S + 1), b + 1):
-                pre = tuple((f, False) for f in range(j2 + 1, b + 1))
-                ev.append(("wait_scatter", j2, j2 % S, pre + ((g, True),)))
-            ev.append(("gather", g, g % S, ((g, True),)))
-    for j in range(max(0, nblocks - S + 1), nblocks):
-        ev.append(("wait_scatter", j, j % S, clear(j + 1, nblocks - 1)))
-    return ev
-
-
-def resolve_schedule(hazard, num_slots: int = NUM_SLOTS):
-    """The concrete ``(op, block, slot)`` event order for one hazard
-    vector."""
-    return [(op, b, s)
-            for op, b, s, g in kernel_schedule(len(hazard), num_slots)
-            if g is None or all(bool(hazard[f]) is w for f, w in g)]
-
-
 def plan_row_traffic(plan: PipelinePlan, hot_rows: int = 0) -> int:
-    """Row transfers one step moves under ``plan``, summed over workers:
-    each valid cold row one gather and one write-back, and each worker's
-    hot prefix of ``hot_rows`` rows in and out once per step for both
-    tables."""
+    """The reference's row transfers for one step under ``plan``, summed
+    over workers: each valid cold row one gather and one write-back, and
+    each worker's hot prefix of ``hot_rows`` rows in and out once per step
+    for both tables. K5 moves the cold rows so; K6 leaves its hot rows in
+    place and moves no prefix."""
     n = plan.n_w.shape[0]
     return 2 * int(plan.n_w.sum() + plan.n_c.sum()) + 4 * int(hot_rows) * n
 
@@ -366,11 +300,13 @@ def _apply_order(pos: torch.Tensor, ids: torch.Tensor, slots: int, hot_rows: int
 
 
 def run_plan(params: dict, plan: PipelinePlan, lr: float, B: int, *,
-             hot_rows: int = 0, ring_depth: int = NUM_SLOTS) -> torch.Tensor:
+             hot_rows: int = 0) -> torch.Tensor:
     """Launch K5 (``hot_rows == 0``) or K6 once on ``plan`` for every
     worker: one cooperative launch walks all blocks, gathers through a
-    ``ring_depth``-slot ring in device memory, and honours ``plan.hazard``.
-    Updates ``params`` in place; returns the loss ``(n, B)``."""
+    two-slot ring in device memory, and honours ``plan.hazard``. Two slots
+    serve a plan made for any ``ring_depth``: the kernel's phase order
+    never has more than two live, and a deeper look-behind only flags more
+    hazards. Updates ``params`` in place; returns the loss ``(n, B)``."""
     W, C = params["W"], params["C"]
     device = W.device
     _kernel_device(device)
@@ -386,10 +322,9 @@ def run_plan(params: dict, plan: PipelinePlan, lr: float, B: int, *,
                                torch.cat([plan.ctx, plan.neg], -1), RC, kH)
     f32 = dict(dtype=torch.float32, device=device)
     loss = torch.empty((n, B), **f32)
-    ring = torch.empty((ring_depth, n, RW + RC, d), **f32)
+    ring = torch.empty((2, n, RW + RC, d), **f32)
     coef = torch.empty((n, blk, K + 1), **f32)
     dW = torch.empty((n, blk, d), **f32)
-    hot = torch.empty((n, 2, kH, d), **f32)
     vec4 = int(d % 4 == 0 and W.data_ptr() % 16 == 0 and C.data_ptr() % 16 == 0)
     fn = _entry(name, symbol)
     with torch.cuda.device(device):
@@ -397,8 +332,7 @@ def run_plan(params: dict, plan: PipelinePlan, lr: float, B: int, *,
                  _ptr(plan.n_w), _ptr(plan.n_c), _ptr(plan.hazard), _ptr(plan.w_pos),
                  _ptr(plan.cp_pos), _ptr(plan.cn_pos), _ptr(plan.cen), _ptr(plan.ctx),
                  _ptr(plan.neg), _ptr(w_tgt), _ptr(w_el), _ptr(c_tgt), _ptr(c_el),
-                 _ptr(ring), _ptr(coef), _ptr(dW), _ptr(hot),
-                 n, V, d, B, K, blk, nb, int(ring_depth), kH,
+                 _ptr(ring), _ptr(coef), _ptr(dW), n, V, d, B, K, blk, nb, kH,
                  -float(np.float32(lr)), vec4, _stream(device))
     _raise_on(err, f"{name}_step")
     LAUNCHES[f"{name}_step"] += 1
@@ -437,8 +371,8 @@ def sgns_fused_pipe_step(params: dict, centers: torch.Tensor,
     updated **in place**; ``centers``/``contexts`` ``(n, B)`` int32 ids in
     ``[0, V)`` (not bounds-checked; the trainer checks each chunk);
     ``table`` the stacked ``{"prob", "alias"}`` alias tables; ``seeds``
-    ``(n, 2)``; ``lr`` the step's learning rate; ``ring_depth`` the ring's
-    slots (>= 2).
+    ``(n, 2)``; ``lr`` the step's learning rate; ``ring_depth`` the
+    reference's ring depth (>= 2), the planner's hazard look-behind.
 
     Returns ``(params, loss (n, B), ids (n, B, K))``, bitwise those of
     :func:`~repro_torch.kernels.sgns_fused_hbm.sgns_fused_hbm_step` at the
@@ -457,4 +391,4 @@ def sgns_fused_pipe_step(params: dict, centers: torch.Tensor,
     ids = sample_negatives(seeds, table["prob"], table["alias"], (B, int(negatives)))
     plan = plan_blocks(centers, contexts, ids, params["W"].shape[1], block_pairs,
                        ring_depth=ring_depth)
-    return params, run_plan(params, plan, lr, B, ring_depth=ring_depth), ids
+    return params, run_plan(params, plan, lr, B), ids

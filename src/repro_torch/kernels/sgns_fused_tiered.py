@@ -5,10 +5,12 @@ Replaces the JAX package's ``_tiered_kernel`` (``repro/kernels/
 sgns_fused_tiered.py``, engine ``pallas_fused_tiered``). Source:
 ``repro_torch/csrc/sgns_fused_tiered.cu`` (+ ``sgns_pipe.cuh``). Vocab ids
 are sorted by descending frequency, so the ``kH`` hottest rows are the id
-prefix: ids ``< kH`` are read and updated in a per-worker copy of rows
-``[0, kH)`` of each table, loaded once at step start and written back once
-at step end, and the rest go through K5's ring with the planner run at
-``hot_rows=kH`` (unique sets, positions and hazards over cold rows only).
+prefix. The reference keeps a copy of rows ``[0, kH)`` of each table
+resident for the step; the kernel reads and updates ids ``< kH`` in place
+in the tables (on the H100 the copy would sit in device memory beside the
+rows themselves), and the rest go through K5's ring with the planner run
+at ``hot_rows=kH`` (unique sets, positions and hazards over cold rows
+only).
 Each row is served by exactly one tier and sees the same addends in the
 same order, so the result is K5's — and K4a's — bit for bit, at every
 ``hot_rows``. ``kH = clamp(hot_rows, 0, V)``; ``kH == 0`` is K5.
@@ -69,5 +71,5 @@ def sgns_fused_tiered_step(params: dict, centers: torch.Tensor,
     ids = sample_negatives(seeds, table["prob"], table["alias"], (B, int(negatives)))
     plan = plan_blocks(centers, contexts, ids, V, block_pairs, hot_rows=kH,
                        ring_depth=ring_depth)
-    loss = run_plan(params, plan, lr, B, hot_rows=kH, ring_depth=ring_depth)
+    loss = run_plan(params, plan, lr, B, hot_rows=kH)
     return params, loss, ids

@@ -181,8 +181,7 @@ def test_sgns_fused_pipe_kernel_bitwise_equals_hbm(device, d, ring_depth):
     B = cen.shape[1]
     plan = P.plan_blocks(cen, ctx, i1, W.shape[1], 128, ring_depth=ring_depth)
     p3 = {"W": W.clone(), "C": C.clone()}
-    l3 = P.run_plan(p3, plan._replace(hazard=torch.ones_like(plan.hazard)), 0.05, B,
-                    ring_depth=ring_depth)
+    l3 = P.run_plan(p3, plan._replace(hazard=torch.ones_like(plan.hazard)), 0.05, B)
     assert torch.equal(l3, lh)
     for k in ("W", "C"):
         assert torch.equal(p3[k], ph[k])

@@ -3,9 +3,8 @@
 
 * ``plan_blocks`` for n = 3 workers against ``jax.vmap`` of the
   reference's, every field bitwise, over hot tiers, ring depths and
-  duplicate-heavy streams with a tail block;
-* ``kernel_schedule`` / ``resolve_schedule`` equal to the reference's for
-  every hazard vector of up to 6 blocks and 2–4 slots;
+  duplicate-heavy streams with a tail block; its hazards against the sets
+  they stand for, and the kernel's apply order against a stable sort;
 * ``zipf50k_ids`` bitwise, and the planner's row traffic at ``@zipf50k``;
 * the plain K5/K6 steps against ``sgns_fused_pipe_step`` /
   ``sgns_fused_tiered_step(interpret=True)`` per worker (tables atol 1e-6,
@@ -13,8 +12,6 @@
   orders), and bitwise against the plain K4a at every ring depth and hot
   tier (the same gathered values, the same addends in the same order).
 """
-
-import itertools
 
 import jax
 import jax.numpy as jnp
@@ -62,11 +59,14 @@ def test_plan_blocks_bitwise_vs_vmapped_reference(hot_rows, ring_depth):
                                                   ring_depth=ring_depth))(c, x, neg)
     got = P.plan_blocks(torch.from_numpy(c), torch.from_numpy(x), torch.from_numpy(neg), V,
                         BLK, hot_rows=hot_rows, ring_depth=ring_depth)
-    assert got._fields == ref._fields
-    for f in ref._fields:
+    assert set(got._fields) == set(ref._fields) - {"mask"}
+    for f in got._fields:
         r, g = np.asarray(getattr(ref, f)), getattr(got, f).numpy()
         assert g.dtype == r.dtype and g.shape == r.shape, f
         np.testing.assert_array_equal(g, r, err_msg=f)
+    # the reference's pair mask is the kernels' rule: pair index < B
+    np.testing.assert_array_equal(np.asarray(ref.mask).reshape(N, -1),
+                                  np.broadcast_to(np.arange(3 * BLK) < B, (N, 3 * BLK)))
     assert (got.nblocks, got.block_pairs) == (3, BLK)
     if hot_rows == V:
         assert int(got.n_w.sum() + got.n_c.sum()) == 0 and not got.hazard.any()
@@ -76,11 +76,11 @@ def test_plan_blocks_bitwise_vs_vmapped_reference(hot_rows, ring_depth):
 
 def test_plan_pads_with_the_first_pair_and_counts_its_rows():
     """The tail block is padded with each worker's first pair: its rows
-    join the tail's unique sets (and so the traffic), masked to no update."""
+    join the tail's unique sets (and so the traffic), though they update
+    nothing."""
     c, x, neg = _ids(1, dup=False)
     plan = P.plan_blocks(torch.from_numpy(c), torch.from_numpy(x), torch.from_numpy(neg),
                          V, BLK)
-    assert plan.mask[:, -1].sum(-1).tolist() == [B - 2 * BLK] * N
     assert torch.equal(plan.cen[:, -1, B - 2 * BLK:],
                        torch.from_numpy(c[:, :1]).expand(N, 3 * BLK - B))
     for w in range(N):
@@ -91,22 +91,65 @@ def test_plan_pads_with_the_first_pair_and_counts_its_rows():
     assert P.plan_row_traffic(plan, hot_rows=4) == traffic + 4 * 4 * N
 
 
-@pytest.mark.parametrize("S", (2, 3, 4))
-@pytest.mark.parametrize("nblocks", range(1, 7))
-def test_schedule_equals_the_reference_for_every_hazard_vector(nblocks, S):
-    assert P.kernel_schedule(nblocks, S) == JP.kernel_schedule(nblocks, S)
-    for hz in itertools.product((0, 1), repeat=nblocks):
-        ev = P.resolve_schedule(hz, S)
-        assert ev == JP.resolve_schedule(hz, S)
-        for op in ("gather", "compute", "scatter"):      # each block once
-            assert sorted(b for o, b, _ in ev if o == op) == list(range(nblocks))
+def _cold_sets(plan, hot_rows):
+    """Each worker's and block's cold touched rows, per table, from the
+    blocked ids."""
+    n, nb = plan.n_w.shape
+    cw, cc = [], []
+    for w in range(n):
+        cw.append([set(plan.cen[w, b].tolist()) for b in range(nb)])
+        cc.append([set(plan.ctx[w, b].tolist()) | set(plan.neg[w, b].tolist())
+                   for b in range(nb)])
+    cold = lambda s: {i for i in s if i >= hot_rows}
+    return ([[cold(s) for s in r] for r in cw], [[cold(s) for s in r] for r in cc])
 
 
-def test_schedule_constants_and_errors():
-    assert P.NUM_SLOTS == JP.NUM_SLOTS == 2
-    assert P.DMA_WAIT_FOR_START == JP.DMA_WAIT_FOR_START
-    with pytest.raises(ValueError, match="at least 2 slots"):
-        P.kernel_schedule(3, 1)
+@pytest.mark.parametrize("ring_depth", (2, 3, 4))
+@pytest.mark.parametrize("hot_rows", (0, 1, 8, V))
+def test_hazards_flag_cold_rows_met_in_the_look_behind(hot_rows, ring_depth):
+    """``hazard[b]`` is set iff block b's cold rows meet those of one of the
+    previous ``ring_depth - 1`` blocks in the same table. So every depth
+    flags at least what depth 2 flags (b against b - 1), the one ordering
+    the kernels' two-slot ring needs."""
+    c, x, neg = _ids(hot_rows + ring_depth)
+    args = (torch.from_numpy(c), torch.from_numpy(x), torch.from_numpy(neg), V, BLK)
+    plan = P.plan_blocks(*args, hot_rows=hot_rows, ring_depth=ring_depth)
+    two = P.plan_blocks(*args, hot_rows=hot_rows, ring_depth=2)
+    sw, sc = _cold_sets(plan, hot_rows)
+    for w in range(N):
+        for b in range(plan.nblocks):
+            want = any(sw[w][b] & sw[w][j] or sc[w][b] & sc[w][j]
+                       for j in range(max(0, b - ring_depth + 1), b))
+            assert bool(plan.hazard[w, b]) == want, (w, b)
+    assert bool((plan.hazard >= two.hazard).all())
+
+
+@pytest.mark.parametrize("table", ("W", "C"))
+@pytest.mark.parametrize("hot_rows", (0, 1, 8, V))
+def test_apply_order_is_a_stable_sort_by_block_and_target(hot_rows, table):
+    """The kernels' apply lists: per block, the elements stably sorted by
+    their update target (the slot, or ``slots + id`` for a hot id), so each
+    target's addends form one run in reference order — W at centers; C at
+    contexts, then at negatives."""
+    c, x, neg = _ids(hot_rows + 3)
+    plan = P.plan_blocks(torch.from_numpy(c), torch.from_numpy(x), torch.from_numpy(neg), V,
+                         BLK, hot_rows=hot_rows)
+    if table == "W":
+        pos, ids, slots = plan.w_pos, plan.cen, plan.uw.shape[-1]
+    else:
+        pos = torch.cat([plan.cp_pos, plan.cn_pos], -1)
+        ids = torch.cat([plan.ctx, plan.neg], -1)
+        slots = plan.uc.shape[-1]
+    tgt, el = P._apply_order(pos, ids, slots, hot_rows)
+    L = pos.shape[-1]
+    assert tgt.dtype == el.dtype == torch.int32 and tuple(tgt.shape) == (N, plan.nblocks * L)
+    for w in range(N):
+        for b in range(plan.nblocks):
+            p, i = pos[w, b].numpy(), ids[w, b].numpy()
+            target = np.where(i < hot_rows, slots + i, p)
+            order = np.lexsort((np.arange(L), target))       # stable by target
+            np.testing.assert_array_equal(tgt[w, b * L:(b + 1) * L].numpy(), target[order])
+            np.testing.assert_array_equal(el[w, b * L:(b + 1) * L].numpy(), order)
 
 
 # ------------------------------------------------------------------ zipf50k
