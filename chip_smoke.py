@@ -5,6 +5,7 @@
     python3 chip_smoke.py --phases build,k1,k2
     python3 chip_smoke.py --phases build,random,hbm
     python3 chip_smoke.py --phases build,hbm,pipe
+    python3 chip_smoke.py --phases build,decode
 
 Phases:
 
@@ -59,9 +60,24 @@ Phases:
    bitwise against, and timed beside, K4a.
 9. ``profile`` — the main path's, the ``random``/``rowgrad`` path's and
    (after ``pipe``) the ``fused_pipe`` path's training again under
-   ``torch.profiler``: device time per step by kernel (gathers and scatter
-   apart) and the device's idle share of the training loop (summary
-   printed; ``chiprun_out/profile_{main,random,pipe}*.json``).
+   ``torch.profiler``, those of them that ran: device time per step by
+   kernel (gathers and scatter apart) and the device's idle share of the
+   training loop (summary printed;
+   ``chiprun_out/profile_{main,random,pipe}*.json``); with ``decode``, 16
+   full-ring decode steps too (``chiprun_out/profile_decode.json``).
+10. ``decode`` — the LLM decode path (``repro_torch.launch.decode_llm
+   .serve``) on h2o-danube-1.8b at full width (24 layers, d = 2560, 32
+   query heads over 8 KV heads, window 4096, float32; weights from seed
+   0): batch 4, a prompt of 4,096 tokens, 64 new ones. Every SWA layer's
+   ring is full from the prompt's last token on, so K7 (``swa_decode``)
+   must launch 24 × 65 = 1,560 times. Then, from the same seed again,
+   the prompt, a snapshot of the caches, and 16 teacher-forced steps with
+   K7 and 16 with the plain masked attention from the snapshot: K7 held
+   against its plain version on every layer's real cache on the first 4
+   steps (float32 and bfloat16), the two routes' logits within the
+   reference's decode tolerance; and K7, its plain version and
+   ``scaled_dot_product_attention`` (the library yardstick) timed on
+   layer 0's cache. Independent of the SGNS phases.
 
 It prints a ``{"kernels": [...]}`` JSON line, then the card's name and power
 limit as ``nvidia-smi`` reports them, then ``{"ok": true, ...}`` last. Any
@@ -105,7 +121,15 @@ K3_LOSS_ATOL = 1e-4
 # a chain of batch-1 steps, reduced in another order than the kernel's).
 # K5 and K6 likewise against theirs; against K4a they are bitwise.
 
-PHASES = ("build", "k1", "k2", "main", "random", "hbm", "pipe", "time", "profile")
+# K7 against its plain version (float32: the window's sums in another
+# order; bfloat16: an output rounded to 8 bits, the JAX test's bound), and
+# the K7 route's logits against the plain masked attention's
+# (tests/test_decode_consistency.py's atol and rtol).
+K7_ATOL = {"float32": 1e-5, "bfloat16": 3e-2}
+DECODE_LOGITS_TOL = 2e-3
+
+PHASES = ("build", "k1", "k2", "main", "random", "hbm", "pipe", "time", "profile",
+          "decode")
 REPLACES = {
     "sample_negatives": "src/repro/kernels/sgns_fused.py:197",
     "sgns_fused_step": "src/repro/kernels/sgns_fused.py:105",
@@ -114,6 +138,7 @@ REPLACES = {
     "sgns_fused_hbm_step_sequential": "src/repro/kernels/sgns_fused_hbm.py:185",
     "sgns_fused_pipe_step": "src/repro/kernels/sgns_fused_pipe.py:419",
     "sgns_fused_tiered_step": "src/repro/kernels/sgns_fused_tiered.py:94",
+    "swa_decode": "src/repro/kernels/swa_decode.py:28",
 }
 SOURCES = {
     "sample_negatives": "src/repro_torch/csrc/sample_negatives.cu",
@@ -123,10 +148,14 @@ SOURCES = {
     "sgns_fused_hbm_step_sequential": "src/repro_torch/csrc/sgns_fused_hbm.cu",
     "sgns_fused_pipe_step": "src/repro_torch/csrc/sgns_fused_pipe.cu",
     "sgns_fused_tiered_step": "src/repro_torch/csrc/sgns_fused_tiered.cu",
+    "swa_decode": "src/repro_torch/csrc/swa_decode.cu",
 }
 # The main path's configuration (examples/train_w2v_100m.py, cut to 64 steps).
 VOCAB = 100_000
 NUM_WORKERS, DIM, BATCH, STEPS, STEPS_PER_CHUNK = 10, 500, 1024, 64, 32
+# The decode path's: h2o-danube-1.8b at full width, a prompt of one window.
+DECODE = dict(arch="h2o-danube-1.8b", batch=4, prompt_len=4096, new_tokens=64, seed=0)
+DECODE_CHECK_STEPS, DECODE_KERNEL_CHECKS = 16, 4
 _WORLD: dict = {}
 
 
@@ -457,6 +486,232 @@ def phase_pipe(device, hbm: dict, hot_rows=256):
                     "train_kw": train_kw("shuffle", engine)}
         del res
     return out
+
+
+# ---------------------------------------------------------------------------
+def _decode_cfg():
+    from repro_torch.configs import get_config
+
+    return get_config(DECODE["arch"])
+
+
+def phase_decode(device, profile: bool = False) -> dict:
+    """The LLM decode path: ``serve`` at full width with every launch count
+    set to 0 just before and read just after (K7 once per layer and
+    full-ring step, no other kernel); then the checks and K7's times on a
+    second prefill from the same seed (:func:`_decode_checks`)."""
+    import torch
+    from repro_torch.kernels import sgns_fused
+    from repro_torch.launch.decode_llm import serve
+
+    cfg = _decode_cfg()
+    B, P, N = DECODE["batch"], DECODE["prompt_len"], DECODE["new_tokens"]
+    ring = min(P + N, cfg.attention_window)
+    expected = cfg.num_layers * (P + N - (ring - 1))
+    torch.cuda.reset_peak_memory_stats(device)
+    held_before = torch.cuda.memory_allocated(device)      # earlier phases' tensors
+    sgns_fused.reset_launch_counts()
+    t0 = time.perf_counter()
+    gen, stats = serve(DECODE["arch"], batch=B, prompt_len=P, new_tokens=N,
+                       seed=DECODE["seed"], device=device)
+    wall = time.perf_counter() - t0
+    launches = dict(sgns_fused.LAUNCHES)
+    peak = torch.cuda.max_memory_allocated(device) - held_before
+    n_params = sum(math.prod(s) for s in _param_shapes(cfg))
+    weight_bytes = 4 * n_params
+    ring_bytes = 4 * 2 * cfg.num_layers * B * ring * cfg.num_kv_heads * cfg.resolved_head_dim
+    step_bound_ms = (weight_bytes + ring_bytes) / PEAK_BYTES_PER_S * 1e3
+    log(f"[decode] serve({DECODE['arch']!r}, batch={B}, prompt_len={P}, new_tokens={N}) "
+        f"on {device}: {n_params} parameters ({weight_bytes / 1e9:.2f} GB), rings "
+        f"{ring_bytes / 1e9:.2f} GB; prefill {stats['prefill_s']:.2f} s "
+        f"({stats['prefill_s'] / P * 1e3:.3f} ms/step), decode {stats['decode_s']:.3f} s "
+        f"({stats['decode_s'] / N * 1e3:.3f} ms/step), {stats['tok_per_s']:.1f} tok/s "
+        f"(bound by bytes: {step_bound_ms:.3f} ms/step, {B / step_bound_ms * 1e3:.0f} "
+        f"tok/s); wall with init {wall:.1f} s; peak device memory {peak / 2**30:.2f} GiB "
+        f"above the {held_before / 2**30:.2f} GiB held before")
+    log(f"[decode] launches during serve: {launches}")
+    if launches["swa_decode"] != expected:
+        raise RuntimeError(f"expected {expected} launches of swa_decode "
+                           f"({cfg.num_layers} layers x {P + N - (ring - 1)} full-ring "
+                           f"steps), got {launches}")
+    if any(n for name, n in launches.items() if name != "swa_decode"):
+        raise RuntimeError(f"the decode path launched an SGNS kernel: {launches}")
+    if gen.shape != (B, N) or gen.dtype != torch.int32 or not (
+            0 <= int(gen.min()) and int(gen.max()) < cfg.vocab_size):
+        raise RuntimeError(f"bad generated tokens: {gen.dtype} {tuple(gen.shape)}")
+    log(f"[decode] first sequence: {gen[0, :16].tolist()}")
+    out = {"launches": launches, "stats": stats, "peak_bytes": peak, "tokens": gen,
+           "step_bound_ms": step_bound_ms}
+    torch.cuda.empty_cache()
+    out.update(_decode_checks(device, gen, profile))
+    return out
+
+
+def _param_shapes(cfg):
+    from repro_torch.models import Model
+
+    return [tuple(p.shape) for p in Model(cfg, device="meta").parameters()]
+
+
+def _decode_checks(device, gen, profile: bool) -> dict:
+    """The prompt again from the same seed, a snapshot of the caches, then
+    ``DECODE_CHECK_STEPS`` steps fed the generated tokens, with K7 (K7 held
+    against its plain version on every layer's real cache on the first
+    ``DECODE_KERNEL_CHECKS`` steps, float32 and bfloat16) and from the
+    snapshot with the plain masked attention: the logits must agree. Then
+    K7, its plain version and SDPA timed on layer 0's cache."""
+    import numpy as np
+    import torch
+    from repro_torch import prng
+    from repro_torch.kernels.swa_decode import swa_decode, swa_decode_plain
+    from repro_torch.models import Model
+    from repro_torch.models import attention
+
+    cfg = _decode_cfg()
+    B, P = DECODE["batch"], DECODE["prompt_len"]
+    ring = min(P + DECODE["new_tokens"], cfg.attention_window)
+    with torch.inference_mode():
+        t0 = time.perf_counter()
+        model = Model(cfg, prng.PRNGKey(DECODE["seed"]), device=device)
+        prompts = torch.from_numpy(np.random.default_rng(DECODE["seed"]).integers(
+            0, cfg.vocab_size, (B, P), dtype=np.int32)).to(device)
+        cache = model.init_cache(B, ring)
+        torch.cuda.synchronize(device)
+        t1 = time.perf_counter()
+        for i in range(P):
+            model.decode_step(cache, prompts[:, i:i + 1], i)
+        torch.cuda.synchronize(device)
+        t2 = time.perf_counter()
+        log(f"[decode] check run: init {t1 - t0:.1f} s, prompt again {t2 - t1:.1f} s "
+            f"({(t2 - t1) / P * 1e3:.3f} ms/step)")
+        snapshot = [{k: t.clone() for k, t in c.items()} for c in cache]
+
+        errs = {"float32": 0.0, "bfloat16": 0.0}
+        checked = []
+        captured = {}
+
+        def held(q, k, v, *, chunk):
+            out = swa_decode(q, k, v, chunk=chunk)
+            for name, dt in (("float32", torch.float32), ("bfloat16", torch.bfloat16)):
+                a = [t.to(dt) for t in (q, k, v)]
+                got = out if dt == torch.float32 else swa_decode(*a, chunk=chunk)
+                ref = swa_decode_plain(*a, chunk=chunk)
+                errs[name] = max(errs[name], float((got.float() - ref.float()).abs().max()))
+            if len(checked) % cfg.num_layers == 0:       # layer 0
+                captured.update(q=q.clone(), k=k, v=v, chunk=chunk)
+            checked.append(chunk)
+            return out
+
+        tokens = gen[:, :DECODE_CHECK_STEPS]
+        routes = {}
+        for route, c in (("k7", cache), ("plain", snapshot)):
+            logits = []
+            for j in range(DECODE_CHECK_STEPS):
+                if route == "k7" and j < DECODE_KERNEL_CHECKS:
+                    attention.swa_decode = held
+                try:
+                    lg, _ = model.decode_step(c, tokens[:, j:j + 1], P + j,
+                                              swa_kernel=route == "k7")
+                finally:
+                    attention.swa_decode = swa_decode
+                logits.append(lg.float())
+                if route == "k7" and j == DECODE_KERNEL_CHECKS - 1:
+                    timed = dict(captured)      # layer 0's cache is cache[0]
+            routes[route] = torch.cat(logits, 1)
+        torch.cuda.synchronize(device)
+        a, b = routes["k7"], routes["plain"]
+        diff = (a - b).abs()
+        excess = float((diff - DECODE_LOGITS_TOL * b.abs()).max())
+        log(f"[decode] K7 against its plain version on every layer's cache, "
+            f"{len(checked)} calls ({DECODE_KERNEL_CHECKS} full-ring steps x "
+            f"{cfg.num_layers} layers, chunk {checked[0]}): max |diff| float32 "
+            f"{errs['float32']:.3e} (tol {K7_ATOL['float32']:g}), bfloat16 "
+            f"{errs['bfloat16']:.3e} (tol {K7_ATOL['bfloat16']:g})")
+        log(f"[decode] {DECODE_CHECK_STEPS} teacher-forced steps from the snapshot, K7 "
+            f"against the plain masked attention: logits {tuple(a.shape)}, max |diff| "
+            f"{float(diff.max()):.3e}, max |diff| - rtol·|plain| {excess:.3e} (atol = rtol "
+            f"= {DECODE_LOGITS_TOL:g}); max |logit| {float(b.abs().max()):.3f}")
+        if len(checked) != DECODE_KERNEL_CHECKS * cfg.num_layers:
+            raise RuntimeError(f"K7 was checked {len(checked)} times")
+        for name, e in errs.items():
+            if not e <= K7_ATOL[name]:
+                raise RuntimeError(f"K7 ({name}) disagrees with its plain version: {e}")
+        if not (torch.isfinite(a).all() and torch.isfinite(b).all()):
+            raise RuntimeError("non-finite decode logits")
+        if not excess <= DECODE_LOGITS_TOL:
+            raise RuntimeError("the K7 route's logits disagree with the plain attention's")
+        del snapshot, routes, a, b, diff
+        if profile:
+            _profile_decode(model, cache, gen, P + DECODE_CHECK_STEPS)
+        del model, cache
+        torch.cuda.empty_cache()
+        result = _time_swa(device, timed)
+    result["max_abs_err"] = errs["float32"]
+    result["max_abs_err_bf16"] = errs["bfloat16"]
+    return {"time": result}
+
+
+def _time_swa(device, captured) -> dict:
+    """K7, its plain version and SDPA (``enable_gqa``) on layer 0's real
+    cache and query, each held against the plain version first."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels.swa_decode import swa_decode, swa_decode_plain
+
+    q, k, v, chunk = (captured[n] for n in ("q", "k", "v", "chunk"))
+    B, H, D = q.shape
+    W, Hkv = k.shape[1], k.shape[2]
+
+    def library():
+        return F.scaled_dot_product_attention(q[:, :, None], k.transpose(1, 2),
+                                              v.transpose(1, 2), enable_gqa=True)[:, :, 0]
+
+    ref = swa_decode_plain(q, k, v, chunk=chunk)
+    lib_err = float((library() - ref).abs().max())
+    ms = _time_ms(lambda: swa_decode(q, k, v, chunk=chunk), device, reps=200)
+    plain_ms = _time_ms(lambda: swa_decode_plain(q, k, v, chunk=chunk), device, reps=50)
+    library_ms = _time_ms(library, device, reps=200)
+    nbytes = 2 * k.numel() * k.element_size() + 2 * q.numel() * q.element_size()
+    flops = 4 * B * H * W * D                  # q·k and p·v, per query head
+    r = _bound(ms, plain_ms, nbytes, flops)
+    r["library_ms"] = library_ms
+    log(f"[time] swa_decode B={B} W={W} H={H} Hkv={Hkv} D={D} chunk={chunk} "
+        f"({W // chunk * B * Hkv} CTAs): {ms:.4f} ms, plain {plain_ms:.4f} ms, SDPA "
+        f"(enable_gqa) {library_ms:.4f} ms (max |diff| to the plain version "
+        f"{lib_err:.3e}); bound {r['bound_ms']:.5f} ms by {r['bound_by']} ({nbytes} B, "
+        f"{flops} flop)")
+    return r
+
+
+def _profile_decode(model, cache, gen, pos0: int, steps: int = 16) -> None:
+    """``steps`` full-ring decode steps under torch.profiler: device busy
+    time inside a ``repro_torch.decode_loop`` span, its idle share, and
+    device µs a step by kernel group."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile, record_function
+
+    device = model.embed.device
+    tokens = gen[:, -steps:]
+    torch.cuda.synchronize(device)
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        with record_function("repro_torch.decode_loop"):
+            for j in range(steps):
+                model.decode_step(cache, tokens[:, j:j + 1], pos0 + j)
+            torch.cuda.synchronize(device)
+    summary = _device_summary(prof, "repro_torch.decode_loop", steps,
+                              PROFILE_GROUPS["decode"], DeviceType)
+    # no timeline: 16 steps of ~1,100 launches make a trace of tens of MB
+    _write_profile("decode", prof, summary, trace=False)
+    log(f"[profile] decode (h2o-danube-1.8b, B={gen.shape[0]}, full rings): loop "
+        f"{summary['window_us'] / 1e3:.1f} ms for {steps} steps "
+        f"({summary['window_us'] / steps / 1e3:.3f} ms/step); device busy "
+        f"{summary['device_busy_us'] / 1e3:.1f} ms, idle share {summary['idle_share']:.3f}")
+    for g, v in summary["device_us_per_step"].items():
+        log(f"[profile]   {g}: {v:.1f} us/step")
+    for k in summary["kernels"][:8]:
+        log(f"[profile]     {k['device_us'] / steps:8.1f} us/step  x{k['count']:<5d} "
+            f"{k['name'][:90]}")
 
 
 # ---------------------------------------------------------------------------
@@ -828,6 +1083,9 @@ PROFILE_GROUPS = {
              ("searchsorted (planner)", ("searchsorted",)),
              ("sorts (planner, apply order)", ("sort",)),
              ("copies", ("memcpy",))),
+    "decode": (("K7", ("swa_partial_kernel", "swa_combine_kernel")),
+               ("matmuls (cuBLAS)", ("gemm", "gemv")),
+               ("copies", ("memcpy",))),
     "random": (("K3", ("sgns_row_grads_kernel",)),
                ("scatter (index_add_)", ("indexfunc", "index_add")),
                ("gathers (indexing)", ("index_elementwise", "gather", "indexselect")),
@@ -849,12 +1107,34 @@ def phase_profile(device, label: str, kw: dict) -> None:
     from repro_torch.core.driver import train_submodels
 
     corpus, _ = world()
-    groups = PROFILE_GROUPS[label]
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         res = train_submodels(corpus, VOCAB, device=device, **kw)
         torch.cuda.synchronize(device)
+    steps = res.timings["steps_per_epoch"]
+    summary = _device_summary(prof, "repro_torch.train_loop", steps, PROFILE_GROUPS[label],
+                              DeviceType)
+    summary = {"steps": steps, "train_loop_us": summary.pop("window_us"),
+               "chunk_wait_s": res.timings["chunk_wait_s"], **summary}
+    _write_profile(label, prof, summary)
+    window, busy = summary["train_loop_us"], summary["device_busy_us"]
+    log(f"[profile] {label} ({kw['strategy']}, {kw['engine']}): train loop "
+        f"{window / 1e3:.1f} ms for {steps} steps ({window / steps / 1e3:.3f} ms/step), "
+        f"of which {res.timings['chunk_wait_s'] * 1e3:.1f} ms blocked on chunks; device "
+        f"busy {busy / 1e3:.1f} ms, idle share {summary['idle_share']:.3f}")
+    for g, v in summary["device_us_per_step"].items():
+        log(f"[profile]   {g}: {v:.1f} us/step")
+    for k in summary["kernels"][:8]:
+        log(f"[profile]     {k['device_us'] / steps:8.1f} us/step  x{k['count']:<5d} "
+            f"{k['name'][:90]}")
+
+
+def _device_summary(prof, span: str, steps: int, groups, DeviceType) -> dict:
+    """Inside the host span named ``span``: the window, the device's busy
+    time (the union of kernel and copy intervals), its idle share, device
+    µs a step by kernel group (a name goes to the first group it matches;
+    the rest is "other") and the kernels by device time."""
     events = list(prof.events())
-    loop = next(e for e in events if e.name == "repro_torch.train_loop")
+    loop = next(e for e in events if e.name == span)
     t0, t1 = loop.time_range.start, loop.time_range.end
     spans, by_kernel = [], {}
     for e in events:
@@ -873,7 +1153,6 @@ def phase_profile(device, label: str, kw: dict) -> None:
         if f > end:
             busy += f - max(s, end)
             end = f
-    steps = res.timings["steps_per_epoch"]
     per_step = {g: 0.0 for g, _ in groups}
     per_step["other"] = 0.0
     for name, (_, us) in by_kernel.items():
@@ -881,26 +1160,19 @@ def phase_profile(device, label: str, kw: dict) -> None:
                  "other")
         per_step[g] += us / steps
     window = t1 - t0
-    summary = {"steps": steps, "train_loop_us": window, "device_busy_us": busy,
-               "idle_share": 1.0 - busy / window,
-               "chunk_wait_s": res.timings["chunk_wait_s"],
-               "device_us_per_step": per_step,
-               "kernels": sorted(({"name": n, "count": c, "device_us": us}
-                                  for n, (c, us) in by_kernel.items()),
-                                 key=lambda k: -k["device_us"])}
+    return {"window_us": window, "device_busy_us": busy, "idle_share": 1.0 - busy / window,
+            "device_us_per_step": per_step,
+            "kernels": sorted(({"name": n, "count": c, "device_us": us}
+                               for n, (c, us) in by_kernel.items()),
+                              key=lambda k: -k["device_us"])}
+
+
+def _write_profile(label: str, prof, summary: dict, trace: bool = True) -> None:
     out = ROOT / "chiprun_out"
     out.mkdir(exist_ok=True)
     (out / f"profile_{label}.json").write_text(json.dumps(summary, indent=1))
-    prof.export_chrome_trace(str(out / f"profile_{label}_trace.json"))
-    log(f"[profile] {label} ({kw['strategy']}, {kw['engine']}): train loop "
-        f"{window / 1e3:.1f} ms for {steps} steps ({window / steps / 1e3:.3f} ms/step), "
-        f"of which {res.timings['chunk_wait_s'] * 1e3:.1f} ms blocked on chunks; device "
-        f"busy {busy / 1e3:.1f} ms, idle share {summary['idle_share']:.3f}")
-    for g, v in per_step.items():
-        log(f"[profile]   {g}: {v:.1f} us/step")
-    for k in summary["kernels"][:8]:
-        log(f"[profile]     {k['device_us'] / steps:8.1f} us/step  x{k['count']:<5d} "
-            f"{k['name'][:90]}")
+    if trace:
+        prof.export_chrome_trace(str(out / f"profile_{label}_trace.json"))
 
 
 def _bound(ms, plain_ms, nbytes, flops) -> dict:
@@ -927,8 +1199,10 @@ def main(argv=None) -> int:
     unknown = set(phases) - set(PHASES)
     if unknown:
         ap.error(f"unknown phases {sorted(unknown)}")
-    if {"time", "profile"} & set(phases) and not {"main", "random"} <= set(phases):
-        ap.error("the time and profile phases need the main and random phases")
+    if "time" in phases and not {"main", "random"} <= set(phases):
+        ap.error("the time phase needs the main and random phases")
+    if "profile" in phases and not {"main", "random", "decode"} & set(phases):
+        ap.error("the profile phase needs the main, random or decode phase")
     if "pipe" in phases and "hbm" not in phases:
         ap.error("the pipe phase needs the hbm phase")
 
@@ -971,10 +1245,14 @@ def main(argv=None) -> int:
     if "time" in phases:
         results["time"] = phase_time(device, results["main"], results["random"])
     if "profile" in phases:
-        phase_profile(device, "main", results["main"]["train_kw"])
-        phase_profile(device, "random", results["random"]["train_kw"])
+        for label in ("main", "random"):
+            if label in results:
+                phase_profile(device, label, results[label]["train_kw"])
         if "pipe" in results:
             phase_profile(device, "pipe", results["pipe"]["pipe"]["train_kw"])
+    if "decode" in phases:
+        torch.cuda.empty_cache()
+        results["decode"] = phase_decode(device, profile="profile" in phases)
 
     if set(PHASES) - {"build", "profile"} <= set(phases):
         # launches: each kernel's count over its own path's training run
@@ -989,10 +1267,12 @@ def main(argv=None) -> int:
                 results["pipe"]["pipe"]["launches"]["sgns_fused_pipe_step"],
             "sgns_fused_tiered_step":
                 results["pipe"]["tiered"]["launches"]["sgns_fused_tiered_step"],
+            "swa_decode": results["decode"]["launches"]["swa_decode"],
         }
+        timed = {**results["time"], "swa_decode": results["decode"]["time"]}
         kernels = []
         for name, n_launches in launches.items():
-            t = results["time"][name]
+            t = timed[name]
             kernels.append({
                 "name": name, "route": "cuda", "source": SOURCES[name],
                 "replaces": REPLACES[name], "launches": n_launches,
@@ -1000,9 +1280,10 @@ def main(argv=None) -> int:
                 "max_abs_err": t["max_abs_err"],
                 "ms": t["ms"], "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
                 "bound_by": t["bound_by"],
-                # no single PyTorch call computes any of these functions
-                # (torch.multinomial draws other ids from the distribution)
-                "library_ms": None,
+                # K7: scaled_dot_product_attention(enable_gqa=True); no single
+                # PyTorch call computes any of the others (torch.multinomial
+                # draws other ids from the distribution)
+                "library_ms": t.get("library_ms"),
             })
             if "row_traffic" in t:     # K5/K6: the planner's row transfers a step
                 kernels[-1]["row_traffic"] = t["row_traffic"]

@@ -15,5 +15,9 @@ with their plain torch versions and wrappers.
   block planner (``plan_blocks``). Powers ``fused_pipe``.
 * ``sgns_fused_tiered`` — K6 ``sgns_fused_tiered_step`` (K5 with a hot
   tier of the most frequent rows). Powers ``fused_tiered``.
+* ``swa_decode`` — K7 ``swa_decode`` (single-token sliding-window
+  attention over a full ring-buffer KV cache, with GQA). Powers the SWA
+  layers' decode in ``repro_torch.models.attention``; ``ref`` holds its
+  plain version.
 * ``build`` — ``nvcc`` build and ``ctypes`` loading of the sources.
 """

@@ -28,6 +28,7 @@ SOURCES = {
     "sgns_fused_hbm": "sgns_fused_hbm.cu",
     "sgns_fused_pipe": "sgns_fused_pipe.cu",
     "sgns_fused_tiered": "sgns_fused_tiered.cu",
+    "swa_decode": "swa_decode.cu",
 }
 HEADERS = ("counter_prng.cuh", "sgns_step.cuh", "sgns_pipe.cuh")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",

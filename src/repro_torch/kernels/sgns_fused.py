@@ -18,8 +18,9 @@ Every wrapper takes stacked per-worker operands (a leading worker axis
 ``n``) and runs the plain version when its tensors lie on the CPU; on a
 CUDA tensor it launches the kernel or raises. :data:`LAUNCHES` counts the
 kernel launches of each wrapper, this module's and those of
-``sgns_update`` (K3), ``sgns_fused_hbm`` (K4), ``sgns_fused_pipe`` (K5)
-and ``sgns_fused_tiered`` (K6), which share its C binding helpers.
+``sgns_update`` (K3), ``sgns_fused_hbm`` (K4), ``sgns_fused_pipe`` (K5),
+``sgns_fused_tiered`` (K6) and ``swa_decode`` (K7), which share its C
+binding helpers.
 
 Seeds are ``(n, 2)`` int32 tensors holding the bits of each worker's
 uint32 key words (:func:`seed_tensor`).
@@ -56,6 +57,8 @@ _SIGNATURES = {
         [_P] * 21 + [_I] * 8 + [ctypes.c_float, _I, _P],
     ("sgns_fused_tiered", "sgns_tiered_launch"):
         [_P] * 21 + [_I] * 8 + [ctypes.c_float, _I, _P],
+    ("swa_decode", "swa_decode_launch"):
+        [_P] * 7 + [_I] * 6 + [ctypes.c_float, _I, _I, _P],
 }
 _entry_points: dict = {}
 MAX_NEGATIVES = 16
@@ -64,7 +67,8 @@ MAX_NEGATIVES = 16
 #: :func:`reset_launch_counts`).
 LAUNCHES: dict[str, int] = {"sample_negatives": 0, "sgns_fused_step": 0,
                              "sgns_row_grads": 0, "sgns_fused_hbm_step": 0,
-                             "sgns_fused_pipe_step": 0, "sgns_fused_tiered_step": 0}
+                             "sgns_fused_pipe_step": 0, "sgns_fused_tiered_step": 0,
+                             "swa_decode": 0}
 
 
 def reset_launch_counts() -> None:

@@ -1,0 +1,116 @@
+"""Shared building blocks: initializers, RMSNorm, the SwiGLU MLP and RoPE —
+the counterparts of ``repro.models.layers`` (``dense_init``, ``embed_init``,
+``rms_norm``, ``init_rms``, ``init_mlp``/``mlp``, ``rope_angles``,
+``apply_rope``).
+
+Weights keep the reference's ``(in, out)`` layout and are applied as
+``x @ w``, so a converted parameter is a copy and the tests compare like
+with like. Draws go through :mod:`repro_torch.prng` from the same keys as
+the reference's (``normal``'s uniforms are bitwise ``jax.random``'s; its
+erfinv differs in the last ulps, ``PERF.md`` §2).
+"""
+
+from __future__ import annotations
+
+import torch
+from torch import nn
+
+from repro_torch import prng
+
+
+# ---------------------------------------------------------------------------
+# Initializers
+# ---------------------------------------------------------------------------
+def dense_init(key, fan_in: int, fan_out: int, dtype, device="cpu") -> torch.Tensor:
+    scale = (2.0 / (fan_in + fan_out)) ** 0.5
+    return (prng.normal(key, (fan_in, fan_out), device) * scale).to(dtype)
+
+
+def embed_init(key, vocab: int, dim: int, dtype, device="cpu") -> torch.Tensor:
+    return (prng.normal(key, (vocab, dim), device) * 0.02).to(dtype)
+
+
+def frozen(t: torch.Tensor) -> nn.Parameter:
+    """A parameter of a serving model: no gradient is ever taken."""
+    return nn.Parameter(t, requires_grad=False)
+
+
+def dense_param(key, fan_in: int, fan_out: int, dtype, device="cpu") -> nn.Parameter:
+    """``dense_init`` from ``key``, or an uninitialised ``(fan_in,
+    fan_out)`` parameter for a converter to fill when ``key`` is None."""
+    w = (dense_init(key, fan_in, fan_out, dtype, device) if key is not None else
+         torch.empty((fan_in, fan_out), dtype=dtype, device=device))
+    return frozen(w)
+
+
+# ---------------------------------------------------------------------------
+# RMSNorm
+# ---------------------------------------------------------------------------
+def rms_norm(x: torch.Tensor, scale: torch.Tensor, eps: float = 1e-6) -> torch.Tensor:
+    dt = x.dtype
+    x32 = x.float()
+    var = (x32 * x32).mean(-1, keepdim=True)
+    return (x32 * torch.rsqrt(var + eps)).to(dt) * scale
+
+
+class RMSNorm(nn.Module):
+    """``rms_norm`` with its ``(dim,)`` scale (``init_rms``: ones)."""
+
+    def __init__(self, dim: int, eps: float, dtype, device="cpu"):
+        super().__init__()
+        self.eps = eps
+        self.scale = frozen(torch.ones((dim,), dtype=dtype, device=device))
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return rms_norm(x, self.scale, self.eps)
+
+
+# ---------------------------------------------------------------------------
+# SwiGLU MLP (llama-family FFN)
+# ---------------------------------------------------------------------------
+def mlp(x: torch.Tensor, gate: torch.Tensor, up: torch.Tensor,
+        down: torch.Tensor) -> torch.Tensor:
+    """``silu(x @ gate) * (x @ up) @ down``: gate, up ``(d, d_ff)``, down
+    ``(d_ff, d)``."""
+    return (torch.nn.functional.silu(x @ gate) * (x @ up)) @ down
+
+
+class MLP(nn.Module):
+    """``init_mlp``'s parameters, drawn from ``key`` as the reference
+    draws them (``split(key, 3)``: gate, up, down), or uninitialised when
+    ``key`` is None."""
+
+    def __init__(self, key, d_model: int, d_ff: int, dtype, device="cpu"):
+        super().__init__()
+        k1, k2, k3 = prng.split(key, 3) if key is not None else (None,) * 3
+        self.gate = dense_param(k1, d_model, d_ff, dtype, device)
+        self.up = dense_param(k2, d_model, d_ff, dtype, device)
+        self.down = dense_param(k3, d_ff, d_model, dtype, device)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return mlp(x, self.gate, self.up, self.down)
+
+
+# ---------------------------------------------------------------------------
+# RoPE (rotate-half, as the reference's ``jnp.split`` into halves)
+# ---------------------------------------------------------------------------
+def rope_angles(positions: torch.Tensor, head_dim: int, theta: float):
+    """positions (..., S) → cos/sin (..., S, head_dim/2), float32."""
+    half = head_dim // 2
+    exponent = -torch.arange(0, half, dtype=torch.float32, device=positions.device) / half
+    freqs = torch.pow(torch.tensor(theta, dtype=torch.float32, device=positions.device),
+                      exponent)
+    ang = positions.float()[..., None] * freqs
+    return torch.cos(ang), torch.sin(ang)
+
+
+def apply_rope(x: torch.Tensor, cos: torch.Tensor, sin: torch.Tensor) -> torch.Tensor:
+    """x (B, S, H, D); cos/sin (B, S, D/2) or (S, D/2)."""
+    dt = x.dtype
+    x1, x2 = x.float().chunk(2, dim=-1)
+    if cos.dim() == 2:      # (S, D/2)
+        cos, sin = cos[None, :, None, :], sin[None, :, None, :]
+    else:                   # (B, S, D/2)
+        cos, sin = cos[:, :, None, :], sin[:, :, None, :]
+    out = torch.cat([x1 * cos - x2 * sin, x1 * sin + x2 * cos], dim=-1)
+    return out.to(dt)

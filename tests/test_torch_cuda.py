@@ -230,3 +230,47 @@ def test_sgns_fused_tiered_with_no_hot_rows_runs_k5(device):
                              negatives=5, block_pairs=128, hot_rows=0)
     assert K.LAUNCHES["sgns_fused_pipe_step"] == before["sgns_fused_pipe_step"] + 1
     assert K.LAUNCHES["sgns_fused_tiered_step"] == before["sgns_fused_tiered_step"]
+
+
+# K7 against its plain version: float32 reductions over the window in
+# another order (split into chunks, tiles of 64 rows, merged partials), so
+# a few ulps of O(0.1) outputs; bfloat16 outputs round to 8 bits (the JAX
+# test's 3e-2). Cases: the decode path's h2o-danube-1.8b shape (32 query
+# heads over 8 KV heads, D = 80, W = 4096, chunk 512), a JAX test shape
+# (H = Hkv), the scalar-load path with a ragged last tile (D = 50, chunk 96)
+# and one KV head for eight query heads.
+SWA_CASES = {"danube": (4, 4096, 32, 8, 80, 512), "jax": (2, 256, 4, 4, 64, 64),
+             "scalar": (1, 192, 6, 2, 50, 96), "mqa": (3, 128, 8, 1, 128, 128)}
+
+
+@pytest.mark.parametrize("dtype", ("float32", "bfloat16"))
+@pytest.mark.parametrize("case", sorted(SWA_CASES))
+def test_swa_decode_kernel_matches_plain(device, case, dtype):
+    from repro_torch.kernels import swa_decode as S
+
+    B, W, H, Hkv, D, chunk = SWA_CASES[case]
+    dt = getattr(torch, dtype)
+    gen = torch.Generator(device=device).manual_seed(0)
+    q = (0.5 * torch.randn((B, H, D), generator=gen, device=device)).to(dt)
+    k = (0.5 * torch.randn((B, W, Hkv, D), generator=gen, device=device)).to(dt)
+    v = (0.5 * torch.randn((B, W, Hkv, D), generator=gen, device=device)).to(dt)
+    before = K.LAUNCHES["swa_decode"]
+    out = S.swa_decode(q, k, v, chunk=chunk)
+    assert K.LAUNCHES["swa_decode"] == before + 1
+    ref = S.swa_decode_plain(q, k, v, chunk=chunk)
+    torch.cuda.synchronize(device)
+    assert out.dtype == dt and out.shape == (B, H, D)
+    assert bool(torch.isfinite(out.float()).all())
+    tol = 1e-5 if dtype == "float32" else 3e-2
+    assert float((out.float() - ref.float()).abs().max()) <= tol
+
+
+def test_swa_decode_kernel_refuses_what_it_does_not_take(device):
+    from repro_torch.kernels import swa_decode as S
+
+    q = torch.zeros((1, 8, 512), device=device)
+    kv = torch.zeros((1, 64, 1, 512), device=device)
+    with pytest.raises(ValueError, match="not divisible by chunk"):
+        S.swa_decode(q, kv, kv, chunk=48)
+    with pytest.raises(ValueError, match="exceeds the kernel"):
+        S.swa_decode(q, kv, kv, chunk=64)

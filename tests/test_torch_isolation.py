@@ -35,7 +35,13 @@ def test_port_has_the_slice_modules():
               "repro_torch.data.pipeline", "repro_torch.kernels.sgns_update",
               "repro_torch.kernels.ops", "repro_torch.kernels.sgns_fused_hbm",
               "repro_torch.kernels.ref", "repro_torch.kernels.sgns_fused_pipe",
-              "repro_torch.kernels.sgns_fused_tiered", "repro_torch.analysis.workloads"):
+              "repro_torch.kernels.sgns_fused_tiered", "repro_torch.analysis.workloads",
+              "repro_torch.configs", "repro_torch.configs.base", "repro_torch.configs.shapes",
+              "repro_torch.configs.registry", "repro_torch.configs.h2o_danube_1_8b",
+              "repro_torch.configs.sgns_wiki", "repro_torch.kernels.swa_decode",
+              "repro_torch.models", "repro_torch.models.layers",
+              "repro_torch.models.attention", "repro_torch.models.transformer",
+              "repro_torch.models.model", "repro_torch.launch.decode_llm"):
         assert m in mods
 
 
@@ -101,5 +107,5 @@ def test_entry_points_refuse_to_run_on_the_cpu_by_default(monkeypatch):
 def test_version_and_package_data():
     assert repro_torch.__version__
     for f in ("counter_prng.cuh", "sample_negatives.cu", "sgns_fused_step.cu",
-              "sgns_step.cuh", "sgns_row_grads.cu", "sgns_fused_hbm.cu"):
+              "sgns_step.cuh", "sgns_row_grads.cu", "sgns_fused_hbm.cu", "swa_decode.cu"):
         assert (PORT / "csrc" / f).exists()

@@ -183,7 +183,8 @@ def test_launch_counters_stay_zero_on_cpu(table):
                       K.seed_tensor(_keys(n)), 0.025)
     assert K.LAUNCHES == {"sample_negatives": 0, "sgns_fused_step": 0,
                           "sgns_row_grads": 0, "sgns_fused_hbm_step": 0,
-                          "sgns_fused_pipe_step": 0, "sgns_fused_tiered_step": 0}
+                          "sgns_fused_pipe_step": 0, "sgns_fused_tiered_step": 0,
+                          "swa_decode": 0}
 
 
 def test_wrappers_check_their_inputs(table):
