@@ -11,7 +11,7 @@ Phases:
 
 1. ``build`` — compile the CUDA sources under ``src/repro_torch/csrc`` with
    ``nvcc`` (one process per source, all at once) and print the build time
-   and ptxas's register/spill report.
+   and ptxas's register/spill report, kernel by kernel.
 2. ``k1`` — K1 (``sample_negatives``) against its plain torch version on the
    GPU at V = 300,000 (alias table of a Zipf(1.0) distribution), ids of
    shape (4, 1024, 5): the ids must be bitwise equal.
@@ -52,9 +52,10 @@ Phases:
    K2's tolerance, repeat bitwise; and with ``block_pairs >= B`` against
    K2) and K4b (against its plain per-pair loop) at the main path's shapes;
    K5 at ``ring_depth`` 2 and 3 and K6 at ``hot_rows`` 256, 2,048 and V
-   there too (ids bitwise; W′, C′ and loss bitwise K4a's, also with every
-   hazard flag set; within K2's tolerances of the plain version; repeat
-   bitwise); and at the reference's ``@zipf50k`` shape (n = 1, V = 50,000,
+   there too (ids bitwise; W′, C′ and loss bitwise K4a's; within K2's
+   tolerances of the plain version; repeat bitwise), each timed as the
+   whole call, as the launch alone on fixed block sorts, beside K4a's whole
+   call; and at the reference's ``@zipf50k`` shape (n = 1, V = 50,000,
    d = 512, B = 8,192, 64 blocks of 128) the planner's row traffic on the
    card (91,386 and 59,692 rows at ``hot_rows`` 0 and 2,048) and K5 and K6
    bitwise against, and timed beside, K4a.
@@ -195,8 +196,10 @@ def phase_build() -> dict:
     for name, r in report.items():
         log(f"[build]   {name}: {r['seconds']:.1f} s -> {r['path']}")
         for line in r["log"].splitlines():
-            if "registers" in line or "spill" in line:
-                log(f"[build]     {line.strip()}")
+            if "Compiling entry function" in line:
+                log(f"[build]     {line.split(chr(39))[1][:96]}")
+            elif "registers" in line or "spill" in line:
+                log(f"[build]       {line.strip()}")
     return report
 
 
@@ -848,8 +851,8 @@ def phase_time(device, main: dict, rand: dict) -> dict:
                                                      "bitwise": bitwise_one}
 
     # K5 and K6 at the main path's shapes: each configuration checked
-    # (against K4a bitwise, also with every hazard set; against its plain
-    # version), then timed.
+    # (against K4a bitwise; against its plain version), then timed beside
+    # K4a's whole call of this run.
     k4a = sgns_fused_hbm_step({"W": W.clone(), "C": C.clone()}, centers, contexts, table,
                               seeds, lr, negatives=K, **hbm_kw)
     inputs = (W, C, centers, contexts, table, seeds, lr, K)
@@ -860,6 +863,7 @@ def phase_time(device, main: dict, rand: dict) -> dict:
             ("sgns_fused_tiered_step@hot2048", "K6 hot 2048", dict(hot_rows=2048)),
             ("sgns_fused_tiered_step@hotV", "K6 hot V", dict(hot_rows=V))):
         out[key] = _check_and_time_pipe(label, k4a, inputs, blk, kw, k2_bytes, k2_flops)
+        out[key]["k4a_ms"] = k4
     del k4a
 
     # K4b: word2vec's per-pair order against its plain per-pair loop.
@@ -918,9 +922,9 @@ def phase_time(device, main: dict, rand: dict) -> dict:
     for name in [k for k in out if k.startswith("sgns_fused_pipe") or
                  k.startswith("sgns_fused_tiered")]:
         r = out[name]
-        log(f"[time] {name}: launch alone (apply order + kernel) {r['launch_ms']:.4f} ms; "
-            f"row traffic {r['row_traffic']} rows; {r['hazards']} of {r['blocks']} blocks "
-            f"with a hazard")
+        log(f"[time] {name}: whole call {r['ms']:.4f} ms, launch alone {r['alone_ms']:.4f} "
+            f"ms, K4a's whole call {r['k4a_ms']:.4f} ms; bound {r['bound_ms']:.5f} ms; "
+            f"the reference's row traffic {r['row_traffic']} rows")
     out["zipf50k"] = _zipf50k(device, lr)
     return out
 
@@ -949,17 +953,17 @@ def _step_bytes(centers, contexts, ids, d: int) -> int:
 
 def _check_and_time_pipe(label, k4a, inputs, blk, kw, nbytes, flops) -> dict:
     """One K5/K6 configuration at the main path's shapes: against its
-    plain version (ids bitwise, tolerance, repeat bitwise), bitwise against
-    the K4a step ``k4a`` on the same inputs, and so again with every
-    hazard flag set; then timed beside its plain version, and its launch
-    alone (apply order + kernel) on a fixed plan."""
+    plain version (ids bitwise, tolerance, repeat bitwise) and bitwise
+    against the K4a step ``k4a`` on the same inputs; then timed beside its
+    plain version: the whole call (K1, K4a's two block sorts, the launch)
+    and the launch alone on fixed block sorts."""
     import torch
-    from repro_torch.kernels.sgns_fused_pipe import plan_blocks, plan_row_traffic, run_plan
+    from repro_torch.kernels.sgns_fused_hbm import block_sorts
+    from repro_torch.kernels.sgns_fused_pipe import plan_blocks, plan_row_traffic, run_chain
 
     W, C, centers, contexts, table, seeds, lr, K = inputs
     device = W.device
     n, V, d = W.shape
-    B = centers.shape[1]
     step, plain = _pipe_steps(kw)
     kw = dict(kw, block_pairs=blk)
     hot, S = min(kw.get("hot_rows", 0), V), kw.get("ring_depth", 2)
@@ -968,34 +972,30 @@ def _check_and_time_pipe(label, k4a, inputs, blk, kw, nbytes, flops) -> dict:
     ref_p, ref_l, ref_ids = k4a
     p, loss, ids = step({"W": W.clone(), "C": C.clone()}, centers, contexts, table, seeds,
                         lr, negatives=K, **kw)
-    plan = plan_blocks(centers, contexts, ids, V, blk, hot_rows=hot, ring_depth=S)
-    ph = {"W": W.clone(), "C": C.clone()}
-    lh = run_plan(ph, plan._replace(hazard=torch.ones_like(plan.hazard)), lr, B,
-                  hot_rows=hot)
     torch.cuda.synchronize(device)
     same = (torch.equal(ids, ref_ids) and torch.equal(loss, ref_l)
             and all(torch.equal(p[k], ref_p[k]) for k in ("W", "C")))
-    same_hz = torch.equal(lh, ref_l) and all(torch.equal(ph[k], ref_p[k]) for k in ("W", "C"))
-    log(f"[time] {label}: ids, W′, C′ and loss bitwise K4a's: {same}; with every hazard "
-        f"flag set: {same_hz}")
-    del p, ph
-    if not (same and same_hz):
+    log(f"[time] {label}: ids, W′, C′ and loss bitwise K4a's: {same}")
+    del p
+    if not same:
         raise RuntimeError(f"{label} is not bitwise equal to K4a")
+    runs = block_sorts(centers, contexts, ids, blk, V)
     pk = {"W": W.clone(), "C": C.clone()}
     ms = _time_ms(lambda: step(pk, centers, contexts, table, seeds, lr, negatives=K, **kw),
                   device, reps=20)
-    launch_ms = _time_ms(lambda: run_plan(pk, plan, lr, B, hot_rows=hot),
-                         device, reps=20)
+    alone_ms = _time_ms(lambda: run_chain(pk, centers, contexts, ids, runs, lr, blk,
+                                          hot_rows=hot), device, reps=20)
     del pk
     pp = {"W": W.clone(), "C": C.clone()}
     plain_ms = _time_ms(lambda: plain(pp, centers, contexts, table, seeds, lr, negatives=K,
                                       **kw), device, reps=5, warmup=1)
     del pp
     # the bound counts the step's distinct rows (K2's and K4a's bytes); the
-    # planner's row transfers, which the kernel moves, are reported apart
+    # reference's row transfers (its ring's gathers and write-backs) are
+    # reported beside it
+    plan = plan_blocks(centers, contexts, ids, V, blk, hot_rows=hot, ring_depth=S)
     r = _bound(ms, plain_ms, nbytes, flops)
-    r.update(max_abs_err=err, launch_ms=launch_ms, row_traffic=plan_row_traffic(plan, hot),
-             hazards=int((plan.hazard != 0).sum()), blocks=plan.hazard.numel())
+    r.update(max_abs_err=err, alone_ms=alone_ms, row_traffic=plan_row_traffic(plan, hot))
     return r
 
 
@@ -1078,10 +1078,8 @@ PROFILE_GROUPS = {
     "main": (("K2 phase 1", ("sgns_pairs_kernel",)), ("K2 apply", ("sgns_apply_kernel",)),
              ("K1", ("sample_negatives_kernel",)), ("planning sorts", ("sort",)),
              ("copies", ("memcpy",))),
-    # "searchsorted" before "sort": a name goes to the first group it matches
-    "pipe": (("K5", ("pipe_kernel",)), ("K1", ("sample_negatives_kernel",)),
-             ("searchsorted (planner)", ("searchsorted",)),
-             ("sorts (planner, apply order)", ("sort",)),
+    "pipe": (("K5", ("pipe_chain_kernel",)), ("K1", ("sample_negatives_kernel",)),
+             ("block sorts (K4a's two)", ("sort",)),
              ("copies", ("memcpy",))),
     "decode": (("K7", ("swa_partial_kernel", "swa_combine_kernel")),
                ("matmuls (cuBLAS)", ("gemm", "gemv")),
@@ -1285,8 +1283,8 @@ def main(argv=None) -> int:
                 # draws other ids from the distribution)
                 "library_ms": t.get("library_ms"),
             })
-            if "row_traffic" in t:     # K5/K6: the planner's row transfers a step
-                kernels[-1]["row_traffic"] = t["row_traffic"]
+            if "row_traffic" in t:     # K5/K6: beside the launch alone and K4a
+                kernels[-1].update({k: t[k] for k in ("alone_ms", "k4a_ms", "row_traffic")})
         print(json.dumps({"kernels": kernels}), flush=True)
     log(f"[env] phases {','.join(phases)} done in {time.perf_counter() - t_start:.1f} s")
     print(gpu, flush=True)

@@ -15,7 +15,8 @@
 //       addends one by one in pair order and stores the row once. No float
 //       atomics, so the same inputs give the same bits on every run.
 //   K2 runs them once over the whole batch; K4 once per pair block. K5 and K6
-//   run the pair body (`pair_step`) on rows staged in their ring.
+//   (`sgns_pipe.cuh`) repeat the pair body's arithmetic, in its order, on
+//   rows staged in shared memory.
 //
 // Rounding: every product and sum of the apply and of dW is a separate
 // round-to-nearest operation (__fmul_rn/__fadd_rn, never contracted into an

@@ -11,10 +11,10 @@ with their plain torch versions and wrappers.
 * ``sgns_fused_hbm`` — K4 ``sgns_fused_hbm_step`` (the step as a chain of
   pair blocks, or pair by pair). Powers the ``fused_hbm`` engine.
 * ``sgns_fused_pipe`` — K5 ``sgns_fused_pipe_step`` (the block chain in
-  one launch, each block's rows deduplicated through a ring), with the
-  block planner (``plan_blocks``). Powers ``fused_pipe``.
-* ``sgns_fused_tiered`` — K6 ``sgns_fused_tiered_step`` (K5 with a hot
-  tier of the most frequent rows). Powers ``fused_tiered``.
+  one launch, rows in place), with the reference's block planner
+  (``plan_blocks``) for its plain version. Powers ``fused_pipe``.
+* ``sgns_fused_tiered`` — K6 ``sgns_fused_tiered_step`` (K5 with the most
+  frequent rows kept in L2). Powers ``fused_tiered``.
 * ``swa_decode`` — K7 ``swa_decode`` (single-token sliding-window
   attention over a full ring-buffer KV cache, with GQA). Powers the SWA
   layers' decode in ``repro_torch.models.attention``; ``ref`` holds its

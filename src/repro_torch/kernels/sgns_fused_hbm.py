@@ -28,6 +28,8 @@ of ``sparse_row_grads_per_pair``.
 
 from __future__ import annotations
 
+import functools
+
 import numpy as np
 import torch
 
@@ -81,12 +83,33 @@ def sgns_fused_hbm_step_plain(params: dict, centers: torch.Tensor,
     return params, loss, torch.cat(ids, dim=1)
 
 
-def _block_sort(keys: torch.Tensor, block_of: torch.Tensor, V: int):
-    """Each worker's touched rows ``keys`` ``(n, L)`` sorted stably by
-    (block, row): ``(rows int32, perm int64)``. Each block's entries end
-    up in one contiguous range, its rows in addend order."""
-    sorted_keys, perm = torch.sort(block_of * V + keys.long(), dim=1, stable=True)
-    return (sorted_keys % V).to(torch.int32), perm
+@functools.lru_cache(maxsize=16)
+def _block_offsets(B: int, K: int, blk: int, V: int, device: torch.device):
+    """``block · V`` for each entry of a worker's W list ``(B,)`` and C list
+    ``(B·(K+1),)`` (contexts, then each pair's K negatives): int32 where the
+    keys fit, so the radix sorts take half the passes."""
+    dtype = torch.int32 if -(-B // blk) * V < 2**31 else torch.int64
+    off = (torch.arange(B, dtype=torch.int64, device=device) // blk * V).to(dtype)
+    return off, torch.cat([off, off.repeat_interleave(K)])
+
+
+def block_sorts(centers: torch.Tensor, contexts: torch.Tensor, ids: torch.Tensor,
+                blk: int, V: int):
+    """The block chains' apply lists (K4a, K5, K6): each worker's touched
+    rows of W (its centers) and of C (``concat(contexts, ids)``) sorted
+    stably by (block of ``blk`` pairs, row). Returns ``(w_rows, w_perm,
+    c_rows, c_perm)``: rows int32 and the index each came from, int64 — for
+    W a pair index, for C an index into ``concat(contexts (B), ids (B·K))``.
+    Block b's C entries are positions ``[b·blk·(K+1), (b·blk + nb)·(K+1))``,
+    its W entries ``[b·blk, b·blk + nb)``; within a block each row's
+    entries form one run in addend order."""
+    n, B = centers.shape
+    K = ids.shape[-1]
+    off_w, off_c = _block_offsets(B, K, blk, V, centers.device)
+    w_keys, w_perm = torch.sort(centers + off_w, dim=1, stable=True)
+    c_keys, c_perm = torch.sort(torch.cat([contexts, ids.reshape(n, B * K)], 1) + off_c,
+                                dim=1, stable=True)
+    return (w_keys % V).to(torch.int32), w_perm, (c_keys % V).to(torch.int32), c_perm
 
 
 def sgns_fused_hbm_step(params: dict, centers: torch.Tensor,
@@ -135,11 +158,7 @@ def sgns_fused_hbm_step(params: dict, centers: torch.Tensor,
         LAUNCHES["sgns_fused_hbm_step"] += 1
         return params, loss, ids
     blk = pick_block_pairs(B, block_pairs)
-    block_of = torch.arange(B, dtype=torch.int64, device=device) // blk
-    w_keys, w_perm = _block_sort(centers, block_of.expand(n, B), V)
-    c_keys, c_perm = _block_sort(
-        torch.cat([contexts, ids.view(n, B * K)], 1),
-        torch.cat([block_of, block_of.repeat_interleave(K)]).expand(n, B * (K + 1)), V)
+    w_keys, w_perm, c_keys, c_perm = block_sorts(centers, contexts, ids, blk, V)
     coef = torch.empty((n, B, K + 1), dtype=torch.float32, device=device)
     dW = torch.empty((n, B, d), dtype=torch.float32, device=device)
     vec4 = int(d % 4 == 0 and W.data_ptr() % 16 == 0 and C.data_ptr() % 16 == 0)

@@ -1,31 +1,37 @@
-"""K5: the SGNS step as a chain of pair blocks over deduplicated rows
-through a ring of slots — the block planner, the CUDA kernel's wrapper and
-its plain torch version.
+"""K5: the SGNS step as a chain of pair blocks in one launch — the CUDA
+kernel's wrapper, its plain torch versions, and the reference's block
+planner.
 
 Replaces the JAX package's ``_pipe_kernel`` (``repro/kernels/
 sgns_fused_pipe.py``, engine ``pallas_fused_pipe``). Source:
-``repro_torch/csrc/sgns_fused_pipe.cu`` (+ ``sgns_pipe.cuh``). Each pair
-block gathers every row it touches once into a ring slot, applies all its
-updates to the slot's copy and writes each row back once, so per block a
-row moves twice however many pairs touch it. The result is the chain of
-K4a (``sgns_fused_hbm``, ``sequential=False``) at the same
+``repro_torch/csrc/sgns_fused_pipe.cu`` (+ ``sgns_pipe.cuh``). The
+reference gathers each block's unique rows once into a ring of VMEM slots,
+applies all its updates there and writes each row back once. Its result is
+the chain of K4a (``sgns_fused_hbm``, ``sequential=False``) at the same
 ``block_pairs``, bit for bit: the same negatives, the same dot products,
-each row's addends in the same order.
+each row's addends in the same order. On the card the kernel computes that
+chain in place in the tables, in one persistent launch for all workers.
 
-* :func:`plan_blocks` — the reference's planner, worker-batched and in
-  torch on the tables' device (sorts and ``searchsorted``, no host round
-  trip): per block the sorted unique rows of each table, every pair's
-  position in them, and the hazard flags that say when a block's gathers
-  may not overtake the write-backs still in flight. Integer-exact: equal
-  to ``jax.vmap`` of the reference's ``plan_blocks`` (whose pair mask the
-  kernel reads off the pair's index instead: a pair is real iff its index
-  in the batch is below ``B``).
-* :func:`sgns_fused_pipe_step` — draw (K1), plan, then one K5 launch for
-  all workers; :func:`sgns_fused_pipe_step_plain` follows the same plan in
-  torch.
+* :func:`sgns_fused_pipe_step` — on the card: K1's draw, K4a's stable
+  (block, row) sort of each table's touched rows (:func:`~repro_torch
+  .kernels.sgns_fused_hbm.block_sorts`), then one K5 launch
+  (:func:`run_chain`). On the CPU: :func:`sgns_fused_pipe_step_plain`.
+* :func:`sgns_fused_pipe_step_plain` — the reference's algorithm in torch:
+  :func:`plan_blocks`, then :func:`run_plan_plain` (per block, gather each
+  unique row into a buffer, update the buffer, write it back).
+* :func:`run_chain_plain` — the kernel's algorithm in torch: the sorted
+  runs applied to the rows in place; bitwise :func:`run_plan_plain`.
+* :func:`plan_blocks` — the reference's planner, worker-batched, in torch
+  (sorts and ``searchsorted``): per block the sorted unique rows of each
+  table, every pair's position in them, and the hazard flags of the
+  reference's ring. Integer-exact: equal to ``jax.vmap`` of the
+  reference's ``plan_blocks`` (whose pair mask is the rule the kernels
+  read off a pair's index: a pair is real iff its index is below ``B``).
+  It serves the plain version and the row-traffic count
+  (:func:`plan_row_traffic`); the card's path needs no plan.
 
-The tiered kernel K6 (``sgns_fused_tiered``) shares the planner, the
-apply plan and the launch (:func:`run_plan`).
+The tiered kernel K6 (``sgns_fused_tiered``) shares the plain versions and
+the launch (:func:`run_chain`).
 """
 
 from __future__ import annotations
@@ -38,9 +44,9 @@ import torch
 from repro_torch.kernels.sgns_fused import (
     LAUNCHES, MAX_NEGATIVES, _check, _entry, _kernel_device, _ptr, _raise_on,
     _stream, sample_negatives)
-from repro_torch.kernels.sgns_fused_hbm import pick_block_pairs
+from repro_torch.kernels.sgns_fused_hbm import block_sorts, pick_block_pairs
 
-NUM_SLOTS = 2   # default ring depth: gathers of b+1 overlap write-backs of b
+NUM_SLOTS = 2   # the reference's default ring depth (the planner's look-behind)
 
 
 # ---------------------------------------------------------------------------
@@ -280,59 +286,84 @@ def sgns_fused_pipe_step_plain(params: dict, centers: torch.Tensor,
     return params, run_plan_plain(params, plan, lr, B), ids
 
 
+def run_chain_plain(params: dict, centers: torch.Tensor, contexts: torch.Tensor,
+                    ids: torch.Tensor, runs: tuple, lr: float, blk: int) -> torch.Tensor:
+    """The step K5 and K6 compute from the block sorts ``runs``
+    (:func:`~repro_torch.kernels.sgns_fused_hbm.block_sorts`), in torch, as
+    the kernel does: per block of ``blk`` pairs, the pairs' grads from the
+    table rows as of block start, then the C runs and the W runs added to
+    their rows in place, each in sorted order — a row's element order (W
+    at centers; C at contexts, then at negatives). The hot tier changes no
+    value, so this is K6's function at every ``hot_rows``. Updates
+    ``params`` in place; returns the loss ``(n, B)``."""
+    from repro_torch.core.sgns import sparse_row_grads_per_pair
+
+    W, C = params["W"], params["C"]
+    n, V, d = W.shape
+    B, K = centers.shape[1], ids.shape[-1]
+    w_keys, w_perm, c_keys, c_perm = runs
+    device = W.device
+    neg_lr = -float(np.float32(lr))
+    loss = torch.empty((n, B), dtype=torch.float32, device=device)
+    off = torch.arange(n, device=device)[:, None] * V
+    worker = torch.arange(n, device=device)[:, None]
+    Wf, Cf = W.view(n * V, d), C.view(n * V, d)
+    for p0 in range(0, B, blk):
+        nb = min(blk, B - p0)
+        cen = (centers[:, p0:p0 + nb].long() + off).reshape(-1)
+        ctx = (contexts[:, p0:p0 + nb].long() + off).reshape(-1)
+        neg = (ids[:, p0:p0 + nb].reshape(n, nb * K).long() + off).reshape(-1)
+        pair_loss, d_w, d_cp, d_cn = sparse_row_grads_per_pair(
+            Wf[cen], Cf[ctx], Cf[neg].view(n * nb, K, d))
+        loss[:, p0:p0 + nb] = pair_loss.view(n, nb)
+        # each table's addends by element: C's index concat(contexts, ids)
+        # (x < B: the context of pair x; else negative x - B = p·K + k)
+        u_c = torch.cat([(neg_lr * d_cp).view(n, nb, d),
+                         (neg_lr * d_cn).reshape(n, nb * K, d)], 1)
+        s0, s1 = p0 * (K + 1), (p0 + nb) * (K + 1)
+        x = c_perm[:, s0:s1]
+        el = torch.where(x < B, x - p0, nb + x - B - p0 * K)
+        Cf.index_add_(0, (c_keys[:, s0:s1].long() + off).reshape(-1),
+                      u_c[worker, el].reshape(-1, d))
+        u_w = (neg_lr * d_w).view(n, nb, d)
+        Wf.index_add_(0, (w_keys[:, p0:p0 + nb].long() + off).reshape(-1),
+                      u_w[worker, w_perm[:, p0:p0 + nb] - p0].reshape(-1, d))
+    return loss
+
+
 # ---------------------------------------------------------------------------
 # Kernel launch
 # ---------------------------------------------------------------------------
-def _apply_order(pos: torch.Tensor, ids: torch.Tensor, slots: int, hot_rows: int):
-    """Each worker's update targets sorted stably by (block, target):
-    ``(targets (n, nb·L) int32, elements (n, nb·L) int32)``. An element's
-    target is its slot, or ``slots + id`` for a hot id, so each block's
-    run of a target is one contiguous range with its addends in reference
-    order; ``elements`` holds each addend's index within its block."""
-    n, nb, L = pos.shape
-    target = pos.long()
-    if hot_rows:
-        target = torch.where(ids < hot_rows, slots + ids.long(), target)
-    span = slots + hot_rows
-    block = torch.arange(nb, device=pos.device)[None, :, None] * span
-    keys, perm = torch.sort((block + target).reshape(n, nb * L), dim=1, stable=True)
-    return (keys % span).to(torch.int32), (perm % L).to(torch.int32)
-
-
-def run_plan(params: dict, plan: PipelinePlan, lr: float, B: int, *,
-             hot_rows: int = 0) -> torch.Tensor:
-    """Launch K5 (``hot_rows == 0``) or K6 once on ``plan`` for every
-    worker: one cooperative launch walks all blocks, gathers through a
-    two-slot ring in device memory, and honours ``plan.hazard``. Two slots
-    serve a plan made for any ``ring_depth``: the kernel's phase order
-    never has more than two live, and a deeper look-behind only flags more
-    hazards. Updates ``params`` in place; returns the loss ``(n, B)``."""
+def run_chain(params: dict, centers: torch.Tensor, contexts: torch.Tensor,
+              ids: torch.Tensor, runs: tuple, lr: float, blk: int, *,
+              hot_rows: int = 0) -> torch.Tensor:
+    """Launch K5 (``hot_rows == 0``) or K6 once for every worker on the
+    step's draw ``ids`` ``(n, B, K)`` and block sorts ``runs``
+    (:func:`~repro_torch.kernels.sgns_fused_hbm.block_sorts` at ``blk``):
+    one persistent launch walks each worker's blocks in place in the
+    tables, a group of CTAs a worker. Updates ``params`` in place; returns
+    the loss ``(n, B)``."""
     W, C = params["W"], params["C"]
     device = W.device
     _kernel_device(device)
     n, V, d = W.shape
-    blk, nb = plan.block_pairs, plan.nblocks
-    K = plan.neg.shape[-1] // blk
-    RW, RC = plan.uw.shape[-1], plan.uc.shape[-1]
+    B, K = centers.shape[1], ids.shape[-1]
     kH = int(hot_rows)
     name = "sgns_fused_tiered" if kH else "sgns_fused_pipe"
     symbol = "sgns_tiered_launch" if kH else "sgns_pipe_launch"
-    w_tgt, w_el = _apply_order(plan.w_pos, plan.cen, RW, kH)
-    c_tgt, c_el = _apply_order(torch.cat([plan.cp_pos, plan.cn_pos], -1),
-                               torch.cat([plan.ctx, plan.neg], -1), RC, kH)
+    w_keys, w_perm, c_keys, c_perm = runs
     f32 = dict(dtype=torch.float32, device=device)
     loss = torch.empty((n, B), **f32)
-    ring = torch.empty((2, n, RW + RC, d), **f32)
     coef = torch.empty((n, blk, K + 1), **f32)
     dW = torch.empty((n, blk, d), **f32)
+    wrows = torch.empty((n, blk, d), **f32)
+    arrive = torch.empty((n,), dtype=torch.int32, device=device)
     vec4 = int(d % 4 == 0 and W.data_ptr() % 16 == 0 and C.data_ptr() % 16 == 0)
     fn = _entry(name, symbol)
     with torch.cuda.device(device):
-        err = fn(_ptr(W), _ptr(C), _ptr(loss), _ptr(plan.uw), _ptr(plan.uc),
-                 _ptr(plan.n_w), _ptr(plan.n_c), _ptr(plan.hazard), _ptr(plan.w_pos),
-                 _ptr(plan.cp_pos), _ptr(plan.cn_pos), _ptr(plan.cen), _ptr(plan.ctx),
-                 _ptr(plan.neg), _ptr(w_tgt), _ptr(w_el), _ptr(c_tgt), _ptr(c_el),
-                 _ptr(ring), _ptr(coef), _ptr(dW), n, V, d, B, K, blk, nb, kH,
+        err = fn(_ptr(W), _ptr(C), _ptr(loss), _ptr(centers), _ptr(contexts), _ptr(ids),
+                 _ptr(w_keys), _ptr(w_perm), _ptr(c_keys), _ptr(c_perm), _ptr(coef),
+                 _ptr(dW), _ptr(wrows), _ptr(arrive), n, V, d, B, K, blk, kH,
                  -float(np.float32(lr)), vec4, _stream(device))
     _raise_on(err, f"{name}_step")
     LAUNCHES[f"{name}_step"] += 1
@@ -366,13 +397,15 @@ def sgns_fused_pipe_step(params: dict, centers: torch.Tensor,
                          contexts: torch.Tensor, table: dict, seeds: torch.Tensor,
                          lr: float, *, negatives: int = 5, block_pairs: int = 256,
                          ring_depth: int = NUM_SLOTS):
-    """K5: one SGNS step for every worker as a chain of pair blocks over
-    deduplicated rows. ``params`` ``{"W", "C"}`` ``(n, V, d)`` float32 are
+    """K5: one SGNS step for every worker as a chain of pair blocks.
+    ``params`` ``{"W", "C"}`` ``(n, V, d)`` float32 are
     updated **in place**; ``centers``/``contexts`` ``(n, B)`` int32 ids in
     ``[0, V)`` (not bounds-checked; the trainer checks each chunk);
     ``table`` the stacked ``{"prob", "alias"}`` alias tables; ``seeds``
     ``(n, 2)``; ``lr`` the step's learning rate; ``ring_depth`` the
-    reference's ring depth (>= 2), the planner's hazard look-behind.
+    reference's ring depth (>= 2): the plain version's hazard look-behind.
+    It never changes the result, and the card's path, which has no ring,
+    takes no note of it.
 
     Returns ``(params, loss (n, B), ids (n, B, K))``, bitwise those of
     :func:`~repro_torch.kernels.sgns_fused_hbm.sgns_fused_hbm_step` at the
@@ -386,9 +419,19 @@ def sgns_fused_pipe_step(params: dict, centers: torch.Tensor,
                                           negatives=int(negatives),
                                           block_pairs=block_pairs,
                                           ring_depth=ring_depth)
+    return params, *chain_step(params, centers, contexts, table, seeds, lr,
+                               negatives=int(negatives), block_pairs=block_pairs)
+
+
+def chain_step(params: dict, centers: torch.Tensor, contexts: torch.Tensor,
+               table: dict, seeds: torch.Tensor, lr: float, *, negatives: int,
+               block_pairs: int, hot_rows: int = 0):
+    """The card's path of K5 and K6: K1's draw, K4a's two block sorts, one
+    :func:`run_chain` launch. Returns ``(loss (n, B), ids (n, B, K))``."""
+    device = params["W"].device
     _kernel_device(device)
     B = centers.shape[-1]
-    ids = sample_negatives(seeds, table["prob"], table["alias"], (B, int(negatives)))
-    plan = plan_blocks(centers, contexts, ids, params["W"].shape[1], block_pairs,
-                       ring_depth=ring_depth)
-    return params, run_plan(params, plan, lr, B), ids
+    ids = sample_negatives(seeds, table["prob"], table["alias"], (B, negatives))
+    blk = pick_block_pairs(B, block_pairs)
+    runs = block_sorts(centers, contexts, ids, blk, params["W"].shape[1])
+    return run_chain(params, centers, contexts, ids, runs, lr, blk, hot_rows=hot_rows), ids

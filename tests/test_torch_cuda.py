@@ -149,76 +149,82 @@ def test_sgns_fused_hbm_one_block_equals_the_fused_step(device):
 
 # K5 and K6 against K4a: the same draw, the same pair body, the same addends
 # in the same order per row, so the tables and the loss are bitwise K4a's at
-# the same block size, at every ring depth and hot tier and under any hazard
-# vector; against their plain versions within K2's tolerances.
-@pytest.mark.parametrize("d", (48, 50))          # 16-byte path and scalar path
-@pytest.mark.parametrize("ring_depth", (2, 3))
-def test_sgns_fused_pipe_kernel_bitwise_equals_hbm(device, d, ring_depth):
-    from repro_torch.kernels import sgns_fused_hbm as H
-    from repro_torch.kernels import sgns_fused_pipe as P
-
-    W, C, cen, ctx, t, seeds = _hbm_inputs(device, d)
-    kw = dict(negatives=5, block_pairs=128)
-    ph, lh, ih = H.sgns_fused_hbm_step({"W": W.clone(), "C": C.clone()}, cen, ctx, t, seeds,
-                                       0.05, **kw)
-    outs = []
-    for _ in range(2):
-        before = K.LAUNCHES["sgns_fused_pipe_step"]
-        p = {"W": W.clone(), "C": C.clone()}
-        outs.append(P.sgns_fused_pipe_step(p, cen, ctx, t, seeds, 0.05,
-                                           ring_depth=ring_depth, **kw))
-        assert K.LAUNCHES["sgns_fused_pipe_step"] == before + 1
-    plain = P.sgns_fused_pipe_step_plain({"W": W.clone(), "C": C.clone()}, cen, ctx, t,
-                                         seeds, 0.05, ring_depth=ring_depth, **kw)
-    (p1, l1, i1), (p2, l2, i2) = outs
-    assert torch.equal(i1, ih) and torch.equal(i1, plain[2])
-    assert torch.equal(l1, lh) and torch.equal(l1, l2)
-    for k in ("W", "C"):
-        assert torch.equal(p1[k], ph[k]) and torch.equal(p1[k], p2[k])
-        assert float((p1[k] - plain[0][k]).abs().max()) <= 1e-5
-    assert float((l1 - plain[1]).abs().max()) <= 1e-4
-    # all-ones hazards: every gather waits for the write-backs; same bits
-    B = cen.shape[1]
-    plan = P.plan_blocks(cen, ctx, i1, W.shape[1], 128, ring_depth=ring_depth)
-    p3 = {"W": W.clone(), "C": C.clone()}
-    l3 = P.run_plan(p3, plan._replace(hazard=torch.ones_like(plan.hazard)), 0.05, B)
-    assert torch.equal(l3, lh)
-    for k in ("W", "C"):
-        assert torch.equal(p3[k], ph[k])
+# the same block size, at every ring depth and hot tier; against their plain
+# versions within K2's tolerances. Cases: the 16-byte and scalar paths (d =
+# 48, 50) and the main path's width (d = 500); n = 40 workers, more than the
+# card's groups of at least 8 CTAs (264 CTAs: 33 groups); one block (blk >=
+# B); and a vocabulary of 1,000 rows under Zipf(1), whose hottest rows run
+# past 32 addends in a block of 256 pairs, so their applies follow a run
+# across fetches and over every column chunk.
+CHAIN_CASES = {
+    "d48": dict(d=48, n=3, V=5000, B=300, blk=128),
+    "d50": dict(d=50, n=3, V=5000, B=300, blk=128),
+    "d500": dict(d=500, n=2, V=5000, B=300, blk=128),
+    "n40": dict(d=48, n=40, V=2000, B=200, blk=64),
+    "one-block": dict(d=48, n=3, V=5000, B=300, blk=512),
+    "zipf-runs": dict(d=500, n=2, V=1000, B=1024, blk=256),
+}
 
 
-@pytest.mark.parametrize("d", (48, 50))
-@pytest.mark.parametrize("hot_rows", (1, 256, 5000))
-def test_sgns_fused_tiered_kernel_bitwise_equals_hbm(device, d, hot_rows):
+def _check_chain(device, case, **dial):
+    """K4a's whole call, then the K5/K6 wrapper twice (one launch each,
+    bitwise K4a's and each other), its plain version within K2's
+    tolerances, and the launch alone on fixed block sorts bitwise too."""
     from repro_torch.kernels import sgns_fused_hbm as H
     from repro_torch.kernels import sgns_fused_pipe as P
     from repro_torch.kernels import sgns_fused_tiered as T
 
-    W, C, cen, ctx, t, seeds = _hbm_inputs(device, d)       # V = 5000
-    kw = dict(negatives=5, block_pairs=128)
-    ph, lh, _ = H.sgns_fused_hbm_step({"W": W.clone(), "C": C.clone()}, cen, ctx, t, seeds,
-                                      0.05, **kw)
+    c = CHAIN_CASES[case]
+    W, C, cen, ctx, t, seeds = _hbm_inputs(device, c["d"], n=c["n"], V=c["V"], B=c["B"])
+    kw = dict(negatives=5, block_pairs=c["blk"])
+    ph, lh, ih = H.sgns_fused_hbm_step({"W": W.clone(), "C": C.clone()}, cen, ctx, t, seeds,
+                                       0.05, **kw)
+    hot = dial.get("hot_rows", 0)
+    step, plain_step = ((T.sgns_fused_tiered_step, T.sgns_fused_tiered_step_plain) if hot
+                        else (P.sgns_fused_pipe_step, P.sgns_fused_pipe_step_plain))
+    counter = "sgns_fused_tiered_step" if hot else "sgns_fused_pipe_step"
     outs = []
     for _ in range(2):
-        before = K.LAUNCHES["sgns_fused_tiered_step"]
-        p = {"W": W.clone(), "C": C.clone()}
-        outs.append(T.sgns_fused_tiered_step(p, cen, ctx, t, seeds, 0.05, hot_rows=hot_rows,
-                                             **kw))
-        assert K.LAUNCHES["sgns_fused_tiered_step"] == before + 1
-    plain = T.sgns_fused_tiered_step_plain({"W": W.clone(), "C": C.clone()}, cen, ctx, t,
-                                           seeds, 0.05, hot_rows=hot_rows, **kw)
-    (p1, l1, i1), (p2, l2, _) = outs
+        before = K.LAUNCHES[counter]
+        outs.append(step({"W": W.clone(), "C": C.clone()}, cen, ctx, t, seeds, 0.05,
+                         **kw, **dial))
+        assert K.LAUNCHES[counter] == before + 1
+    plain = plain_step({"W": W.clone(), "C": C.clone()}, cen, ctx, t, seeds, 0.05, **kw,
+                       **dial)
+    (p1, l1, i1), (p2, l2, i2) = outs
+    assert torch.equal(i1, ih) and torch.equal(i1, plain[2]) and torch.equal(i1, i2)
     assert torch.equal(l1, lh) and torch.equal(l1, l2)
     for k in ("W", "C"):
         assert torch.equal(p1[k], ph[k]) and torch.equal(p1[k], p2[k])
         assert float((p1[k] - plain[0][k]).abs().max()) <= 1e-5
+        assert float((p1[k] - (W if k == "W" else C)).abs().max()) > 0
     assert float((l1 - plain[1]).abs().max()) <= 1e-4
-    plan = P.plan_blocks(cen, ctx, i1, W.shape[1], 128, hot_rows=hot_rows)
+    blk = H.pick_block_pairs(c["B"], c["blk"])
+    runs = H.block_sorts(cen, ctx, i1, blk, c["V"])
     p3 = {"W": W.clone(), "C": C.clone()}
-    P.run_plan(p3, plan._replace(hazard=torch.ones_like(plan.hazard)), 0.05, cen.shape[1],
-               hot_rows=hot_rows)
+    l3 = P.run_chain(p3, cen, ctx, i1, runs, 0.05, blk, hot_rows=min(hot, c["V"]))
+    assert torch.equal(l3, lh)
     for k in ("W", "C"):
         assert torch.equal(p3[k], ph[k])
+    return runs
+
+
+@pytest.mark.parametrize("ring_depth", (2, 3))
+@pytest.mark.parametrize("case", sorted(CHAIN_CASES))
+def test_sgns_fused_pipe_kernel_bitwise_equals_hbm(device, case, ring_depth):
+    runs = _check_chain(device, case, ring_depth=ring_depth)
+    if case == "zipf-runs":       # the case is what it says: C runs past 32 addends
+        c_keys = runs[2]
+        _, counts = torch.unique_consecutive(c_keys[0, :c_keys.shape[1] // 4],
+                                             return_counts=True)
+        assert int(counts.max()) > 32
+
+
+@pytest.mark.parametrize("hot_rows", (1, 256, "V"))
+@pytest.mark.parametrize("case", ("d48", "d50", "d500", "zipf-runs"))
+def test_sgns_fused_tiered_kernel_bitwise_equals_hbm(device, case, hot_rows):
+    hot = CHAIN_CASES[case]["V"] if hot_rows == "V" else hot_rows
+    _check_chain(device, case, hot_rows=hot)
 
 
 def test_sgns_fused_tiered_with_no_hot_rows_runs_k5(device):

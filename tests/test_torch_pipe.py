@@ -4,7 +4,11 @@
 * ``plan_blocks`` for n = 3 workers against ``jax.vmap`` of the
   reference's, every field bitwise, over hot tiers, ring depths and
   duplicate-heavy streams with a tail block; its hazards against the sets
-  they stand for, and the kernel's apply order against a stable sort;
+  they stand for;
+* the card path's block sorts tied to the plan (run heads = unique rows,
+  each row's addend order = the reference's apply order), and the
+  kernel's plain mirror (runs applied in place) bitwise the ring-based
+  plain version;
 * ``zipf50k_ids`` bitwise, and the planner's row traffic at ``@zipf50k``;
 * the plain K5/K6 steps against ``sgns_fused_pipe_step`` /
   ``sgns_fused_tiered_step(interpret=True)`` per worker (tables atol 1e-6,
@@ -109,8 +113,7 @@ def _cold_sets(plan, hot_rows):
 def test_hazards_flag_cold_rows_met_in_the_look_behind(hot_rows, ring_depth):
     """``hazard[b]`` is set iff block b's cold rows meet those of one of the
     previous ``ring_depth - 1`` blocks in the same table. So every depth
-    flags at least what depth 2 flags (b against b - 1), the one ordering
-    the kernels' two-slot ring needs."""
+    flags at least what depth 2 flags (b against b - 1)."""
     c, x, neg = _ids(hot_rows + ring_depth)
     args = (torch.from_numpy(c), torch.from_numpy(x), torch.from_numpy(neg), V, BLK)
     plan = P.plan_blocks(*args, hot_rows=hot_rows, ring_depth=ring_depth)
@@ -124,32 +127,97 @@ def test_hazards_flag_cold_rows_met_in_the_look_behind(hot_rows, ring_depth):
     assert bool((plan.hazard >= two.hazard).all())
 
 
-@pytest.mark.parametrize("table", ("W", "C"))
-@pytest.mark.parametrize("hot_rows", (0, 1, 8, V))
-def test_apply_order_is_a_stable_sort_by_block_and_target(hot_rows, table):
-    """The kernels' apply lists: per block, the elements stably sorted by
-    their update target (the slot, or ``slots + id`` for a hot id), so each
-    target's addends form one run in reference order — W at centers; C at
-    contexts, then at negatives."""
-    c, x, neg = _ids(hot_rows + 3)
-    plan = P.plan_blocks(torch.from_numpy(c), torch.from_numpy(x), torch.from_numpy(neg), V,
-                         BLK, hot_rows=hot_rows)
+def _table_view(plan, runs, table, w, b, blk):
+    """One worker's and block's apply list of ``table``, both ways: the
+    card path's sorted runs ``(rows, elements)`` — an element is its index
+    in the plan's blocked order (W: pair j; C: context j, or ``blk + j·K +
+    k``) — and the plan's ``(pos, ids, u, count, real)``: each element's
+    slot, its id, the unique cold rows, their count, and which elements
+    belong to real pairs (not the tail's padding)."""
+    w_keys, w_perm, c_keys, c_perm = (t[w].numpy() for t in runs)
+    p0 = b * blk
+    nv = min(blk, B - p0)
     if table == "W":
-        pos, ids, slots = plan.w_pos, plan.cen, plan.uw.shape[-1]
+        rows, el = w_keys[p0:p0 + nv], w_perm[p0:p0 + nv] - p0
+        pos, ids, u, count = plan.w_pos[w, b], plan.cen[w, b], plan.uw[w, b], plan.n_w[w, b]
+        real = np.arange(blk) < nv
     else:
-        pos = torch.cat([plan.cp_pos, plan.cn_pos], -1)
-        ids = torch.cat([plan.ctx, plan.neg], -1)
-        slots = plan.uc.shape[-1]
-    tgt, el = P._apply_order(pos, ids, slots, hot_rows)
-    L = pos.shape[-1]
-    assert tgt.dtype == el.dtype == torch.int32 and tuple(tgt.shape) == (N, plan.nblocks * L)
+        s0, s1 = p0 * (NEG + 1), (p0 + nv) * (NEG + 1)
+        rows, x = c_keys[s0:s1], c_perm[s0:s1]
+        el = np.where(x < B, x - p0, blk + x - B - p0 * NEG)
+        pos = torch.cat([plan.cp_pos[w, b], plan.cn_pos[w, b]])
+        ids = torch.cat([plan.ctx[w, b], plan.neg[w, b]])
+        u, count = plan.uc[w, b], plan.n_c[w, b]
+        e = np.arange(blk * (NEG + 1))
+        real = np.where(e < blk, e < nv, e - blk < nv * NEG)
+    return rows, el, pos.numpy(), ids.numpy(), u.numpy(), int(count), real
+
+
+@pytest.mark.parametrize("block_pairs", (BLK, 64), ids=("tail", "one-block"))
+@pytest.mark.parametrize("ring_depth", (2, 3, 4))
+@pytest.mark.parametrize("hot_rows", (0, 1, 8, V))
+def test_block_runs_match_the_reference_plan(hot_rows, ring_depth, block_pairs):
+    """The card path's inputs (K4a's stable (block, row) sorts) against the
+    reference's planner, per worker, block and table: the runs are sorted
+    by row with each run's elements in order; their cold heads are the
+    plan's valid unique rows (the tail block's unique sets may also hold
+    rows only its padding brings); and each row's addends come in the
+    order of the reference's apply, a stable sort of the elements by
+    their update target (slot, or ``slots + id`` for a hot id)."""
+    c, x, neg = (torch.from_numpy(a) for a in _ids(hot_rows + 10 * ring_depth + block_pairs))
+    plan = P.plan_blocks(c, x, neg, V, block_pairs, hot_rows=hot_rows, ring_depth=ring_depth)
+    blk = H.pick_block_pairs(B, block_pairs)
+    runs = H.block_sorts(c, x, neg, blk, V)
+    assert plan.block_pairs == blk and plan.nblocks == -(-B // blk)
+    assert runs[0].dtype == runs[2].dtype == torch.int32
+    assert runs[1].dtype == runs[3].dtype == torch.int64
     for w in range(N):
         for b in range(plan.nblocks):
-            p, i = pos[w, b].numpy(), ids[w, b].numpy()
-            target = np.where(i < hot_rows, slots + i, p)
-            order = np.lexsort((np.arange(L), target))       # stable by target
-            np.testing.assert_array_equal(tgt[w, b * L:(b + 1) * L].numpy(), target[order])
-            np.testing.assert_array_equal(el[w, b * L:(b + 1) * L].numpy(), order)
+            for table in ("W", "C"):
+                rows, el, pos, ids, u, count, real = _table_view(plan, runs, table, w, b, blk)
+                np.testing.assert_array_equal(ids[el], rows)        # each entry's row
+                assert sorted(el.tolist()) == np.flatnonzero(real).tolist()
+                order = np.lexsort((el, rows))
+                np.testing.assert_array_equal(order, np.arange(len(rows)))
+                heads = np.unique(rows)
+                cold = heads[heads >= hot_rows]
+                valid = u[:count]
+                assert set(cold) <= set(valid)
+                assert set(valid) - set(cold) <= set(ids[~real]), (w, b, table)
+                slots = len(u)
+                target = np.where(ids < hot_rows, slots + ids, pos)
+                ref = np.lexsort((np.arange(len(ids)), target))
+                row_of = np.where(target >= slots, target - slots,
+                                  u[np.minimum(target, slots - 1)])
+                want, got = {}, {}
+                for e in ref[real[ref]]:
+                    want.setdefault(int(row_of[e]), []).append(int(e))
+                for r, e in zip(rows, el):
+                    got.setdefault(int(r), []).append(int(e))
+                assert got == want, (w, b, table)
+
+
+@pytest.mark.parametrize("block_pairs", (BLK, 64), ids=("tail", "one-block"))
+@pytest.mark.parametrize("hot_rows", (0, 1, 8, V))
+def test_chain_plain_bitwise_equals_ring_plain(world, hot_rows, block_pairs):
+    """``run_chain_plain`` — the kernel's algorithm, the sorted runs
+    applied to the rows in place — against the reference's ring-based
+    ``run_plan_plain`` on the same draw: tables and loss bitwise equal."""
+    c, x = torch.from_numpy(world["c"]), torch.from_numpy(world["x"])
+    table = convert.from_jax_table(world["table"])
+    ids = K.sample_negatives_plain(K.seed_tensor(world["keys"]), table["prob"],
+                                   table["alias"], (B, NEG))
+    blk = H.pick_block_pairs(B, block_pairs)
+    ring = {k: torch.from_numpy(world[k].copy()) for k in ("W", "C")}
+    plan = P.plan_blocks(c, x, ids, V, blk, hot_rows=hot_rows)
+    ring_loss = P.run_plan_plain(ring, plan, 0.05, B, hot_rows=hot_rows)
+    chain = {k: torch.from_numpy(world[k].copy()) for k in ("W", "C")}
+    chain_loss = P.run_chain_plain(chain, c, x, ids, H.block_sorts(c, x, ids, blk, V), 0.05,
+                                   blk)
+    assert torch.equal(chain_loss, ring_loss)
+    for k in ("W", "C"):
+        assert torch.equal(chain[k], ring[k])
+        assert not torch.equal(chain[k], torch.from_numpy(world[k]))
 
 
 # ------------------------------------------------------------------ zipf50k
