@@ -28,11 +28,14 @@ Phases:
 5. ``random`` — the same configuration divided by the ``random`` strategy
    (rate 1/10: every worker its own vocabulary and noise table, trained in
    the union index space) on the ``rowgrad`` engine (the ``jax.random``
-   CDF draw, torch gathers, K3 ``sgns_row_grads``, ``index_add_``): 64
-   steps, then ``merge(..., "alir_pca")``, the missing rows reconstructed,
-   and ``evaluate_all``. K3 must have launched once per step, every W left
-   its init, the merged table must be finite and cover exactly the union
-   presence mask.
+   CDF draw, torch gathers, K3 ``sgns_row_grads``, the ordered scatter
+   ``sgns.ordered_add_``): 64 steps, then ``merge(..., "alir_pca")``, the
+   missing rows reconstructed, and ``evaluate_all``. K3 must have launched
+   once per step, every W left its init, the merged table must be finite
+   and cover exactly the union presence mask. Then one step of ``dense``,
+   ``sparse`` and ``rowgrad`` run twice from the same state must repeat
+   bit for bit, and the scatter is timed as the ordered apply and as
+   ``index_add_``'s atomics on the same addends.
 6. ``hbm`` — the main configuration on the ``fused_hbm`` engine (K4a,
    ``block_pairs=256``: four blocks a step) for 64 steps, then
    ``sequential=True`` (K4b) for 8 steps; K4 and K1 once per step each,
@@ -50,7 +53,8 @@ Phases:
    shapes (n = 10, V = 89,611, its noise table); K3 on n·B = 10,240 pairs
    gathered from random tables; K4a (ids bitwise, W′, C′ and loss within
    K2's tolerance, repeat bitwise; and with ``block_pairs >= B`` against
-   K2) and K4b (against its plain per-pair loop) at the main path's shapes;
+   K2) and K4b (against its plain per-pair loop, repeat bitwise) at the
+   main path's shapes;
    K5 at ``ring_depth`` 2 and 3 and K6 at ``hot_rows`` 256, 2,048 and V
    there too (ids bitwise; W′, C′ and loss bitwise K4a's; within K2's
    tolerances of the plain version; repeat bitwise), each timed as the
@@ -106,8 +110,8 @@ PEAK_BYTES_PER_S = 3.35e12
 PEAK_FP32_FLOP_PER_S = 67e12
 
 # Tolerances of K2 against its plain version on the card. The two reduce
-# the dot products in different orders, and the plain version's CUDA
-# index_add_ accumulates duplicate rows with atomics in no fixed order;
+# the dot products in different orders (both add a row's duplicates
+# serially in pair order), so the coefficients differ by an ulp or so;
 # values are O(1), so a few float32 ulps per addend over a hot row's
 # hundreds of addends stays under these bounds.
 K2_TABLE_ATOL = 1e-5
@@ -117,9 +121,9 @@ K2_LOSS_ATOL = 1e-4
 # losses of O(1) differ by a few ulps. K2's bounds, with room to spare.
 K3_GRAD_ATOL = 1e-5
 K3_LOSS_ATOL = 1e-4
-# K4 against its plain version: K2's tolerances (the plain version's CUDA
-# index_add_ accumulates duplicate rows with atomics; K4b's plain loop is
-# a chain of batch-1 steps, reduced in another order than the kernel's).
+# K4 against its plain version: K2's tolerances (K4b's plain loop is a
+# chain of batch-1 steps, its dot products reduced in another order than
+# the kernel's, each difference carried into the later pairs).
 # K5 and K6 likewise against theirs; against K4a they are bitwise.
 
 # K7 against its plain version (float32: the window's sums in another
@@ -442,8 +446,85 @@ def phase_random(device):
     if not torch.equal(completed[mask], res.stacked.models[mask]):
         raise RuntimeError("reconstruct_missing changed a present row")
     log(f"[random] reconstructed {int((~mask).sum())} missing rows; all finite")
+    repeat = _repeat_sparse_steps(device, res)
     return {"launches": launches, "steps": taken, "V": V, "mask": mask,
-            "counts": res.union_vocab.counts, "train_kw": kw}
+            "counts": res.union_vocab.counts, "train_kw": kw, "repeat": repeat}
+
+
+def _repeat_sparse_steps(device, res, lr=0.025) -> dict:
+    """One step of ``dense``, ``sparse`` and ``rowgrad`` run twice from the
+    same state at the random path's shapes (its trained W, random C, ids
+    from its union unigram distribution, negatives by the CDF sampler of
+    its union noise table): the two runs must agree bit for bit. Then the
+    sparse step's scatter timed both ways on the same addends: the ordered
+    apply the port runs (``sgns.ordered_add_``) and ``index_add_``'s
+    atomics (the yardstick, which the port no longer calls)."""
+    import torch
+    from repro_torch.core import sgns
+    from repro_torch.core.engine import get_engine
+    from repro_torch.data.pairs import build_noise_table
+
+    W0 = res.stacked.models
+    n, V, d = W0.shape
+    K = 5
+    gen = torch.Generator(device=device).manual_seed(13)
+    uni = torch.tensor(res.union_vocab.counts, dtype=torch.float32, device=device)
+    cen = torch.multinomial(uni, n * BATCH, replacement=True, generator=gen) \
+        .view(n, BATCH).to(torch.int32)
+    ctx = torch.multinomial(uni, n * BATCH, replacement=True, generator=gen) \
+        .view(n, BATCH).to(torch.int32)
+    cdf = build_noise_table(res.union_vocab.counts, kind="cdf").to(device) \
+        .expand(n, V).contiguous()
+    negs = get_engine("sparse:cdf").sample(cdf, seeds_for(n, 9, device), (BATCH, K))
+    C0 = 0.1 * torch.randn((n, V, d), generator=gen, device=device)
+    out = {}
+    for name in ("dense", "sparse", "rowgrad"):
+        runs = []
+        for _ in range(2):
+            p = {"W": W0.clone(), "C": C0.clone()}
+            if name == "dense":
+                loss = sgns.train_step_dense_(p, cen, ctx, negs, lr)
+            else:
+                kw = {}
+                if name == "rowgrad":
+                    from repro_torch.kernels.sgns_update import sgns_row_grads
+                    kw["row_grads"] = sgns_row_grads
+                loss = sgns.train_step_sparse_(p, cen, ctx, negs, lr, **kw)
+            runs.append((p, loss))
+        torch.cuda.synchronize(device)
+        (p1, l1), (p2, l2) = runs
+        same = (torch.equal(l1, l2) and torch.equal(p1["W"], p2["W"])
+                and torch.equal(p1["C"], p2["C"]))
+        moved = float((p1["C"] - C0).abs().max())
+        log(f"[random] one {name} step twice from the same state (n={n} V={V} d={d} "
+            f"B={BATCH} K={K}): W, C and loss bitwise equal: {same}; largest C update "
+            f"{moved:.3e}")
+        out[name] = same
+        del runs, p1, p2
+        if not same:
+            raise RuntimeError(f"two {name} steps from the same state differ")
+        if not moved > 0.0:
+            raise RuntimeError(f"the {name} step left C unchanged")
+    # the scatter alone, both ways, on the sparse step's own addends
+    Wf, Cf, cenf, ctxf, negf = sgns._flat({"W": W0.clone(), "C": C0.clone()}, cen, ctx, negs)
+    rows = sgns.sparse_row_grads_per_pair(Wf[cenf], Cf[ctxf], Cf[negf].view(n * BATCH, K, d))
+    adds = [-lr * rows[1], -lr * rows[2], -lr * rows[3].reshape(-1, d)]
+
+    def scatter(fn):
+        fn(Wf, cenf, adds[0])
+        fn(Cf, ctxf, adds[1])
+        fn(Cf, negf, adds[2])
+
+    ordered = _time_ms(lambda: scatter(sgns.ordered_add_), device, reps=20)
+    atomics = _time_ms(lambda: scatter(lambda t, r, a: t.index_add_(0, r, a)), device,
+                       reps=20)
+    ordered2 = _time_ms(lambda: scatter(sgns.ordered_add_), device, reps=20)
+    out.update(ordered_apply_ms=[ordered, ordered2], index_add_ms=atomics)
+    log(f"[random] the sparse step's scatter (W at centers, C at contexts, C at "
+        f"negatives): ordered apply {ordered:.4f} / {ordered2:.4f} ms a step, "
+        f"index_add_ (atomics) {atomics:.4f} ms")
+    del Wf, Cf, rows, adds
+    return out
 
 
 def phase_hbm(device, block_pairs=256, sequential_steps=8):
@@ -678,8 +759,9 @@ def _time_swa(device, captured) -> dict:
     flops = 4 * B * H * W * D                  # q·k and p·v, per query head
     r = _bound(ms, plain_ms, nbytes, flops)
     r["library_ms"] = library_ms
-    log(f"[time] swa_decode B={B} W={W} H={H} Hkv={Hkv} D={D} chunk={chunk} "
-        f"({W // chunk * B * Hkv} CTAs): {ms:.4f} ms, plain {plain_ms:.4f} ms, SDPA "
+    log(f"[time] swa_decode B={B} W={W} H={H} Hkv={Hkv} D={D}: {ms:.4f} ms (the earlier "
+        f"window-split kernel, PERF.md §6: 0.0714-0.0775 ms on an NVIDIA H100 80GB HBM3), "
+        f"plain {plain_ms:.4f} ms, SDPA "
         f"(enable_gqa) {library_ms:.4f} ms (max |diff| to the plain version "
         f"{lib_err:.3e}); bound {r['bound_ms']:.5f} ms by {r['bound_by']} ({nbytes} B, "
         f"{flops} flop)")
@@ -869,11 +951,12 @@ def phase_time(device, main: dict, rand: dict) -> dict:
     # K4b: word2vec's per-pair order against its plain per-pair loop.
     seq_kw = dict(sequential=True)
     k4s_err = _check_step("time", "K4b", sgns_fused_hbm_step, sgns_fused_hbm_step_plain,
-                          W, C, centers, contexts, table, seeds, lr, K, **seq_kw)
+                          W, C, centers, contexts, table, seeds, lr, K, repeat=True,
+                          **seq_kw)
     pk = {"W": W.clone(), "C": C.clone()}
     k4s = _time_ms(lambda: sgns_fused_hbm_step(pk, centers, contexts, table, seeds, lr,
-                                               negatives=K, **seq_kw), device, reps=5,
-                   warmup=1)
+                                               negatives=K, **seq_kw), device, reps=20,
+                   warmup=2)
     del pk
     pp = {"W": W.clone(), "C": C.clone()}
     k4sp = _time_ms(lambda: sgns_fused_hbm_step_plain(pp, centers, contexts, table, seeds,
@@ -883,6 +966,9 @@ def phase_time(device, main: dict, rand: dict) -> dict:
     # the least work: each distinct row of the step read once, written once
     out["sgns_fused_hbm_step_sequential"] = _bound(k4s, k4sp, k2_bytes, k2_flops)
     out["sgns_fused_hbm_step_sequential"]["max_abs_err"] = k4s_err
+    log(f"[time] K4b (sequential) n={n} V={V} d={d} B={B} K={K}: {k4s:.4f} ms "
+        f"(the earlier one-CTA-a-worker kernel, PERF.md §6: 8.5244 ms on an NVIDIA H100 "
+        f"80GB HBM3), plain {k4sp:.4f} ms")
     del W, C
     torch.cuda.empty_cache()
 
@@ -1085,7 +1171,8 @@ PROFILE_GROUPS = {
                ("matmuls (cuBLAS)", ("gemm", "gemv")),
                ("copies", ("memcpy",))),
     "random": (("K3", ("sgns_row_grads_kernel",)),
-               ("scatter (index_add_)", ("indexfunc", "index_add")),
+               ("ordered apply (index_put_: stable sort, serial adds)",
+                ("indexing_backward", "index_put", "radixsort")),
                ("gathers (indexing)", ("index_elementwise", "gather", "indexselect")),
                ("-lr x gradients", ("aunaryfunctor<float, float, float",)),
                ("CDF draw: searchsorted", ("searchsorted",)),

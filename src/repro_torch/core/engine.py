@@ -14,8 +14,9 @@ Registry (``get_engine``):
     Autograd through the gathers; a dense ``(n·V, d)`` gradient. The
     oracle — simple and slow.
 ``sparse``
-    Manual per-row gradients and an accumulating scatter-add
-    (``index_add_``), plain torch.
+    Manual per-row gradients and an accumulating scatter-add, plain
+    torch; each row's addends are added in pair order
+    (``sgns.ordered_add_``), so a step repeats bit for bit on the card.
 ``rowgrad``
     ``sparse`` with the row gradients computed by K3
     (``kernels/sgns_update.py``); the draw, the gathers and the scatter
@@ -31,15 +32,18 @@ Registry (``get_engine``):
     shorter tail block covers any remainder) and ``sequential``. The
     counterpart of ``pallas_fused_hbm``.
 ``fused_pipe``
-    The same block chain in one kernel launch a step, each block's rows
-    deduplicated and staged through a ring of slots, the planner's hazards
-    looking ``ring_depth - 1`` blocks back (``kernels/sgns_fused_pipe.py``,
-    K5); bitwise ``fused_hbm`` at the
-    same ``block_pairs``. ``sequential=True`` runs K4b. The counterpart of
+    The same block chain in one kernel launch a step
+    (``kernels/sgns_fused_pipe.py: chain_step``, K5): K1's draw, K4a's two
+    stable (block, row) sorts, then one persistent launch that walks every
+    worker's blocks with the rows updated in place, each worker's CTAs
+    separated by group barriers. No ring and no block planner run on the
+    card; ``ring_depth`` (the reference's ring, >= 2) is accepted and
+    changes nothing there. Bitwise ``fused_hbm`` at the same
+    ``block_pairs``. ``sequential=True`` runs K4b. The counterpart of
     ``pallas_fused_pipe``.
 ``fused_tiered``
     ``fused_pipe`` with the ``hot_rows`` most frequent rows of each table
-    read and updated in place instead of through the ring
+    kept in the L2 cache by load and store hints for the step
     (``kernels/sgns_fused_tiered.py``, K6); bitwise ``fused_hbm`` too. The
     counterpart of ``pallas_fused_tiered``.
 
@@ -221,15 +225,14 @@ class FusedHBMEngine(FusedEngine):
 
 @dataclass(frozen=True)
 class FusedPipeEngine(FusedHBMEngine):
-    """The block chain in one kernel launch a step (K5): each block
-    gathers its unique rows once into a ring slot and writes each back
-    once, hazard-ordered by the block planner. Bitwise ``fused_hbm`` at
-    the same ``block_pairs``.
+    """The block chain in one kernel launch a step (K5): K1's draw, K4a's
+    two block sorts, then one persistent launch that walks each worker's
+    blocks in order with the rows updated in place (no ring, no planner on
+    the card). Bitwise ``fused_hbm`` at the same ``block_pairs``.
 
-    ``ring_depth`` — the reference's ring slots (>= 2): the planner flags
-    a hazard where a block's rows meet the previous ``ring_depth - 1``
-    blocks'. The kernel's two-slot ring serves every depth; a deeper one
-    only flags more hazards.
+    ``ring_depth`` — the reference's ring slots (>= 2), kept for the
+    plain version, which runs the reference's planner and ring; on the
+    card it changes nothing.
     ``sequential`` — word2vec's per-pair order cannot be pipelined;
     ``True`` runs ``fused_hbm``'s sequential kernel (K4b).
     """
@@ -267,8 +270,10 @@ class FusedPipeEngine(FusedHBMEngine):
 @dataclass(frozen=True)
 class FusedTieredEngine(FusedPipeEngine):
     """``fused_pipe`` with a hot tier (K6): rows ``[0, hot_rows)`` — the
-    most frequent, since vocab ids are frequency-sorted — are read and
-    updated in place, never gathered; the rest go through the ring. Bitwise ``fused_hbm`` at every ``hot_rows``.
+    most frequent, since vocab ids are frequency-sorted — are loaded and
+    stored with a hint that keeps them in the L2 cache, the rest with one
+    that evicts them first, all rows updated in place by ``fused_pipe``'s
+    one launch. Bitwise ``fused_hbm`` at every ``hot_rows``.
 
     ``hot_rows`` — rows in the hot tier (>= 0; 0 is ``fused_pipe``). The
     trainer rejects ``hot_rows > V`` (:meth:`validate`); direct kernel

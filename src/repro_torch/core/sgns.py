@@ -170,18 +170,33 @@ def train_step_sparse_(params: dict, centers: torch.Tensor,
     dC_neg)`` on the ``N = n·B`` gathered pairs is the seam the
     row-gradient kernel plugs into. The scatter-adds run in the
     reference's order (W at centers, then C at contexts, then C at
-    negatives); duplicate ids accumulate. Returns the per-pair loss
-    ``(n, B)``."""
+    negatives); duplicate ids accumulate, each row's addends in pair
+    order (:func:`ordered_add_`). Returns the per-pair loss ``(n, B)``."""
     n, B = centers.shape
     K = negatives.shape[-1]
     Wf, Cf, cen, ctx, neg = _flat(params, centers, contexts, negatives)
     d = Wf.shape[1]
     loss, d_w, d_cp, d_cn = row_grads(Wf[cen], Cf[ctx], Cf[neg].view(n * B, K, d))
     neg_lr = -float(np.float32(lr))
-    Wf.index_add_(0, cen, neg_lr * d_w)
-    Cf.index_add_(0, ctx, neg_lr * d_cp)
-    Cf.index_add_(0, neg, neg_lr * d_cn.reshape(-1, d))
+    ordered_add_(Wf, cen, neg_lr * d_w)
+    ordered_add_(Cf, ctx, neg_lr * d_cp)
+    ordered_add_(Cf, neg, neg_lr * d_cn.reshape(-1, d))
     return loss.view(n, B)
+
+
+def ordered_add_(table: torch.Tensor, rows: torch.Tensor,
+                 addends: torch.Tensor) -> torch.Tensor:
+    """``table[rows[i]] += addends[i]`` for i in order, **in place**: each
+    row's duplicates are added one by one in the order they come, so the
+    same inputs give the same bits on every run and on either device. On
+    the CPU that is ``index_add_``'s serial loop. On the GPU
+    ``index_add_`` adds duplicates with float atomics in no fixed order;
+    ``index_put_(accumulate=True)`` sorts the ids stably and adds each run
+    of duplicates serially, in the same order and rounding as the CPU
+    loop (no float atomics, no global determinism flag)."""
+    if table.device.type == "cpu":
+        return table.index_add_(0, rows, addends)
+    return table.index_put_((rows,), addends, accumulate=True)
 
 
 def train_step_dense_(params: dict, centers: torch.Tensor,
@@ -190,7 +205,9 @@ def train_step_dense_(params: dict, centers: torch.Tensor,
     """:func:`train_step_dense` for n workers at once, **in place**: the
     gradient of every worker's sum loss through the gathers (dense over
     the ``(n·V, d)`` tables), then ``p − lr·g``. Returns the per-pair loss
-    ``(n, B)``."""
+    ``(n, B)``. The gathers' backward is ``index_put_(accumulate=True)``,
+    which on the GPU adds duplicate rows in sorted serial order, so the
+    step repeats bit for bit there too."""
     n, B = centers.shape
     Wf, Cf, cen, ctx, neg = _flat(params, centers, contexts, negatives)
     d = Wf.shape[1]

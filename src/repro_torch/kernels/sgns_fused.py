@@ -58,7 +58,8 @@ _SIGNATURES = {
     ("sgns_fused_tiered", "sgns_tiered_launch"):
         [_P] * 14 + [_I] * 7 + [ctypes.c_float, _I, _P],
     ("swa_decode", "swa_decode_launch"):
-        [_P] * 7 + [_I] * 6 + [ctypes.c_float, _I, _I, _P],
+        [_P] * 7 + [_I] * 5 + [ctypes.c_float, _I, _P],
+    ("swa_decode", "swa_decode_parts"): [_I] * 6,
 }
 _entry_points: dict = {}
 MAX_NEGATIVES = 16

@@ -18,7 +18,8 @@ they are there anyway, and what this step adds over K2 is its
   block, to one sparse step over the batch.
 * ``sequential=True`` — each pair's gradients are taken from the tables as
   every earlier pair left them, and applied at once: a loop of batch-1
-  sparse steps. The update-order oracle, not a throughput path.
+  sparse steps: word2vec's exact order (one thread block cluster a worker
+  on the card).
 
 The negatives sit at the pairs' global counters
 (:func:`block_negative_ids`), so one K1 draw of the whole step's
@@ -37,6 +38,10 @@ from repro_torch.core.sgns import train_step_sparse_
 from repro_torch.kernels.sgns_fused import (
     LAUNCHES, MAX_NEGATIVES, _check, _entry, _kernel_device, _ptr, _raise_on,
     _stream, alias_draw_from_counters, sample_negatives)
+
+
+#: K4b's cluster of 8 CTAs holds at most 4 columns a thread, 128 threads a CTA.
+MAX_SEQUENTIAL_DIM = 8 * 128 * 4
 
 
 def pick_block_pairs(B: int, block_pairs: int) -> int:
@@ -150,6 +155,9 @@ def sgns_fused_hbm_step(params: dict, centers: torch.Tensor,
     loss = torch.empty((n, B), dtype=torch.float32, device=device)
     ids = sample_negatives(seeds, table["prob"], table["alias"], (B, K))
     if sequential:
+        if d > MAX_SEQUENTIAL_DIM:
+            raise ValueError(f"the sequential kernel takes d <= {MAX_SEQUENTIAL_DIM}, "
+                             f"got {d}")
         fn = _entry("sgns_fused_hbm", "sgns_hbm_sequential_launch")
         with torch.cuda.device(device):
             err = fn(_ptr(W), _ptr(C), _ptr(centers), _ptr(contexts), _ptr(ids), n, V,

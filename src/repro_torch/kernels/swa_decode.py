@@ -15,24 +15,45 @@ With ``Hkv == H`` that is the TPU kernel's function and signature; the
 port's decode calls it with the model's KV heads (GQA), the grouping of
 ``repro.models.attention._sdpa``. The TPU kernel walks the window's
 chunks in order with a running max, sum and accumulator; the CUDA kernel
-gives each (batch, KV head, chunk) its own CTA and merges the chunks'
-partials in a second kernel (the source note says why).
+gives each CTA a batch row and a range of window rows with all its KV
+heads, streams them through a ring of shared-memory stages by bulk
+asynchronous copies, and merges the CTAs' partials in a second kernel in
+a fixed order (the source note says why). ``chunk`` shapes only the
+plain version's precondition: the kernel cuts the window its own way.
 """
 
 from __future__ import annotations
+
+import functools
 
 import torch
 
 from repro_torch.kernels.ref import swa_decode_plain
 from repro_torch.kernels.sgns_fused import (
-    LAUNCHES, _check, _entry, _kernel_device, _ptr, _raise_on, _stream)
+    LAUNCHES, _check, _entry, _kernel_device, _raise_on)
 
-__all__ = ["swa_decode", "swa_decode_plain", "MAX_GROUP_WIDTH"]
+__all__ = ["swa_decode", "swa_decode_plain"]
 
-#: The kernel keeps ``(H // Hkv) · D`` accumulators over its 256 threads,
-#: at most 8 each.
-MAX_GROUP_WIDTH = 2048
 _DTYPES = (torch.float32, torch.bfloat16)
+
+
+@functools.lru_cache(maxsize=64)
+def _parts(B: int, W: int, H: int, Hkv: int, D: int, bf16: int, device_index: int) -> int:
+    """The partials a query head the kernel writes at this shape (its
+    window split and warps a head); a ValueError for a shape it does not
+    take (the source's ``swa_decode_parts`` says which)."""
+    fn = _entry("swa_decode", "swa_decode_parts")
+    with torch.cuda.device(device_index):
+        parts = fn(B, W, H, Hkv, D, bf16)
+    if parts == -1001:
+        raise ValueError(f"a group of {H // Hkv} query heads of width {D} exceeds the "
+                         f"kernel's registers")
+    if parts == -1002:
+        raise ValueError(f"the kernel does not take a window of {W} rows of {Hkv}·{D} "
+                         f"{'bfloat16' if bf16 else 'float32'} elements: a tile of two "
+                         f"rows must fit its ring, and whole tiles must be 16-byte aligned")
+    _raise_on(-min(parts, 0), "swa_decode (plan)")
+    return parts
 
 
 def swa_decode(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
@@ -59,21 +80,22 @@ def swa_decode(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     if device.type == "cpu":
         return swa_decode_plain(q, k, v, chunk=chunk)
     _kernel_device(device)
-    if (H // Hkv) * D > MAX_GROUP_WIDTH:
-        raise ValueError(f"(H // Hkv)·D = {(H // Hkv) * D} exceeds the kernel's "
-                         f"{MAX_GROUP_WIDTH}")
-    n_split = W // chunk
+    if torch.cuda.current_device() != device.index:
+        with torch.cuda.device(device):
+            return swa_decode(q, k, v, chunk=chunk)
+    bf16 = int(q.dtype == torch.bfloat16)
+    parts = _parts(B, W, H, Hkv, D, bf16, device.index)
+    if any(t.data_ptr() % 16 for t in (k, v)):
+        raise ValueError("k and v must be 16-byte aligned")
     out = torch.empty_like(q)
-    m_part = torch.empty((B * H, n_split), dtype=torch.float32, device=device)
-    l_part = torch.empty_like(m_part)
-    acc_part = torch.empty((B * H, n_split, D), dtype=torch.float32, device=device)
-    per_vec = 16 // q.element_size()
-    vec = int(D % per_vec == 0 and all(t.data_ptr() % 16 == 0 for t in (k, v)))
-    fn = _entry("swa_decode", "swa_decode_launch")
-    with torch.cuda.device(device):
-        err = fn(_ptr(q), _ptr(k), _ptr(v), _ptr(out), _ptr(m_part), _ptr(l_part),
-                 _ptr(acc_part), B, W, H, Hkv, D, chunk, 1.0 / D ** 0.5,
-                 int(q.dtype == torch.bfloat16), vec, _stream(device))
+    # one scratch buffer: m (B·H, parts), l (B·H, parts), acc (B·H, parts, D)
+    n = B * H * parts
+    scratch = torch.empty(n * (D + 2), dtype=torch.float32, device=device)
+    m_ptr = scratch.data_ptr()
+    stream = torch._C._cuda_getCurrentRawStream(device.index)
+    err = _entry("swa_decode", "swa_decode_launch")(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), m_ptr, m_ptr + 4 * n,
+        m_ptr + 8 * n, B, W, H, Hkv, D, 1.0 / D ** 0.5, bf16, stream)
     _raise_on(err, "swa_decode")
     LAUNCHES["swa_decode"] += 1
     return out
