@@ -54,7 +54,11 @@ Phases:
    gathered from random tables; K4a (ids bitwise, W′, C′ and loss within
    K2's tolerance, repeat bitwise; and with ``block_pairs >= B`` against
    K2) and K4b (against its plain per-pair loop, repeat bitwise) at the
-   main path's shapes;
+   main path's shapes; K2, K4a and K5 with one block bitwise equal; K2 (one
+   block) and K4a (``block_pairs=256``) each also timed as the launch alone
+   on a fixed draw, at several split thresholds, beside K5's whole call at
+   the same block size (in turns: kernel, K5, K5, kernel) and the torch
+   block sorts the launch replaced, with each path's longest run of one row;
    K5 at ``ring_depth`` 2 and 3 and K6 at ``hot_rows`` 256, 2,048 and V
    there too (ids bitwise; W′, C′ and loss bitwise K4a's; within K2's
    tolerances of the plain version; repeat bitwise), each timed as the
@@ -63,12 +67,14 @@ Phases:
    d = 512, B = 8,192, 64 blocks of 128) the planner's row traffic on the
    card (91,386 and 59,692 rows at ``hot_rows`` 0 and 2,048) and K5 and K6
    bitwise against, and timed beside, K4a.
-9. ``profile`` — the main path's, the ``random``/``rowgrad`` path's and
-   (after ``pipe``) the ``fused_pipe`` path's training again under
+9. ``profile`` — the main path's, the ``random``/``rowgrad`` path's, the
+   ``fused_hbm`` path's (K4a) and (after ``pipe``) the ``fused_pipe``
+   path's training again under
    ``torch.profiler``, those of them that ran: device time per step by
    kernel (gathers and scatter apart) and the device's idle share of the
    training loop (summary printed;
-   ``chiprun_out/profile_{main,random,pipe}*.json``); with ``decode``, 16
+   ``profile_{main,random,hbm,pipe}*.json`` in the output directory); with
+   ``decode``, 16
    full-ring decode steps too (``chiprun_out/profile_decode.json``).
 10. ``decode`` — the LLM decode path (``repro_torch.launch.decode_llm
    .serve``) on h2o-danube-1.8b at full width (24 layers, d = 2560, 32
@@ -539,7 +545,7 @@ def phase_hbm(device, block_pairs=256, sequential_steps=8):
                                         ("sgns_fused_hbm_step", "sample_negatives"),
                                         steps=sequential_steps)
     return {"launches": launches, "steps": taken, "launches_seq": launches_seq,
-            "steps_seq": taken_seq, "block_pairs": block_pairs,
+            "steps_seq": taken_seq, "block_pairs": block_pairs, "train_kw": kw,
             "W": res.stacked.models, "chunk_losses": res.chunk_losses}
 
 
@@ -868,7 +874,7 @@ def phase_time(device, main: dict, rand: dict) -> dict:
     out["sample_negatives"] = _bound(k1, k1p, k1_bytes, k1_flops)
     out["sample_negatives"]["max_abs_err"] = k1_err
 
-    # K2: the whole step (K1 draw, planning sorts, both phases)
+    # K2: the whole step (K1's draw, then the one launch)
     pk = {"W": W.clone(), "C": C.clone()}
     k2 = _time_ms(lambda: sgns_fused_step(pk, centers, contexts, table, seeds, lr,
                                           negatives=K), device, reps=20)
@@ -889,6 +895,8 @@ def phase_time(device, main: dict, rand: dict) -> dict:
     out["sgns_fused_step"]["max_abs_err"] = k2_err
     out["sgns_fused_step"]["touched_rows"] = {"W": uniq_w, "C": uniq_c,
                                               "gathered": n * B * (K + 2)}
+    out["sgns_fused_step"].update(_beside_k5("K2", W, C, centers, contexts, table, seeds, lr,
+                                             K, ids, B, k2))
 
     # K4a: the block chain, checked (ids bitwise, tolerance, repeat), then
     # with one block against K2 on the same inputs, then timed.
@@ -897,18 +905,21 @@ def phase_time(device, main: dict, rand: dict) -> dict:
     k4_err = _check_step("time", "K4a", sgns_fused_hbm_step, sgns_fused_hbm_step_plain,
                          W, C, centers, contexts, table, seeds, lr, K, repeat=True,
                          **hbm_kw)
-    one, _, _ = sgns_fused_hbm_step({"W": W.clone(), "C": C.clone()}, centers, contexts,
-                                    table, seeds, lr, negatives=K, block_pairs=B)
-    k2p_, _, _ = sgns_fused_step({"W": W.clone(), "C": C.clone()}, centers, contexts,
-                                 table, seeds, lr, negatives=K)
+    one, l_one, _ = sgns_fused_hbm_step({"W": W.clone(), "C": C.clone()}, centers, contexts,
+                                        table, seeds, lr, negatives=K, block_pairs=B)
+    k2p_, l_k2, _ = sgns_fused_step({"W": W.clone(), "C": C.clone()}, centers, contexts,
+                                    table, seeds, lr, negatives=K)
+    k5p_, l_k5, _ = _pipe_steps({})[0]({"W": W.clone(), "C": C.clone()}, centers, contexts,
+                                       table, seeds, lr, negatives=K, block_pairs=B)
     torch.cuda.synchronize(device)
     err_one = max(float((one[k] - k2p_[k]).abs().max()) for k in ("W", "C"))
-    bitwise_one = all(torch.equal(one[k], k2p_[k]) for k in ("W", "C"))
-    log(f"[time] K4a with block_pairs >= B against K2: max |Δtable| {err_one:.3e} "
-        f"(tol {K2_TABLE_ATOL:g}); bitwise equal: {bitwise_one}")
-    del one, k2p_
-    if err_one > K2_TABLE_ATOL:
-        raise RuntimeError("K4a with one block disagrees with K2 beyond tolerance")
+    bitwise_one = (torch.equal(l_one, l_k2) and torch.equal(l_one, l_k5) and all(
+        torch.equal(one[k], k2p_[k]) and torch.equal(one[k], k5p_[k]) for k in ("W", "C")))
+    log(f"[time] K4a with block_pairs >= B against K2: max |Δtable| {err_one:.3e}; K2, "
+        f"K4a and K5 (block_pairs = B) bitwise equal, tables and loss: {bitwise_one}")
+    del one, k2p_, k5p_
+    if not bitwise_one:
+        raise RuntimeError("K2, K4a and K5 with one block are not bitwise equal")
     pk = {"W": W.clone(), "C": C.clone()}
     k4 = _time_ms(lambda: sgns_fused_hbm_step(pk, centers, contexts, table, seeds, lr,
                                               negatives=K, **hbm_kw), device, reps=20)
@@ -931,6 +942,8 @@ def phase_time(device, main: dict, rand: dict) -> dict:
                                                   "blocks": -(-B // blk)}
     out["sgns_fused_hbm_step"]["one_block_vs_k2"] = {"max_abs_err": err_one,
                                                      "bitwise": bitwise_one}
+    out["sgns_fused_hbm_step"].update(_beside_k5("K4a", W, C, centers, contexts, table, seeds,
+                                                 lr, K, ids, blk, k4))
 
     # K5 and K6 at the main path's shapes: each configuration checked
     # (against K4a bitwise; against its plain version), then timed beside
@@ -1005,6 +1018,12 @@ def phase_time(device, main: dict, rand: dict) -> dict:
     log(f"[time] K2 touched rows per step: {out['sgns_fused_step']['touched_rows']}")
     log(f"[time] K4a touched rows per step, summed over blocks: "
         f"{out['sgns_fused_hbm_step']['touched_rows']}")
+    for name, label in (("sgns_fused_step", "K2"), ("sgns_fused_hbm_step", "K4a")):
+        r = out[name]
+        log(f"[time] {label}: whole call {r['ms']:.4f} ms, launch alone {r['alone_ms']:.4f} ms; "
+            f"K5 at the same block size, whole call {r['k5_ms']:.4f} ms; the torch block "
+            f"sorts it no longer runs {r['torch_sorts_ms']:.4f} ms; longest run "
+            f"{r['longest_run']}; launch alone by split threshold {r['split_ms']}")
     for name in [k for k in out if k.startswith("sgns_fused_pipe") or
                  k.startswith("sgns_fused_tiered")]:
         r = out[name]
@@ -1013,6 +1032,73 @@ def phase_time(device, main: dict, rand: dict) -> dict:
             f"the reference's row traffic {r['row_traffic']} rows")
     out["zipf50k"] = _zipf50k(device, lr)
     return out
+
+
+def _longest_runs(runs, blk: int) -> dict:
+    """The longest run of one row in any block of any worker's sorted
+    lists ``runs`` (``block_sorts``' layout), per table."""
+    import torch
+
+    w_rows, _, c_rows, _ = runs
+    n, B = w_rows.shape
+    K = c_rows.shape[1] // B - 1
+    out = {}
+    for name, rows, per in (("C", c_rows, K + 1), ("W", w_rows, 1)):
+        longest = 0
+        for p0 in range(0, B, blk):
+            seg = rows[:, p0 * per:min(p0 + blk, B) * per]
+            for w in range(n):
+                _, counts = torch.unique_consecutive(seg[w], return_counts=True)
+                longest = max(longest, int(counts.max()))
+        out[name] = longest
+    return out
+
+
+def _beside_k5(label, W, C, centers, contexts, table, seeds, lr, K, ids, blk, whole_ms):
+    """K2's or K4a's launch at block size ``blk`` on a fixed draw ``ids``:
+    timed alone (no K1), at several split thresholds (runs of at least
+    that many addends go in chunks of 32 columns); K5's whole call at the
+    same block size, timed in turn with this kernel's (kernel, K5, K5,
+    kernel); the torch block sorts the launch replaced; and the longest
+    runs of the path's sorted lists."""
+    from repro_torch.kernels import sgns_block_step as BS
+    from repro_torch.kernels.sgns_fused_hbm import block_sorts
+
+    device = W.device
+    n, V, d = W.shape
+    B = centers.shape[1]
+    lib, sym, counter = (("sgns_fused_step", "sgns_fused_step_launch", "sgns_fused_step")
+                         if label == "K2" else
+                         ("sgns_fused_hbm", "sgns_hbm_chain_launch", "sgns_fused_hbm_step"))
+    pk = {"W": W.clone(), "C": C.clone()}
+    split_ms = {}
+    for split in (8, 16, 32, 64, 128, 1 << 30):
+        split_ms[str(split)] = _time_ms(lambda: BS.run_block_step(
+            lib, sym, counter, pk, centers, contexts, ids, lr, blk, split=split), device,
+            reps=20)
+    alone = _time_ms(lambda: BS.run_block_step(lib, sym, counter, pk, centers, contexts, ids,
+                                               lr, blk), device, reps=20)
+    k5_step = _pipe_steps({})[0]
+    k5 = [_time_ms(lambda: k5_step(pk, centers, contexts, table, seeds, lr, negatives=K,
+                                   block_pairs=blk), device, reps=20) for _ in range(2)]
+    step = _step_fn(label)
+    again = _time_ms(lambda: step(pk, centers, contexts, table, seeds, lr, negatives=K,
+                                  **({} if label == "K2" else {"block_pairs": blk})),
+                     device, reps=20)
+    del pk
+    sorts = _time_ms(lambda: block_sorts(centers, contexts, ids, blk, V), device, reps=50)
+    runs = block_sorts(centers, contexts, ids, blk, V)
+    return {"alone_ms": alone, "split_ms": split_ms, "k5_ms": min(k5), "k5_ms_both": k5,
+            "whole_ms_again": again, "torch_sorts_ms": sorts,
+            "longest_run": _longest_runs(runs, blk), "block_pairs": blk,
+            "split": BS.SPLIT_RUNS, "whole_ms_first": whole_ms}
+
+
+def _step_fn(label):
+    from repro_torch.kernels.sgns_fused import sgns_fused_step
+    from repro_torch.kernels.sgns_fused_hbm import sgns_fused_hbm_step
+
+    return sgns_fused_step if label == "K2" else sgns_fused_hbm_step
 
 
 def _pipe_steps(kw: dict):
@@ -1081,7 +1167,8 @@ def _check_and_time_pipe(label, k4a, inputs, blk, kw, nbytes, flops) -> dict:
     # reported beside it
     plan = plan_blocks(centers, contexts, ids, V, blk, hot_rows=hot, ring_depth=S)
     r = _bound(ms, plain_ms, nbytes, flops)
-    r.update(max_abs_err=err, alone_ms=alone_ms, row_traffic=plan_row_traffic(plan, hot))
+    r.update(max_abs_err=err, alone_ms=alone_ms, row_traffic=plan_row_traffic(plan, hot),
+             longest_run=_longest_runs(runs, blk))
     return r
 
 
@@ -1161,9 +1248,12 @@ def _check_k3(tag, w, c_pos, c_neg) -> float:
 
 
 PROFILE_GROUPS = {
-    "main": (("K2 phase 1", ("sgns_pairs_kernel",)), ("K2 apply", ("sgns_apply_kernel",)),
-             ("K1", ("sample_negatives_kernel",)), ("planning sorts", ("sort",)),
-             ("copies", ("memcpy",))),
+    "main": (("K2", ("block_step_kernel",)), ("K1", ("sample_negatives_kernel",)),
+             ("sorts (none since the launch sorts)", ("sort",)),
+             ("copies and memsets", ("memcpy", "memset"))),
+    "hbm": (("K4a", ("block_step_kernel",)), ("K1", ("sample_negatives_kernel",)),
+            ("sorts (none since the launch sorts)", ("sort",)),
+            ("copies and memsets", ("memcpy", "memset"))),
     "pipe": (("K5", ("pipe_chain_kernel",)), ("K1", ("sample_negatives_kernel",)),
              ("block sorts (K4a's two)", ("sort",)),
              ("copies", ("memcpy",))),
@@ -1330,7 +1420,7 @@ def main(argv=None) -> int:
     if "time" in phases:
         results["time"] = phase_time(device, results["main"], results["random"])
     if "profile" in phases:
-        for label in ("main", "random"):
+        for label in ("main", "random", "hbm"):
             if label in results:
                 phase_profile(device, label, results[label]["train_kw"])
         if "pipe" in results:
@@ -1372,6 +1462,11 @@ def main(argv=None) -> int:
             })
             if "row_traffic" in t:     # K5/K6: beside the launch alone and K4a
                 kernels[-1].update({k: t[k] for k in ("alone_ms", "k4a_ms", "row_traffic")})
+            if "k5_ms" in t:           # K2/K4a: the launch alone, beside K5
+                kernels[-1].update({k: t[k] for k in ("alone_ms", "k5_ms", "torch_sorts_ms",
+                                                      "block_pairs", "split")})
+            if "longest_run" in t:     # each path's longest run of one row, per table
+                kernels[-1]["longest_run"] = t["longest_run"]
         print(json.dumps({"kernels": kernels}), flush=True)
     log(f"[env] phases {','.join(phases)} done in {time.perf_counter() - t_start:.1f} s")
     print(gpu, flush=True)

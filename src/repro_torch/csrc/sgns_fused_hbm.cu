@@ -7,18 +7,15 @@
 // block b's writes. On the H100 the tables live in HBM anyway; what this
 // kernel keeps is the chain's *semantics*, which change the results:
 //
-// K4a (sgns_hbm_blocks_launch), per block of `blk` pairs (a shorter tail
+// K4a (sgns_hbm_chain_launch), per block of `blk` pairs (a shorter tail
 //   block covers any remainder): every gradient from the tables as of block
 //   start, then a deterministic apply in which each touched row's addends
 //   come in reference order (W at centers; C at contexts, then negatives) and
-//   are added serially with no float atomics. The work of a block is K2's two
-//   phases (`sgns_step.cuh`) over the block's pair range, with the loss in
-//   the log-sigmoid form of `sparse_row_grads_per_pair`. The wrapper sorts
-//   each worker's touched rows once per step by (block, row), stably, so each
-//   block's runs are one contiguous range of the sorted lists; the blocks are
-//   launched in order on one stream, so block b + 1 reads block b's writes.
-//   The pair range of a block is a strided slice of the (n, B) worker-major
-//   layout: the kernels take the batch stride B and the block's first pair.
+//   are added serially with no float atomics; the loss in the log-sigmoid
+//   form of `sparse_row_grads_per_pair`. One persistent launch runs every
+//   worker's whole chain, the sort of its touched rows by (block, row)
+//   included: `sgns_block_step.cuh`, shared with K2, which is this chain
+//   with one block.
 // K4b (sgns_hbm_sequential_launch): word2vec's per-pair order. Each pair's
 //   K + 1 dot products read its rows as every earlier pair left them; then
 //   its W row and context row are written, and each negative row is re-read
@@ -60,14 +57,14 @@
 // launch of `sample_negatives.cu`), which equals the per-block draws at the
 // pairs' global counters (`_block_negative_ids`).
 //
-// Bound on the H100: memory for K4a — per block, each unique touched row is
-// read once and written once; the dot products and the apply are ~7 (K + 1)
-// d + 2 d flops a pair. K4b is latency-bound by nature (B dependent links
-// per worker, one cluster per worker; see above).
+// Bound on the H100: memory for K4a — the step's distinct touched rows read
+// once and written once (what bounds the launch and what its design does
+// about it: `sgns_block_step.cuh`). K4b is latency-bound by nature (B
+// dependent links per worker, one cluster per worker; see above).
 
 #include <cooperative_groups.h>
 
-#include "sgns_step.cuh"
+#include "sgns_block_step.cuh"
 
 namespace {
 
@@ -417,36 +414,17 @@ cudaError_t launch_sequential(float* W, float* C, const int* centers, const int*
 
 }  // namespace
 
-// K4a. W, C (n, V, d) float32, updated in place; centers, contexts (n, B)
-// int32; ids (n, B, K) int32; loss (n, B); coef (n, B, K+1) and dW (n, B, d)
-// scratch; c_keys/c_perm (n, B*(K+1)) and w_keys/w_perm (n, B): each
-// worker's touched rows sorted stably by (block, row). Launches three kernels
-// per block, blocks in order on `stream`.
-extern "C" int sgns_hbm_blocks_launch(void* W, void* C, const void* centers,
-                                      const void* contexts, const void* ids, int n, int V,
-                                      int d, int B, int K, int blk, void* loss, void* coef,
-                                      void* dW, const void* c_keys, const void* c_perm,
-                                      const void* w_keys, const void* w_perm, float neg_lr,
-                                      int vec4, void* stream) {
-  if (n == 0 || B == 0) return 0;
-  if (K < 1 || K > sgns::kMaxNegatives || blk < 1) {
-    return static_cast<int>(cudaErrorInvalidValue);
-  }
-  auto s = static_cast<cudaStream_t>(stream);
-  auto* Wf = static_cast<float*>(W);
-  auto* Cf = static_cast<float*>(C);
-  for (int p0 = 0; p0 < B; p0 += blk) {
-    const int nb = blk < B - p0 ? blk : B - p0;
-    const cudaError_t err =
-        vec4 ? sgns::run_block<4, true>(n, V, d, B, K, p0, nb, Wf, Cf, centers, contexts,
-                                        ids, loss, coef, dW, c_keys, c_perm, w_keys,
-                                        w_perm, neg_lr, s)
-             : sgns::run_block<1, true>(n, V, d, B, K, p0, nb, Wf, Cf, centers, contexts,
-                                        ids, loss, coef, dW, c_keys, c_perm, w_keys,
-                                        w_perm, neg_lr, s);
-    if (err != cudaSuccess) return static_cast<int>(err);
-  }
-  return 0;
+// K4a. The arguments are `sgns::block_step_entry`'s.
+extern "C" int sgns_hbm_chain_launch(
+    void* W, void* C, void* loss, const void* centers, const void* contexts, const void* ids,
+    void* w_rows, void* w_perm, void* c_rows, void* c_perm, void* coef, void* dW, void* wrows,
+    void* items, void* n_items, void* counters, void* sort_mem, long long sort_bytes,
+    int item_cap, int n, int V, int d, int B, int K, int blk, int group_ctas, int groups,
+    int sorters, int split, float neg_lr, int vec4, void* stream) {
+  return sgns::block_step_entry<true>(W, C, loss, centers, contexts, ids, w_rows, w_perm,
+                                      c_rows, c_perm, coef, dW, wrows, items, n_items, counters,
+                                      sort_mem, sort_bytes, item_cap, n, V, d, B, K, blk,
+                                      group_ctas, groups, sorters, split, neg_lr, vec4, stream);
 }
 
 // K4b. Same tables and ids; loss (n, B). One cluster of kSeqCluster CTAs

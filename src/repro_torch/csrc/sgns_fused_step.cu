@@ -7,87 +7,36 @@
 // through `sgns_fused_step`). The TPU kernel holds both (V, d) tables in
 // VMEM and applies the step with `.at[].add` on the resident copy. On the
 // H100 the tables stay in HBM (80 GB holds the paper's 300k x 500 tables for
-// ten workers), and a grid of independent blocks cannot carry "all reads
-// before any write" through one launch, so the step is planned, then run in
-// two phases:
+// ten workers). The wrapper draws the step's (n, B, K) negatives with K1
+// (`sample_negatives.cu`, the same counter-hash `alias_draw`); then one
+// persistent launch runs the step: K4a's block chain (`sgns_block_step.cuh`)
+// with one block of all B pairs — the sort of each worker's touched rows,
+// every pair's gradients from the pre-step tables, then each touched row's
+// addends applied serially in pair order and stored once (C at contexts,
+// then negatives; W at centers). No float atomics, so the same inputs give
+// the same bits on every run.
 //
-//   draw and plan (the wrapper): K1 (`sample_negatives.cu`, the same
-//     counter-hash `alias_draw`, counter = pair * K + k restarting at 0 for
-//     each worker and step) draws the step's (n, B, K) negative ids; each
-//     worker's touched-row lists are stable-sorted, the index planning that
-//     `plan_blocks` does in the JAX package (which likewise replays the draw
-//     outside its kernel). The ids are 20 bytes per pair.
-//   phase 1 (sgns_pairs_kernel), one warp per (worker, pair): gather w,
-//     c_pos and the K c_neg rows with 16-byte loads, reduce the K + 1 dot
-//     products with warp shuffles, and write the per-pair loss, the K + 1
-//     sigmoid coefficients and dW = g_pos c_pos + sum_k g_k c_k to scratch.
-//     No table is written: dW needs the pre-step C rows, dC the pre-step w.
-//   phase 2 (apply kernels), deterministic: one warp per distinct touched
-//     row applies that row's addends one by one in pair order and stores the
-//     row once: C at contexts then C at negatives (source rows: pre-step W,
-//     still unwritten), then W at centers (source: the dW scratch). No float
-//     atomics, so the same inputs give the same bits on every run.
-//
-// Both phases live in `sgns_step.cuh`, shared with K4 (`sgns_fused_hbm.cu`),
-// which runs them once per pair block.
-//
-// Rounding: the apply computes each addend as (-lr) * (g * w_e) and each
-// accumulation as a separate round-to-nearest add (__fmul_rn/__fadd_rn, so
-// nvcc cannot contract them into FMAs), the same expression tree and order
-// as the reference's scatter-adds. The dot products are reduced in another
-// order than XLA's, which is where the port differs from the reference in
-// the last bits.
-//
-// Bound on the H100: memory. Per step the function must read each touched
-// row of W and C once and write it back once (at n = 10, B = 1024, K = 5,
-// d = 500 at most n*B*(K+2) rows, ~143 MB each way), against ~5 flops per
-// gathered element. This first version reads the gathered rows twice in
-// phase 1 (the second pass mostly from L1/L2), writes and re-reads the dW
-// scratch, and re-reads a center's W row once per C addend; a later
-// version can keep rows in shared memory and fuse the phases per row.
+// Bound on the H100: memory. Per step the function must read each distinct
+// touched row of W and C once and write it back once (195.5 MB at n = 10,
+// V = 89,611, d = 500, B = 1024, K = 5: 0.058 ms at 3.35 TB/s), against ~7
+// (K + 1) d flops a pair. The design's answers to the latency that held the
+// earlier two-kernel version at a tenth of that bound (one launch; rows and
+// addends fed by bulk copies; hot rows split over columns) are described in
+// `sgns_block_step.cuh`.
 
-#include "sgns_step.cuh"
+#include "sgns_block_step.cuh"
 
-// Phase 1. W, C (n, V, d) float32; centers, contexts (n, B) int32;
-// ids (n, B, K) int32 (K1's draw). Writes loss (n, B), coef (n, B, K+1)
-// and dW (n, B, d).
-extern "C" int sgns_pairs_launch(const void* W, const void* C, const void* centers,
-                                 const void* contexts, const void* ids, int n, int V,
-                                 int d, int B, int K, void* loss, void* coef,
-                                 void* dW, int vec4, void* stream) {
-  if (n == 0 || B == 0) return 0;
-  if (K < 1 || K > sgns::kMaxNegatives) return static_cast<int>(cudaErrorInvalidValue);
-  auto s = static_cast<cudaStream_t>(stream);
-  const cudaError_t err =
-      vec4 ? sgns::launch_pairs<4, false>(n, V, d, B, K, 0, B, W, C, centers, contexts,
-                                          ids, loss, coef, dW, s)
-           : sgns::launch_pairs<1, false>(n, V, d, B, K, 0, B, W, C, centers, contexts,
-                                          ids, loss, coef, dW, s);
-  return static_cast<int>(err);
-}
-
-// Phase 2. c_keys/c_perm (n, B*(K+1)): sorted concat(contexts, ids);
-// w_keys/w_perm (n, B): sorted centers. Updates C, then W, in place.
-extern "C" int sgns_apply_launch(void* W, void* C, const void* centers,
-                                 const void* coef, const void* dW,
-                                 const void* c_keys, const void* c_perm,
-                                 const void* w_keys, const void* w_perm, int n,
-                                 int V, int d, int B, int K, float neg_lr, int vec4,
-                                 void* stream) {
-  if (n == 0 || B == 0) return 0;
-  auto s = static_cast<cudaStream_t>(stream);
-  auto* Cf = static_cast<float*>(C);
-  auto* Wf = static_cast<float*>(W);
-  const int Lc = B * (K + 1);
-  cudaError_t err =
-      vec4 ? sgns::launch_apply<4, true>(n, V, d, B, K, Lc, 0, Lc, Cf, W, centers, coef,
-                                         dW, c_keys, c_perm, neg_lr, s)
-           : sgns::launch_apply<1, true>(n, V, d, B, K, Lc, 0, Lc, Cf, W, centers, coef,
-                                         dW, c_keys, c_perm, neg_lr, s);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  err = vec4 ? sgns::launch_apply<4, false>(n, V, d, B, K, B, 0, B, Wf, nullptr, centers,
-                                            coef, dW, w_keys, w_perm, neg_lr, s)
-             : sgns::launch_apply<1, false>(n, V, d, B, K, B, 0, B, Wf, nullptr, centers,
-                                            coef, dW, w_keys, w_perm, neg_lr, s);
-  return static_cast<int>(err);
+// The arguments are `sgns::block_step_entry`'s; blk must be >= B.
+extern "C" int sgns_fused_step_launch(
+    void* W, void* C, void* loss, const void* centers, const void* contexts, const void* ids,
+    void* w_rows, void* w_perm, void* c_rows, void* c_perm, void* coef, void* dW, void* wrows,
+    void* items, void* n_items, void* counters, void* sort_mem, long long sort_bytes,
+    int item_cap, int n, int V, int d, int B, int K, int blk, int group_ctas, int groups,
+    int sorters, int split, float neg_lr, int vec4, void* stream) {
+  if (blk < B) return static_cast<int>(cudaErrorInvalidValue);
+  return sgns::block_step_entry<false>(W, C, loss, centers, contexts, ids, w_rows, w_perm,
+                                       c_rows, c_perm, coef, dW, wrows, items, n_items,
+                                       counters, sort_mem, sort_bytes, item_cap, n, V, d, B,
+                                       K, blk, group_ctas, groups, sorters, split, neg_lr, vec4,
+                                       stream);
 }

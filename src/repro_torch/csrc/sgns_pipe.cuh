@@ -73,8 +73,11 @@
 #include <cstdint>
 
 #include "sgns_step.cuh"
+#include "sm90_async.cuh"
 
 namespace sgns {
+
+using sm90::group_barrier;   // the group barrier between a worker's phases
 
 constexpr int kWindow = 16;    // sorted positions per apply item (<= 32)
 constexpr int kAhead = 8;      // addend chunks staged before they are added
@@ -326,23 +329,6 @@ __device__ __forceinline__ void pair_staged(const float* wrow, const float* cpos
   }
 }
 
-
-// Every CTA of the group arrives, then waits for the group's `target`-th
-// arrival. The fences order the CTA's writes before its arrival and its
-// later reads after the others' arrivals.
-__device__ __forceinline__ void group_barrier(int* counter, int target) {
-  __syncthreads();
-  if (threadIdx.x == 0) {
-    __threadfence();
-    asm volatile("red.release.gpu.global.add.s32 [%0], 1;" : : "l"(counter) : "memory");
-    int seen = 0;
-    do {
-      asm volatile("ld.acquire.gpu.global.s32 %0, [%1];" : "=r"(seen) : "l"(counter) : "memory");
-    } while (seen < target);
-    __threadfence();
-  }
-  __syncthreads();
-}
 
 // ---------------------------------------------------------------------------
 // Pairs [p0, p0 + nb) of worker w, one warp a pair over the group's warps:

@@ -1,27 +1,18 @@
-// Device code shared by the SGNS step kernels: K2 (`sgns_fused_step.cu`),
-// K3 (`sgns_row_grads.cu`), K4 (`sgns_fused_hbm.cu`) and, through
-// `sgns_pipe.cuh`, K5 and K6 (`sgns_fused_pipe.cu`, `sgns_fused_tiered.cu`).
+// Device code shared by the SGNS step kernels: K2 and K4a
+// (`sgns_block_step.cuh`, included by `sgns_fused_step.cu` and
+// `sgns_fused_hbm.cu`), K3 (`sgns_row_grads.cu`) and, through
+// `sgns_pipe.cuh`, K5 and K6 (`sgns_fused_pipe.cu`, `sgns_fused_tiered.cu`):
 //
 // * 16-byte or scalar row loads, warp reductions, and the loss and sigmoid
 //   forms of the JAX package's kernels;
-// * the two phases of one sparse SGNS step over a range of pairs
-//   [p0, p0 + nb) of every worker's batch:
-//     sgns_pairs_kernel, one warp per (worker, pair): gathers w, c_pos and
-//       the K c_neg rows, reduces the K + 1 dot products with warp shuffles,
-//       writes the per-pair loss, the K + 1 sigmoid coefficients and
-//       dW = g_pos c_pos + sum_k g_k c_k to scratch; no table is written;
-//     sgns_apply_kernel, one warp per distinct touched row of a range of
-//       each worker's stably sorted touched-row list: applies that row's
-//       addends one by one in pair order and stores the row once. No float
-//       atomics, so the same inputs give the same bits on every run.
-//   K2 runs them once over the whole batch; K4 once per pair block. K5 and K6
-//   (`sgns_pipe.cuh`) repeat the pair body's arithmetic, in its order, on
-//   rows staged in shared memory.
+// * `pair_step`, one pair's forward and row gradients by one warp, on rows
+//   in global or shared memory. K5 and K6 (`pair_staged`) repeat its
+//   arithmetic, in its order, on their own staging layout.
 //
-// Rounding: every product and sum of the apply and of dW is a separate
-// round-to-nearest operation (__fmul_rn/__fadd_rn, never contracted into an
-// FMA), in the expression tree and order of the reference's scatter-adds.
-// The dot products are reduced in another order than XLA's.
+// Rounding: every product and sum of dW is a separate round-to-nearest
+// operation (__fmul_rn/__fadd_rn, never contracted into an FMA), in the
+// expression tree and order of the reference's row gradients. The dot
+// products are reduced in another order than XLA's.
 #pragma once
 
 #include <cstdint>
@@ -30,8 +21,7 @@
 namespace sgns {
 
 constexpr int kMaxNegatives = 16;
-constexpr int kWarps = 8;          // warps (pairs or rows) per block
-constexpr int kTile = 4;           // VEC-wide loads per lane per row chunk
+constexpr int kWarps = 8;          // warps a CTA
 constexpr unsigned kFull = 0xFFFFFFFFu;
 
 template <int VEC>
@@ -80,13 +70,14 @@ __device__ __forceinline__ float sigmoid(float x) {
 // of `wrow` with `cpos` and the `cneg` rows (per-lane partial sums, then warp
 // reductions), the loss (LOGSIG picks its form), the K + 1 sigmoid
 // coefficients and dW = g_pos c_pos + sum_k g_k c_k, summed over k in order.
-// Writes *loss_out, coef_out[0 .. K] and dw_out[0 .. d).
+// Writes *loss_out, coef_out[0 .. K], dw_out[0 .. d) and, unless it is null,
+// a copy of the W row to w_out[0 .. d).
 // ---------------------------------------------------------------------------
 template <int VEC, bool LOGSIG>
 __device__ __forceinline__ void pair_step(const float* wrow, const float* cpos,
                                           const float* const (&cneg)[kMaxNegatives], int K,
                                           int d, int lane, float* loss_out, float* coef_out,
-                                          float* dw_out) {
+                                          float* dw_out, float* w_out) {
   // K + 1 dot products: per-lane partial sums, then warp reductions.
   float s_pos = 0.0f;
   float s_neg[kMaxNegatives];
@@ -106,6 +97,7 @@ __device__ __forceinline__ void pair_step(const float* wrow, const float* cpos,
         for (int v = 0; v < VEC; ++v) s_neg[k] += wv[v] * cv[v];
       }
     }
+    if (w_out != nullptr) store_vec<VEC>(w_out + e, wv);
   }
   s_pos = warp_sum(s_pos);
   float l_neg = 0.0f;
@@ -153,164 +145,8 @@ __device__ __forceinline__ void pair_step(const float* wrow, const float* cpos,
   }
 }
 
-// ---------------------------------------------------------------------------
-// Phase 1: one warp per (worker, pair p in [p0, p0 + nb)). W, C (n, V, d);
-// centers, contexts (n, B); ids (n, B, K); loss (n, B); coef (n, B, K + 1)
-// and dW (n, B, d) scratch. LOGSIG picks the loss form.
-// ---------------------------------------------------------------------------
-template <int VEC, bool LOGSIG>
-__global__ void __launch_bounds__(kWarps * 32)
-sgns_pairs_kernel(const float* __restrict__ W, const float* __restrict__ C,
-                  const int* __restrict__ centers, const int* __restrict__ contexts,
-                  const int* __restrict__ ids, int V, int d, int B, int K, int p0,
-                  int nb, float* __restrict__ loss, float* __restrict__ coef,
-                  float* __restrict__ dW) {
-  const int w = blockIdx.y;
-  const int lane = threadIdx.x & 31;
-  const int p = p0 + blockIdx.x * kWarps + (threadIdx.x >> 5);
-  if (p >= p0 + nb) return;
-  const long long wp = static_cast<long long>(w) * B + p;
-  const long long table = static_cast<long long>(w) * V;
-
-  const int my_id = lane < K ? ids[wp * K + lane] : 0;
-  const float* Wt = W + table * d;
-  const float* Ct = C + table * d;
-  const float* wrow = Wt + static_cast<long long>(centers[wp]) * d;
-  const float* cpos = Ct + static_cast<long long>(contexts[wp]) * d;
-  const float* cneg[kMaxNegatives];
-#pragma unroll
-  for (int k = 0; k < kMaxNegatives; ++k) {
-    const int id = __shfl_sync(kFull, my_id, k < K ? k : 0);
-    cneg[k] = Ct + static_cast<long long>(id) * d;
-  }
-  pair_step<VEC, LOGSIG>(wrow, cpos, cneg, K, d, lane, loss + wp, coef + wp * (K + 1),
-                         dW + wp * d);
-}
-
-// ---------------------------------------------------------------------------
-// Phase 2: one warp per distinct touched row in positions [j_begin,
-// j_begin + count) of each worker's sorted lists, addends in pair order.
-// `keys` (n, L) are each worker's touched rows sorted stably, `perm` (n, L)
-// the addend index each sorted position came from: for the C table an index
-// into concat(contexts (B), ids (B * K)), for the W table a pair index. A
-// range holds whole runs (the caller sorts by range first), so a run never
-// crosses its ends.
-// ---------------------------------------------------------------------------
-template <int VEC, bool C_TABLE>
-__global__ void __launch_bounds__(kWarps * 32)
-sgns_apply_kernel(float* __restrict__ table, const float* __restrict__ W,
-                  const int* __restrict__ centers, const float* __restrict__ coef,
-                  const float* __restrict__ dW, const int* __restrict__ keys,
-                  const long long* __restrict__ perm, int V, int d, int B, int K,
-                  int L, int j_begin, int count, float neg_lr) {
-  const int w = blockIdx.y;
-  const int lane = threadIdx.x & 31;
-  const int j0 = j_begin + blockIdx.x * kWarps + (threadIdx.x >> 5);
-  const int j_end = j_begin + count;
-  if (j0 >= j_end) return;
-  const int* wkeys = keys + static_cast<long long>(w) * L;
-  const long long* wperm = perm + static_cast<long long>(w) * L;
-  const int row = wkeys[j0];
-  if (j0 > j_begin && wkeys[j0 - 1] == row) return;   // not the head of its run
-  int j1 = j0 + 1;
-  while (j1 < j_end && wkeys[j1] == row) ++j1;
-
-  const long long wB = static_cast<long long>(w) * B;
-  float* dst = table + (static_cast<long long>(w) * V + row) * d;
-  const float* Wt = W + static_cast<long long>(w) * V * d;
-  constexpr int kChunk = 32 * VEC * kTile;
-  for (int c0 = 0; c0 < d; c0 += kChunk) {
-    float acc[kTile][VEC];
-#pragma unroll
-    for (int t = 0; t < kTile; ++t) {
-      const int e = c0 + t * 32 * VEC + lane * VEC;
-      if (e < d) load_vec<VEC>(dst + e, acc[t]);
-    }
-    for (int j = j0; j < j1; ++j) {
-      const long long src = wperm[j];
-      float g = 0.0f;
-      const float* addend;
-      if constexpr (C_TABLE) {
-        // src < B: context of pair src; else negative (src - B) = p*K + k.
-        const long long p = src < B ? src : (src - B) / K;
-        const long long slot = src < B ? 0 : 1 + (src - B) % K;
-        g = coef[(wB + p) * (K + 1) + slot];
-        addend = Wt + static_cast<long long>(centers[wB + p]) * d;
-      } else {
-        addend = dW + (wB + src) * d;
-      }
-#pragma unroll
-      for (int t = 0; t < kTile; ++t) {
-        const int e = c0 + t * 32 * VEC + lane * VEC;
-        if (e < d) {
-          float a[VEC];
-          load_vec<VEC>(addend + e, a);
-#pragma unroll
-          for (int v = 0; v < VEC; ++v) {
-            const float u = C_TABLE ? __fmul_rn(neg_lr, __fmul_rn(g, a[v]))
-                                    : __fmul_rn(neg_lr, a[v]);
-            acc[t][v] = __fadd_rn(acc[t][v], u);
-          }
-        }
-      }
-    }
-#pragma unroll
-    for (int t = 0; t < kTile; ++t) {
-      const int e = c0 + t * 32 * VEC + lane * VEC;
-      if (e < d) store_vec<VEC>(dst + e, acc[t]);
-    }
-  }
-}
-
 inline unsigned blocks_for(long long items) {
   return static_cast<unsigned>((items + kWarps - 1) / kWarps);
-}
-
-template <int VEC, bool LOGSIG>
-cudaError_t launch_pairs(int n, int V, int d, int B, int K, int p0, int nb, const void* W,
-                         const void* C, const void* centers, const void* contexts,
-                         const void* ids, void* loss, void* coef, void* dW,
-                         cudaStream_t s) {
-  const dim3 grid(blocks_for(nb), static_cast<unsigned>(n));
-  sgns_pairs_kernel<VEC, LOGSIG><<<grid, kWarps * 32, 0, s>>>(
-      static_cast<const float*>(W), static_cast<const float*>(C),
-      static_cast<const int*>(centers), static_cast<const int*>(contexts),
-      static_cast<const int*>(ids), V, d, B, K, p0, nb, static_cast<float*>(loss),
-      static_cast<float*>(coef), static_cast<float*>(dW));
-  return cudaGetLastError();
-}
-
-template <int VEC, bool C_TABLE>
-cudaError_t launch_apply(int n, int V, int d, int B, int K, int L, int j_begin, int count,
-                         float* table, const void* W, const void* centers,
-                         const void* coef, const void* dW, const void* keys,
-                         const void* perm, float neg_lr, cudaStream_t s) {
-  const dim3 grid(blocks_for(count), static_cast<unsigned>(n));
-  sgns_apply_kernel<VEC, C_TABLE><<<grid, kWarps * 32, 0, s>>>(
-      table, static_cast<const float*>(W), static_cast<const int*>(centers),
-      static_cast<const float*>(coef), static_cast<const float*>(dW),
-      static_cast<const int*>(keys), static_cast<const long long*>(perm), V, d, B, K,
-      L, j_begin, count, neg_lr);
-  return cudaGetLastError();
-}
-
-// One sparse step over pairs [p0, p0 + nb) of every worker: phase 1, then
-// the C apply over sorted positions [p0 (K + 1), (p0 + nb)(K + 1)) (its
-// addends read W rows not yet written), then the W apply over [p0, p0 + nb).
-template <int VEC, bool LOGSIG>
-cudaError_t run_block(int n, int V, int d, int B, int K, int p0, int nb, float* W, float* C,
-                      const void* centers, const void* contexts, const void* ids,
-                      void* loss, void* coef, void* dW, const void* c_keys,
-                      const void* c_perm, const void* w_keys, const void* w_perm,
-                      float neg_lr, cudaStream_t s) {
-  cudaError_t err = launch_pairs<VEC, LOGSIG>(n, V, d, B, K, p0, nb, W, C, centers,
-                                              contexts, ids, loss, coef, dW, s);
-  if (err != cudaSuccess) return err;
-  err = launch_apply<VEC, true>(n, V, d, B, K, B * (K + 1), p0 * (K + 1), nb * (K + 1), C,
-                                W, centers, coef, dW, c_keys, c_perm, neg_lr, s);
-  if (err != cudaSuccess) return err;
-  return launch_apply<VEC, false>(n, V, d, B, K, B, p0, nb, W, nullptr, centers, coef, dW,
-                                  w_keys, w_perm, neg_lr, s);
 }
 
 }  // namespace sgns

@@ -30,7 +30,8 @@ SOURCES = {
     "sgns_fused_tiered": "sgns_fused_tiered.cu",
     "swa_decode": "swa_decode.cu",
 }
-HEADERS = ("counter_prng.cuh", "sgns_step.cuh", "sgns_pipe.cuh")
+HEADERS = ("counter_prng.cuh", "sgns_step.cuh", "sgns_pipe.cuh", "sgns_block_step.cuh",
+           "sm90_async.cuh")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC")
 

@@ -9,9 +9,10 @@ Two kernels (sources in ``repro_torch/csrc/``):
   reference's ``fused_negative_ids``.
 * **K2** ``sgns_fused_step`` (``sgns_fused_step.cu``) — replaces
   ``_sgns_fused_kernel``: the whole SGNS step for n workers at once. Its
-  wrapper draws the step's negatives with K1 and plans the apply (stable
-  sorts of the touched rows); the kernels then gather, run the forward
-  and the row gradients from the pre-step tables, and apply them
+  wrapper draws the step's negatives with K1; then one persistent launch
+  (``sgns_block_step.cuh``, shared with K4a: :mod:`~repro_torch.kernels
+  .sgns_block_step`) sorts each worker's touched rows, runs the forward
+  and the row gradients from the pre-step tables, and applies them
   deterministically, without float atomics.
 
 Every wrapper takes stacked per-worker operands (a leading worker axis
@@ -35,22 +36,21 @@ import torch
 
 from repro_torch.core.sgns import train_step_sparse_
 from repro_torch.kernels.build import load
+from repro_torch.kernels.sgns_block_step import run_block_step
 
 _MASK = 0xFFFFFFFF
 _P, _I = ctypes.c_void_p, ctypes.c_int
+# K2's and K4a's launch (`sgns_block_step.cuh`: block_step_entry)
+_BLOCK_STEP = [_P] * 17 + [ctypes.c_longlong] + [_I] * 11 + [ctypes.c_float, _I, _P]
 # C entry points: (library, symbol) -> argument types; all return an int
 # (cudaGetLastError() after the launch).
 _SIGNATURES = {
     ("sample_negatives", "sample_negatives_launch"):
         [_P] * 4 + [_I, _I, ctypes.c_longlong, _P],
-    ("sgns_fused_step", "sgns_pairs_launch"):
-        [_P] * 5 + [_I] * 5 + [_P] * 3 + [_I, _P],
-    ("sgns_fused_step", "sgns_apply_launch"):
-        [_P] * 9 + [_I] * 5 + [ctypes.c_float, _I, _P],
+    ("sgns_fused_step", "sgns_fused_step_launch"): _BLOCK_STEP,
     ("sgns_row_grads", "sgns_row_grads_launch"):
         [_P] * 3 + [ctypes.c_longlong, _I, _I] + [_P] * 4 + [_I, _P],
-    ("sgns_fused_hbm", "sgns_hbm_blocks_launch"):
-        [_P] * 5 + [_I] * 6 + [_P] * 7 + [ctypes.c_float, _I, _P],
+    ("sgns_fused_hbm", "sgns_hbm_chain_launch"): _BLOCK_STEP,
     ("sgns_fused_hbm", "sgns_hbm_sequential_launch"):
         [_P] * 5 + [_I] * 5 + [ctypes.c_float, _P, _P],
     ("sgns_fused_pipe", "sgns_pipe_launch"):
@@ -270,27 +270,10 @@ def sgns_fused_step(params: dict, centers: torch.Tensor, contexts: torch.Tensor,
         return sgns_fused_step_plain(params, centers, contexts, table, seeds,
                                      lr, negatives=K)
     _kernel_device(device)
-    loss = torch.empty((n, B), dtype=torch.float32, device=device)
-    coef = torch.empty((n, B, K + 1), dtype=torch.float32, device=device)
-    dW = torch.empty((n, B, d), dtype=torch.float32, device=device)
-    vec4 = int(d % 4 == 0 and W.data_ptr() % 16 == 0 and C.data_ptr() % 16 == 0)
-    pairs = _entry("sgns_fused_step", "sgns_pairs_launch")
-    apply = _entry("sgns_fused_step", "sgns_apply_launch")
-    # Draw and plan: K1 draws the step's negatives; each worker's touched
-    # rows, stably sorted, form runs in addend order for the apply (W at
-    # centers; C at contexts, then at negatives).
+    # K1 draws the step's negatives; one launch sorts each worker's touched
+    # rows into runs in addend order (W at centers; C at contexts, then at
+    # negatives) and runs the step as one block of all B pairs.
     ids = sample_negatives(seeds, table["prob"], table["alias"], (B, K))
-    w_keys, w_perm = torch.sort(centers, dim=1, stable=True)
-    c_keys, c_perm = torch.sort(torch.cat([contexts, ids.view(n, B * K)], 1),
-                                dim=1, stable=True)
-    with torch.cuda.device(device):
-        stream = _stream(device)
-        err = pairs(_ptr(W), _ptr(C), _ptr(centers), _ptr(contexts), _ptr(ids),
-                    n, V, d, B, K, _ptr(loss), _ptr(coef), _ptr(dW), vec4, stream)
-        _raise_on(err, "sgns_fused_step (pairs)")
-        err = apply(_ptr(W), _ptr(C), _ptr(centers), _ptr(coef), _ptr(dW),
-                    _ptr(c_keys), _ptr(c_perm), _ptr(w_keys), _ptr(w_perm),
-                    n, V, d, B, K, -float(np.float32(lr)), vec4, stream)
-        _raise_on(err, "sgns_fused_step (apply)")
-    LAUNCHES["sgns_fused_step"] += 1
+    loss = run_block_step("sgns_fused_step", "sgns_fused_step_launch", "sgns_fused_step",
+                          params, centers, contexts, ids, lr, B)
     return params, loss, ids

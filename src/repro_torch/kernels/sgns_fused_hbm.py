@@ -15,7 +15,9 @@ they are there anyway, and what this step adds over K2 is its
   as accumulating adds in reference order (W at centers; C at contexts,
   then at negatives). Block b+1 sees block b's writes. Equal to
   ``train_step_sparse`` once per block on the step's negatives; with one
-  block, to one sparse step over the batch.
+  block, to one sparse step over the batch. On the card: one persistent
+  launch a step for every worker, the sort of the touched rows inside it
+  (:mod:`~repro_torch.kernels.sgns_block_step`, shared with K2).
 * ``sequential=True`` — each pair's gradients are taken from the tables as
   every earlier pair left them, and applied at once: a loop of batch-1
   sparse steps: word2vec's exact order (one thread block cluster a worker
@@ -35,6 +37,7 @@ import numpy as np
 import torch
 
 from repro_torch.core.sgns import train_step_sparse_
+from repro_torch.kernels.sgns_block_step import run_block_step
 from repro_torch.kernels.sgns_fused import (
     LAUNCHES, MAX_NEGATIVES, _check, _entry, _kernel_device, _ptr, _raise_on,
     _stream, alias_draw_from_counters, sample_negatives)
@@ -100,7 +103,8 @@ def _block_offsets(B: int, K: int, blk: int, V: int, device: torch.device):
 
 def block_sorts(centers: torch.Tensor, contexts: torch.Tensor, ids: torch.Tensor,
                 blk: int, V: int):
-    """The block chains' apply lists (K4a, K5, K6): each worker's touched
+    """The block chains' apply lists (K5 and K6 on the card; K2's and K4a's
+    launch sorts the same lists itself): each worker's touched
     rows of W (its centers) and of C (``concat(contexts, ids)``) sorted
     stably by (block of ``blk`` pairs, row). Returns ``(w_rows, w_perm,
     c_rows, c_perm)``: rows int32 and the index each came from, int64 — for
@@ -151,31 +155,18 @@ def sgns_fused_hbm_step(params: dict, centers: torch.Tensor,
                                          negatives=K, block_pairs=block_pairs,
                                          sequential=sequential)
     _kernel_device(device)
-    neg_lr = -float(np.float32(lr))
-    loss = torch.empty((n, B), dtype=torch.float32, device=device)
+    if sequential and d > MAX_SEQUENTIAL_DIM:
+        raise ValueError(f"the sequential kernel takes d <= {MAX_SEQUENTIAL_DIM}, got {d}")
     ids = sample_negatives(seeds, table["prob"], table["alias"], (B, K))
     if sequential:
-        if d > MAX_SEQUENTIAL_DIM:
-            raise ValueError(f"the sequential kernel takes d <= {MAX_SEQUENTIAL_DIM}, "
-                             f"got {d}")
+        loss = torch.empty((n, B), dtype=torch.float32, device=device)
         fn = _entry("sgns_fused_hbm", "sgns_hbm_sequential_launch")
         with torch.cuda.device(device):
             err = fn(_ptr(W), _ptr(C), _ptr(centers), _ptr(contexts), _ptr(ids), n, V,
-                     d, B, K, neg_lr, _ptr(loss), _stream(device))
+                     d, B, K, -float(np.float32(lr)), _ptr(loss), _stream(device))
         _raise_on(err, "sgns_fused_hbm_step (sequential)")
         LAUNCHES["sgns_fused_hbm_step"] += 1
         return params, loss, ids
-    blk = pick_block_pairs(B, block_pairs)
-    w_keys, w_perm, c_keys, c_perm = block_sorts(centers, contexts, ids, blk, V)
-    coef = torch.empty((n, B, K + 1), dtype=torch.float32, device=device)
-    dW = torch.empty((n, B, d), dtype=torch.float32, device=device)
-    vec4 = int(d % 4 == 0 and W.data_ptr() % 16 == 0 and C.data_ptr() % 16 == 0)
-    fn = _entry("sgns_fused_hbm", "sgns_hbm_blocks_launch")
-    with torch.cuda.device(device):
-        err = fn(_ptr(W), _ptr(C), _ptr(centers), _ptr(contexts), _ptr(ids), n, V, d,
-                 B, K, blk, _ptr(loss), _ptr(coef), _ptr(dW), _ptr(c_keys),
-                 _ptr(c_perm), _ptr(w_keys), _ptr(w_perm), neg_lr, vec4,
-                 _stream(device))
-    _raise_on(err, "sgns_fused_hbm_step")
-    LAUNCHES["sgns_fused_hbm_step"] += 1
+    loss = run_block_step("sgns_fused_hbm", "sgns_hbm_chain_launch", "sgns_fused_hbm_step",
+                          params, centers, contexts, ids, lr, pick_block_pairs(B, block_pairs))
     return params, loss, ids

@@ -238,6 +238,100 @@ def test_sgns_fused_tiered_with_no_hot_rows_runs_k5(device):
     assert K.LAUNCHES["sgns_fused_tiered_step"] == before["sgns_fused_tiered_step"]
 
 
+# K2 and K4a, one launch a step (csrc/sgns_block_step.cuh): each run twice
+# (bitwise), against its plain version within K2's tolerances, K4a bitwise
+# K5 at the same block size, and K2 == K4a (blk >= B) == K5 (blk = B)
+# bitwise; the launch's own sort bitwise block_sorts, and its apply items
+# the rule's (sgns_block_step.apply_items). Cases: the 16-byte and scalar
+# paths (d = 48, 50) and the main path's width (d = 500), each with a tail
+# block; n = 40 workers, more than the card's groups; a vocabulary of 8
+# rows, whose runs all pass the split threshold (narrow chunks); a batch
+# whose C list (24,576 keys) is sorted in global scratch, not shared
+# memory; and a vocabulary of a million rows, whose C keys take 64 bits.
+BLOCK_CASES = {
+    "d48": dict(d=48, n=3, V=5000, B=300, blk=128),
+    "d50": dict(d=50, n=3, V=5000, B=300, blk=128),
+    "d500": dict(d=500, n=2, V=5000, B=300, blk=128),
+    "n40": dict(d=48, n=40, V=2000, B=200, blk=64),
+    "vocab8": dict(d=500, n=2, V=8, B=300, blk=128),
+    "global-sort": dict(d=48, n=2, V=5000, B=4096, blk=4096),
+    "keys64": dict(d=48, n=1, V=1_000_000, B=1024, blk=256),
+}
+
+
+def _twice(step, counter, W, C, *args, **kw):
+    """Two runs of ``step`` from clones of the same tables, one launch each;
+    bitwise equal to each other."""
+    outs = []
+    for _ in range(2):
+        before = K.LAUNCHES[counter]
+        outs.append(step({"W": W.clone(), "C": C.clone()}, *args, **kw))
+        assert K.LAUNCHES[counter] == before + 1
+    (p1, l1, i1), (p2, l2, i2) = outs
+    assert torch.equal(l1, l2) and torch.equal(i1, i2)
+    for k in ("W", "C"):
+        assert torch.equal(p1[k], p2[k])
+    return outs[0]
+
+
+def _same(a, b):
+    return (torch.equal(a[1], b[1]) and torch.equal(a[2], b[2])
+            and all(torch.equal(a[0][k], b[0][k]) for k in ("W", "C")))
+
+
+@pytest.mark.parametrize("case", sorted(BLOCK_CASES))
+def test_block_step_kernels_match_plain_repeat_and_agree(device, case):
+    from repro_torch.kernels import sgns_block_step as BS
+    from repro_torch.kernels import sgns_fused_hbm as H
+    from repro_torch.kernels import sgns_fused_pipe as P
+
+    c = BLOCK_CASES[case]
+    W, C, cen, ctx, t, seeds = _hbm_inputs(device, c["d"], n=c["n"], V=c["V"], B=c["B"])
+    args = (cen, ctx, t, seeds, 0.05)
+    k2 = _twice(K.sgns_fused_step, "sgns_fused_step", W, C, *args, negatives=5)
+    k4 = _twice(H.sgns_fused_hbm_step, "sgns_fused_hbm_step", W, C, *args, negatives=5,
+                block_pairs=c["blk"])
+    for got, plain in ((k2, K.sgns_fused_step_plain({"W": W.clone(), "C": C.clone()}, *args,
+                                                    negatives=5)),
+                       (k4, H.sgns_fused_hbm_step_plain({"W": W.clone(), "C": C.clone()},
+                                                        *args, negatives=5,
+                                                        block_pairs=c["blk"]))):
+        assert torch.equal(got[2], plain[2])
+        assert float((got[1] - plain[1]).abs().max()) <= 1e-4
+        for k in ("W", "C"):
+            assert float((got[0][k] - plain[0][k]).abs().max()) <= 1e-5
+            assert float((got[0][k] - (W if k == "W" else C)).abs().max()) > 0
+    k5 = P.sgns_fused_pipe_step({"W": W.clone(), "C": C.clone()}, *args, negatives=5,
+                                block_pairs=c["blk"])
+    assert _same(k4, k5)
+    one = H.sgns_fused_hbm_step({"W": W.clone(), "C": C.clone()}, *args, negatives=5,
+                                block_pairs=c["B"])
+    k5_one = P.sgns_fused_pipe_step({"W": W.clone(), "C": C.clone()}, *args, negatives=5,
+                                    block_pairs=c["B"])
+    assert _same(k2, one) and _same(k2, k5_one)
+    # the launch's sort and items, against block_sorts and the item rule
+    blk = H.pick_block_pairs(c["B"], c["blk"])
+    _, lists, items, n_items = BS.run_block_step(
+        "sgns_fused_hbm", "sgns_hbm_chain_launch", "sgns_fused_hbm_step",
+        {"W": W.clone(), "C": C.clone()}, cen, ctx, k4[2], 0.05, blk, scratch=True)
+    torch.cuda.synchronize(device)
+    for got, want in zip(lists, H.block_sorts(cen, ctx, k4[2], blk, c["V"])):
+        assert torch.equal(got, want)
+    vec4 = c["d"] % 4 == 0
+    c_rows, w_rows = lists[2].cpu().numpy(), lists[0].cpu().numpy()
+    longest = 0
+    for w in range(c["n"]):
+        for b in range(-(-c["B"] // blk)):
+            nb = min(blk, c["B"] - b * blk)
+            for tab, rows, s0, N in ((0, c_rows, b * blk * 6, nb * 6), (1, w_rows, b * blk, nb)):
+                want = BS.apply_items(rows[w, s0:s0 + N], c["d"], vec4, s0=s0)
+                m = int(n_items[w, b, tab])
+                np.testing.assert_array_equal(items[w, b, tab, :m].cpu().numpy(), want)
+                longest = max(longest, int(want[:, 1].max()))
+    if case == "vocab8":          # the case is what it says: runs past the threshold
+        assert longest >= BS.SPLIT_RUNS
+
+
 # K7 against its plain version: float32 reductions over the window in
 # another order (split across CTAs and warps, tiles of a few rows, merged
 # partials), so a few ulps of O(0.1) outputs; bfloat16 outputs round to 8
