@@ -56,9 +56,9 @@ Phases:
    K2) and K4b (against its plain per-pair loop, repeat bitwise) at the
    main path's shapes; K2, K4a and K5 with one block bitwise equal; K2 (one
    block) and K4a (``block_pairs=256``) each also timed as the launch alone
-   on a fixed draw, at several split thresholds, beside K5's whole call at
-   the same block size (in turns: kernel, K5, K5, kernel) and the torch
-   block sorts the launch replaced, with each path's longest run of one row;
+   on a fixed draw, beside K5's whole call at the same block size (in
+   turns: kernel, K5, K5, kernel) and the torch block sorts the launch
+   replaced, with each path's longest run of one row;
    K5 at ``ring_depth`` 2 and 3 and K6 at ``hot_rows`` 256, 2,048 and V
    there too (ids bitwise; W′, C′ and loss bitwise K4a's; within K2's
    tolerances of the plain version; repeat bitwise), each timed as the
@@ -1023,7 +1023,7 @@ def phase_time(device, main: dict, rand: dict) -> dict:
         log(f"[time] {label}: whole call {r['ms']:.4f} ms, launch alone {r['alone_ms']:.4f} ms; "
             f"K5 at the same block size, whole call {r['k5_ms']:.4f} ms; the torch block "
             f"sorts it no longer runs {r['torch_sorts_ms']:.4f} ms; longest run "
-            f"{r['longest_run']}; launch alone by split threshold {r['split_ms']}")
+            f"{r['longest_run']}")
     for name in [k for k in out if k.startswith("sgns_fused_pipe") or
                  k.startswith("sgns_fused_tiered")]:
         r = out[name]
@@ -1056,11 +1056,9 @@ def _longest_runs(runs, blk: int) -> dict:
 
 def _beside_k5(label, W, C, centers, contexts, table, seeds, lr, K, ids, blk, whole_ms):
     """K2's or K4a's launch at block size ``blk`` on a fixed draw ``ids``:
-    timed alone (no K1), at several split thresholds (runs of at least
-    that many addends go in chunks of 32 columns); K5's whole call at the
-    same block size, timed in turn with this kernel's (kernel, K5, K5,
-    kernel); the torch block sorts the launch replaced; and the longest
-    runs of the path's sorted lists."""
+    timed alone (no K1); K5's whole call at the same block size, timed in
+    turn with this kernel's (kernel, K5, K5, kernel); the torch block sorts
+    the launch replaced; and the longest runs of the path's sorted lists."""
     from repro_torch.kernels import sgns_block_step as BS
     from repro_torch.kernels.sgns_fused_hbm import block_sorts
 
@@ -1071,11 +1069,6 @@ def _beside_k5(label, W, C, centers, contexts, table, seeds, lr, K, ids, blk, wh
                          if label == "K2" else
                          ("sgns_fused_hbm", "sgns_hbm_chain_launch", "sgns_fused_hbm_step"))
     pk = {"W": W.clone(), "C": C.clone()}
-    split_ms = {}
-    for split in (8, 16, 32, 64, 128, 1 << 30):
-        split_ms[str(split)] = _time_ms(lambda: BS.run_block_step(
-            lib, sym, counter, pk, centers, contexts, ids, lr, blk, split=split), device,
-            reps=20)
     alone = _time_ms(lambda: BS.run_block_step(lib, sym, counter, pk, centers, contexts, ids,
                                                lr, blk), device, reps=20)
     k5_step = _pipe_steps({})[0]
@@ -1088,7 +1081,7 @@ def _beside_k5(label, W, C, centers, contexts, table, seeds, lr, K, ids, blk, wh
     del pk
     sorts = _time_ms(lambda: block_sorts(centers, contexts, ids, blk, V), device, reps=50)
     runs = block_sorts(centers, contexts, ids, blk, V)
-    return {"alone_ms": alone, "split_ms": split_ms, "k5_ms": min(k5), "k5_ms_both": k5,
+    return {"alone_ms": alone, "k5_ms": min(k5), "k5_ms_both": k5,
             "whole_ms_again": again, "torch_sorts_ms": sorts,
             "longest_run": _longest_runs(runs, blk), "block_pairs": blk,
             "split": BS.SPLIT_RUNS, "whole_ms_first": whole_ms}

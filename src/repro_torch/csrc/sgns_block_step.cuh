@@ -47,10 +47,10 @@
 //   applies: items of whole runs of one table's sorted list and a column
 //     chunk, W's list then C's, each in list order (hot rows first), taken
 //     by the warps from a per-(worker, block) integer counter: a run of at
-//     least `split` addends is an item of its own in narrow chunks of 32
-//     columns (the Zipf-hot rows, spread over
-//     many warps); the shorter runs whose heads share a window of 32 sorted
-//     positions form one item in chunks of 32 VEC columns. A warp fetches
+//     least kSplitRuns addends is an item of its own in narrow chunks of 32
+//     columns (the Zipf-hot rows, spread over many warps); the shorter runs
+//     whose heads share a window of 32 sorted positions form one item in
+//     chunks of 32 VEC columns. A warp fetches
 //     an item's metadata 32 positions at a time (perm -> pair, slot,
 //     coefficient) and streams the addend slices (and, for each run's first
 //     addend, the row's own slice) through a ring of kStages stages of its
@@ -76,13 +76,10 @@ constexpr int kStages = 4;          // apply ring stages a warp
 constexpr int kNarrow = 32;         // columns of a hot run's chunk
 constexpr int kWideCols = 128;      // columns of a short runs' chunk (16-byte path)
 constexpr int kItemWindow = 32;     // sorted positions whose short runs share an item
+// Runs of at least this many addends are items of their own in kNarrow-column
+// chunks (16-byte path; the scalar path's chunks are kNarrow columns anyway).
+constexpr int kSplitRuns = 32;
 constexpr int kSmemBytes = kWarps * kWarpBytes;
-// On the 16-byte path, how rows and addends reach shared memory: bulk copies
-// completing on mbarriers (true), or each lane's own 16-byte cp.async copies
-// of the columns it reads (false: 2-9 % slower at the main path's shapes,
-// `analysis/block_step_variants.py`).
-constexpr bool kPairsBulk = true;
-constexpr bool kApplyBulk = true;
 
 struct StepArgs {
   float* W;                  // (n, V, d), updated in place
@@ -104,7 +101,7 @@ struct StepArgs {
   int* work;                 // (n, nblocks) item counters, zeroed by the launch
   unsigned char* sort_mem;   // (n, 2 nblocks, sort_bytes): lists too long for shared memory
   long long sort_bytes;
-  int item_cap, n, V, d, B, K, blk, nblocks, group_ctas, groups, sorters, split;
+  int item_cap, n, V, d, B, K, blk, nblocks, group_ctas, groups, sorters;
   float neg_lr;
 };
 
@@ -207,16 +204,16 @@ __device__ __forceinline__ int* cta_radix_sort(const int* rows, int* ids, int* t
 
 // The apply items of one sorted list rows[0 .. N) (block-relative positions;
 // s0 the list's first position in the worker's list). An item is a range of
-// whole runs and a column chunk: a run of at least `split` addends on its
-// own, in chunks of kNarrow columns; the other runs grouped by the window of
-// kItemWindow positions their heads lie in (a group also ends where a long
-// run begins), in chunks of `wide` columns. An item ends where the next
-// begins. Items go out in list order. `flag`, `spos` and `soff` hold N ints
-// each.
+// whole runs and a column chunk: a run of at least kSplitRuns addends on its
+// own, in chunks of kNarrow columns (where `wide` is wider); the other runs
+// grouped by the window of kItemWindow positions their heads lie in (a group
+// also ends where a long run begins), in chunks of `wide` columns. An item
+// ends where the next begins. Items go out in list order. `flag`, `spos` and
+// `soff` hold N ints each.
 __device__ __forceinline__ void make_items(const StepArgs& a, const int* rows, int N, int s0,
                                            int wide, int* flag, int* spos, int* soff, int4* out,
                                            int* count) {
-  const int T = a.split;
+  const int T = wide > kNarrow ? kSplitRuns : 1 << 30;
   auto head = [&](int q) { return q == 0 || rows[q] != rows[q - 1]; };
   auto long_head = [&](int q) { return T <= N - q && rows[q + T - 1] == rows[q]; };
   auto starts = [&](int q) {
@@ -354,13 +351,12 @@ __device__ __forceinline__ void sort_tasks(const StepArgs& a, int w, int rank, i
 // Pairs
 // ---------------------------------------------------------------------------
 // Pairs [p0, p0 + nb) of worker w, one warp a pair over the phase's warps.
-// BULK: rows by bulk copies (16-byte rows), else 4-byte cp.async copies.
+// BULK: rows by bulk copies (16-byte rows), else by 4-byte cp.async copies.
 template <bool BULK, bool LOGSIG>
 __device__ __forceinline__ void pairs_phase(const StepArgs& a, int w, int p0, int nb, int gwarp,
                                             int gwarps, int lane, float* region, uint64_t* bar,
                                             unsigned& phase) {
   constexpr int VEC = BULK ? 4 : 1;
-  constexpr bool TMA = BULK && kPairsBulk;
   const int K = a.K, d = a.d;
   const long long table = static_cast<long long>(w) * a.V * d;
   const float* Wt = a.W + table;
@@ -395,7 +391,7 @@ __device__ __forceinline__ void pairs_phase(const StepArgs& a, int w, int p0, in
     const float* row[kMaxNegatives + 2];
     rows_of(x, row);
     float* stage = region + st * row_floats;
-    if constexpr (TMA) {
+    if constexpr (BULK) {
       if (lane == 0) sm90::mbar_arrive_expect_tx(&bar[st], static_cast<unsigned>(row_floats) * 4);
       __syncwarp();
       const float* src = row[0];
@@ -408,19 +404,13 @@ __device__ __forceinline__ void pairs_phase(const StepArgs& a, int w, int p0, in
       }
     } else {
       for (int r = 0; r < K + 2; ++r) {
-        for (int e = lane * VEC; e < d; e += 32 * VEC) {
-          if constexpr (VEC == 4) {
-            sm90::copy16(stage + r * d + e, row[r] + e);
-          } else {
-            sm90::copy4(stage + r * d + e, row[r] + e);
-          }
-        }
+        for (int e = lane; e < d; e += 32) sm90::copy4(stage + r * d + e, row[r] + e);
       }
       sm90::copy_commit();
     }
   };
   auto wait = [&](int st, bool newer) {
-    if constexpr (TMA) {
+    if constexpr (BULK) {
       sm90::mbar_wait(&bar[st], (phase >> st) & 1u);
       phase ^= 1u << st;
     } else if (newer) {
@@ -481,7 +471,6 @@ struct Meta {
 template <bool BULK, bool C_TABLE>
 __device__ __forceinline__ void apply_item(const StepArgs& a, int w, int p0, int4 it, int lane,
                                            float* region, uint64_t* bar, unsigned& phase) {
-  constexpr bool TMA = BULK && kApplyBulk;
   const int K = a.K, d = a.d, B = a.B;
   const int s = it.x, len = it.y, col0 = it.z, width = it.w;
   constexpr int kMaxNv = kWideCols / 32;
@@ -534,7 +523,7 @@ __device__ __forceinline__ void apply_item(const StepArgs& a, int w, int p0, int
     const int st = v % kStages;
     const int lo = (v % spf) * A;                 // the sub-batch's first lane
     const Meta& m = v / spf == fc ? cur : nxt;
-    if constexpr (TMA) {
+    if constexpr (BULK) {
       const bool mine = lane >= lo && lane < lo + A && v * A + (lane - lo) < len;
       const bool hd = mine && m.head;
       const unsigned n = __popc(__ballot_sync(kFull, mine)) + __popc(__ballot_sync(kFull, hd));
@@ -553,17 +542,10 @@ __device__ __forceinline__ void apply_item(const StepArgs& a, int w, int p0, int
         const int src = __shfl_sync(kFull, m.src, lo + i);
         const bool hd = __shfl_sync(kFull, m.head, lo + i) != 0;
         const int key = __shfl_sync(kFull, m.key, lo + i);
-        if (live && on) {   // this lane's columns of the addend (and of the row)
-          float* to = slot(st, i, false) + lane * nv;
-          const float* row = table + static_cast<long long>(key) * d + col;
-          if (nv > 1) {
-            for (int e = 0; e < nv; e += 4) {
-              sm90::copy16(to + e, adds + src + lane * nv + e);
-              if (hd) sm90::copy16(slot(st, i, true) + lane * nv + e, row + e);
-            }
-          } else {
-            sm90::copy4(to, adds + src + lane);
-            if (hd) sm90::copy4(slot(st, i, true) + lane, row);
+        if (live && on) {   // this lane's column of the addend (and of the row)
+          sm90::copy4(slot(st, i, false) + lane, adds + src + lane);
+          if (hd) {
+            sm90::copy4(slot(st, i, true) + lane, table + static_cast<long long>(key) * d + col);
           }
         }
       }
@@ -572,7 +554,7 @@ __device__ __forceinline__ void apply_item(const StepArgs& a, int w, int p0, int
   };
 
   for (int v = 0; v < kStages; ++v) {
-    if (v < nsub || !TMA) issue(v);
+    if (v < nsub || !BULK) issue(v);
   }
   // this lane's nv floats at p: float4s, or one float
   auto lane_load = [&](const float* p, float (&v)[kMaxNv]) {
@@ -611,7 +593,7 @@ __device__ __forceinline__ void apply_item(const StepArgs& a, int w, int p0, int
       if (len > (fc + 1) * 32) nxt = fetch(fc + 1);
     }
     const int st = u % kStages;
-    if constexpr (TMA) {
+    if constexpr (BULK) {
       sm90::mbar_wait(&bar[st], (phase >> st) & 1u);
       phase ^= 1u << st;
     } else {
@@ -643,12 +625,12 @@ __device__ __forceinline__ void apply_item(const StepArgs& a, int w, int p0, int
     __syncwarp();                                 // the stage is read before it is refilled
     if (u + kStages < nsub) {
       issue(u + kStages);
-    } else if (!TMA) {
+    } else if (!BULK) {
       sm90::copy_commit();                       // keeps kStages - 1 groups after the next
     }
   }
   store();
-  if constexpr (!TMA) sm90::copy_wait<0>();
+  if constexpr (!BULK) sm90::copy_wait<0>();
 }
 
 // The items of worker w's block b, W's then C's (each list's hot rows
@@ -732,7 +714,7 @@ template <bool LOGSIG>
 int block_step_launch(StepArgs a, int* counters, int vec4, cudaStream_t stream) {
   if (a.n == 0 || a.B == 0) return 0;
   if (a.K < 1 || a.K > kMaxNegatives || a.blk < 1 || a.d < 1 || a.group_ctas < 1 ||
-      a.groups < 1 || a.sorters < 1 || a.split < 1) {
+      a.groups < 1 || a.sorters < 1) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   a.blk = a.blk < a.B ? a.blk : a.B;
@@ -742,7 +724,6 @@ int block_step_launch(StepArgs a, int* counters, int vec4, cudaStream_t stream) 
   const long long cap = static_cast<long long>(a.blk) * (a.K + 1) * ((a.d + kNarrow - 1) / kNarrow);
   const long long need = sort_need(a.blk * (a.K + 1));
   if (a.item_cap < cap || a.sort_bytes < need) return static_cast<int>(cudaErrorInvalidValue);
-  if (!vec4) a.split = 1 << 30;        // no narrower chunks than the scalar path's 32 columns
   a.arrive = counters;
   a.work = counters + a.groups;
   auto kernel = vec4 ? block_step_kernel<true, LOGSIG> : block_step_kernel<false, LOGSIG>;
@@ -785,7 +766,7 @@ int block_step_entry(void* W, void* C, void* loss, const void* centers, const vo
                      void* coef, void* dW, void* wrows, void* items, void* n_items,
                      void* counters, void* sort_mem, long long sort_bytes, int item_cap, int n,
                      int V, int d, int B, int K, int blk, int group_ctas, int groups,
-                     int sorters, int split, float neg_lr, int vec4, void* stream) {
+                     int sorters, float neg_lr, int vec4, void* stream) {
   StepArgs a;
   a.W = static_cast<float*>(W);
   a.C = static_cast<float*>(C);
@@ -808,7 +789,7 @@ int block_step_entry(void* W, void* C, void* loss, const void* centers, const vo
   a.sort_bytes = sort_bytes;
   a.item_cap = item_cap;
   a.n = n; a.V = V; a.d = d; a.B = B; a.K = K; a.blk = blk; a.nblocks = 1;
-  a.group_ctas = group_ctas; a.groups = groups; a.sorters = sorters; a.split = split;
+  a.group_ctas = group_ctas; a.groups = groups; a.sorters = sorters;
   a.neg_lr = neg_lr;
   return block_step_launch<LOGSIG>(a, static_cast<int*>(counters), vec4,
                                    static_cast<cudaStream_t>(stream));

@@ -420,11 +420,11 @@ extern "C" int sgns_hbm_chain_launch(
     void* w_rows, void* w_perm, void* c_rows, void* c_perm, void* coef, void* dW, void* wrows,
     void* items, void* n_items, void* counters, void* sort_mem, long long sort_bytes,
     int item_cap, int n, int V, int d, int B, int K, int blk, int group_ctas, int groups,
-    int sorters, int split, float neg_lr, int vec4, void* stream) {
+    int sorters, float neg_lr, int vec4, void* stream) {
   return sgns::block_step_entry<true>(W, C, loss, centers, contexts, ids, w_rows, w_perm,
                                       c_rows, c_perm, coef, dW, wrows, items, n_items, counters,
                                       sort_mem, sort_bytes, item_cap, n, V, d, B, K, blk,
-                                      group_ctas, groups, sorters, split, neg_lr, vec4, stream);
+                                      group_ctas, groups, sorters, neg_lr, vec4, stream);
 }
 
 // K4b. Same tables and ids; loss (n, B). One cluster of kSeqCluster CTAs

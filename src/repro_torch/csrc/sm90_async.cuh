@@ -64,12 +64,6 @@ __device__ __forceinline__ void copy4(float* dst, const float* src) {
                : "memory");
 }
 
-// Four floats (16-byte aligned on both sides), likewise.
-__device__ __forceinline__ void copy16(float* dst, const float* src) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;" ::"r"(smem_u32(dst)), "l"(src)
-               : "memory");
-}
-
 __device__ __forceinline__ void copy_commit() {
   asm volatile("cp.async.commit_group;" ::: "memory");
 }

@@ -1,6 +1,6 @@
 """The launch that K2 (``sgns_fused_step``) and K4a (``sgns_fused_hbm_step``
-with ``sequential=False``) share, and the plain mirrors of what happens
-inside it.
+with ``sequential=False``) share, its shape, and the plain mirror of its
+apply items.
 
 Source: ``repro_torch/csrc/sgns_block_step.cuh`` (included by
 ``sgns_fused_step.cu`` and ``sgns_fused_hbm.cu``). One persistent
@@ -14,14 +14,13 @@ What the CPU can check lies here, in Python:
 
 * :func:`geometry` — groups, CTAs a group and the sorting CTAs, as the
   launch is sized (``SMEM_BYTES`` of dynamic shared memory a CTA);
-* :func:`block_sorts_in_launch` — the in-launch sort, as the kernel sorts
-  (each block's and table's rows in element order, radix passes of 4-bit
-  digits, each stable), which must be bitwise
-  :func:`~repro_torch.kernels.sgns_fused_hbm.block_sorts`;
 * :func:`apply_items` — the apply's item rule: whole runs of a sorted list
-  and a column chunk, a run of at least ``split`` addends on its own in
-  chunks of 32 columns, the shorter runs grouped by the window of 32
+  and a column chunk, a run of at least ``SPLIT_RUNS`` addends on its own
+  in chunks of 32 columns, the shorter runs grouped by the window of 32
   positions their heads lie in.
+
+The in-launch sort is checked on the card, bitwise against
+:func:`~repro_torch.kernels.sgns_fused_hbm.block_sorts` (``scratch=True``).
 """
 
 from __future__ import annotations
@@ -42,7 +41,8 @@ NARROW = 32                # columns of a hot run's chunk
 ITEM_WINDOW = 32           # sorted positions whose short runs share an item
 MIN_GROUP = 8              # CTAs a worker's group has at least, where the card has them
 CTAS_PER_SM = 2
-#: Runs of at least this many addends are applied in chunks of 32 columns.
+#: Runs of at least this many addends are applied in chunks of 32 columns
+#: (``kSplitRuns`` in the kernel, a compile-time constant).
 SPLIT_RUNS = 32
 
 
@@ -70,46 +70,6 @@ def geometry(n: int, d: int, B: int, K: int, blk: int, sms: int, vec4: bool = Tr
     groups = min(n, capacity // per)
     sorters = min(2 * nblocks, max(1, per // 2))
     return Geometry(blk, nblocks, per, groups, sorters)
-
-
-RADIX_BITS = 4             # the in-launch sort's digit
-
-
-def radix_passes(V: int) -> int:
-    """The in-launch sort's passes for rows in ``[0, V)``: one a 4-bit
-    digit of ``V - 1``."""
-    return -(-max(1, (V - 1).bit_length()) // RADIX_BITS)
-
-
-def block_sorts_in_launch(centers: torch.Tensor, contexts: torch.Tensor, ids: torch.Tensor,
-                          blk: int, V: int):
-    """The in-launch sort's output, computed as the kernel computes it: per
-    worker, block of ``blk`` pairs and table, the list's rows in element
-    order (C: the block's contexts, then its negatives; W: its centers),
-    sorted by :func:`radix_passes` passes of 4-bit digits, least significant
-    first, each stable; then each entry's row and index (into
-    ``concat(contexts, ids)`` for C, the pair for W). Returns ``(w_rows,
-    w_perm, c_rows, c_perm)`` in ``block_sorts``' layout and types."""
-    n, B = centers.shape
-    K = ids.shape[-1]
-    flat = torch.cat([contexts, ids.reshape(n, B * K)], 1).to(torch.int64)
-    dev = centers.device
-    out = {"W": ([], []), "C": ([], [])}
-    for p0 in range(0, B, blk):
-        nb = min(blk, B - p0)
-        pw = torch.arange(p0, p0 + nb, device=dev)
-        pc = torch.cat([pw, B + torch.arange(p0 * K, (p0 + nb) * K, device=dev)])
-        for name, rows, index in (("W", centers[:, pw].to(torch.int64), pw),
-                                  ("C", flat[:, pc], pc)):
-            order = torch.arange(len(index), device=dev).expand_as(rows)
-            for k in range(radix_passes(V)):
-                digit = torch.gather(rows, 1, order) >> (RADIX_BITS * k) & (2**RADIX_BITS - 1)
-                order = torch.gather(order, 1, torch.sort(digit, dim=1, stable=True).indices)
-            out[name][0].append(torch.gather(rows, 1, order))
-            out[name][1].append(index[order])
-    (w_rows, w_perm), (c_rows, c_perm) = (
-        (torch.cat(r, 1).to(torch.int32), torch.cat(i, 1)) for r, i in (out["W"], out["C"]))
-    return w_rows, w_perm, c_rows, c_perm
 
 
 def apply_items(rows: np.ndarray, d: int, vec4: bool = True, split: int = SPLIT_RUNS,
@@ -175,7 +135,7 @@ def _align(x: int, a: int = 256) -> int:
 
 def run_block_step(lib: str, symbol: str, counter: str, params: dict, centers: torch.Tensor,
                    contexts: torch.Tensor, ids: torch.Tensor, lr: float, blk: int, *,
-                   split: int = SPLIT_RUNS, scratch: bool = False):
+                   scratch: bool = False):
     """One launch of K2 (``lib="sgns_fused_step"``, ``blk >= B``) or K4a
     (``lib="sgns_fused_hbm"``) on the step's draw ``ids`` ``(n, B, K)``:
     updates ``params`` in place, adds one to ``LAUNCHES[counter]`` and
@@ -220,7 +180,7 @@ def run_block_step(lib: str, symbol: str, counter: str, params: dict, centers: t
                  ptr["w_rows"], ptr["w_perm"], ptr["c_rows"], ptr["c_perm"], ptr["coef"],
                  ptr["dW"], ptr["wrows"], ptr["items"], ptr["n_items"], ptr["counters"],
                  ptr["sort_mem"], sort_bytes, item_cap, n, V, d, B, K, blk, geo.group_ctas,
-                 geo.groups, geo.sorters, int(split), -float(np.float32(lr)), int(vec4),
+                 geo.groups, geo.sorters, -float(np.float32(lr)), int(vec4),
                  _stream(device))
     _raise_on(err, counter)
     LAUNCHES[counter] += 1

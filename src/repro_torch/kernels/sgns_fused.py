@@ -41,7 +41,7 @@ from repro_torch.kernels.sgns_block_step import run_block_step
 _MASK = 0xFFFFFFFF
 _P, _I = ctypes.c_void_p, ctypes.c_int
 # K2's and K4a's launch (`sgns_block_step.cuh`: block_step_entry)
-_BLOCK_STEP = [_P] * 17 + [ctypes.c_longlong] + [_I] * 11 + [ctypes.c_float, _I, _P]
+_BLOCK_STEP = [_P] * 17 + [ctypes.c_longlong] + [_I] * 10 + [ctypes.c_float, _I, _P]
 # C entry points: (library, symbol) -> argument types; all return an int
 # (cudaGetLastError() after the launch).
 _SIGNATURES = {

@@ -1,7 +1,9 @@
 """K2's and K4a's shared launch, what the CPU can check of it: the in-launch
-sort's order against ``block_sorts`` and the reference's planner, the
-apply's item rule, and the launch geometry (``kernels/sgns_block_step.py``).
-The kernel itself runs only on the card (``test_torch_cuda.py``)."""
+sort's order (a plain mirror of its radix passes, here) against
+``block_sorts`` and the reference's planner, the apply's item rule, and the
+launch geometry (``kernels/sgns_block_step.py``). The kernel itself runs
+only on the card (``test_torch_cuda.py``, which also holds its sort bitwise
+against ``block_sorts``)."""
 
 import jax
 import numpy as np
@@ -9,6 +11,8 @@ import pytest
 import torch
 
 from repro.kernels import sgns_fused_pipe as JP
+from repro_torch.analysis import block_step_variants as V
+from repro_torch.kernels import build
 from repro_torch.kernels import sgns_block_step as S
 from repro_torch.kernels import sgns_fused_hbm as H
 
@@ -33,17 +37,55 @@ def _ids(seed, n, V, B, K=NEG):
     return torch.from_numpy(c), torch.from_numpy(x), torch.from_numpy(neg)
 
 
+RADIX_BITS = 4             # the in-launch sort's digit (kRadixBits)
+
+
+def _radix_passes(V: int) -> int:
+    """The in-launch sort's passes for rows in ``[0, V)``: one a 4-bit
+    digit of ``V - 1``."""
+    return -(-max(1, (V - 1).bit_length()) // RADIX_BITS)
+
+
+def _block_sorts_in_launch(centers, contexts, ids, blk: int, V: int):
+    """The in-launch sort's output, computed as the kernel computes it: per
+    worker, block of ``blk`` pairs and table, the list's rows in element
+    order (C: the block's contexts, then its negatives; W: its centers),
+    sorted by :func:`_radix_passes` passes of 4-bit digits, least
+    significant first, each stable; then each entry's row and index (into
+    ``concat(contexts, ids)`` for C, the pair for W). Returns ``(w_rows,
+    w_perm, c_rows, c_perm)`` in ``block_sorts``' layout and types."""
+    n, B = centers.shape
+    K = ids.shape[-1]
+    flat = torch.cat([contexts, ids.reshape(n, B * K)], 1).to(torch.int64)
+    out = {"W": ([], []), "C": ([], [])}
+    for p0 in range(0, B, blk):
+        nb = min(blk, B - p0)
+        pw = torch.arange(p0, p0 + nb)
+        pc = torch.cat([pw, B + torch.arange(p0 * K, (p0 + nb) * K)])
+        for name, rows, index in (("W", centers[:, pw].to(torch.int64), pw),
+                                  ("C", flat[:, pc], pc)):
+            order = torch.arange(len(index)).expand_as(rows)
+            for k in range(_radix_passes(V)):
+                digit = torch.gather(rows, 1, order) >> (RADIX_BITS * k) & (2**RADIX_BITS - 1)
+                order = torch.gather(order, 1, torch.sort(digit, dim=1, stable=True).indices)
+            out[name][0].append(torch.gather(rows, 1, order))
+            out[name][1].append(index[order])
+    (w_rows, w_perm), (c_rows, c_perm) = (
+        (torch.cat(r, 1).to(torch.int32), torch.cat(i, 1)) for r, i in (out["W"], out["C"]))
+    return w_rows, w_perm, c_rows, c_perm
+
+
 @pytest.mark.parametrize("case", sorted(SORT_CASES))
 def test_in_launch_sort_bitwise_equals_block_sorts(case):
     n, V, B, blk = SORT_CASES[case]
     c, x, neg = _ids(len(case), n, V, B)
     blk = H.pick_block_pairs(B, blk)
-    got = S.block_sorts_in_launch(c, x, neg, blk, V)
+    got = _block_sorts_in_launch(c, x, neg, blk, V)
     want = H.block_sorts(c, x, neg, blk, V)
     for g, r in zip(got, want):
         assert g.dtype == r.dtype and g.shape == r.shape
         assert torch.equal(g, r)
-    assert S.radix_passes(V) == {"one-block": 2, "tail": 2, "n3-zipf": 3, "wide-V": 8}[case]
+    assert _radix_passes(V) == {"one-block": 2, "tail": 2, "n3-zipf": 3, "wide-V": 8}[case]
     if case == "wide-V":
         assert -(-B // blk) * V >= 2**31
 
@@ -61,7 +103,7 @@ def test_in_launch_sort_runs_match_the_reference_plan(case):
     plan = jax.vmap(lambda a, b, m: JP.plan_blocks(a, b, m, V, blk))(c.numpy(), x.numpy(),
                                                                       neg.numpy())
     w_rows, w_perm, c_rows, c_perm = (t.numpy() for t in
-                                      S.block_sorts_in_launch(c, x, neg, blk, V))
+                                      _block_sorts_in_launch(c, x, neg, blk, V))
     nblocks = -(-B // blk)
     for w in range(n):
         for b in range(nblocks):
@@ -107,7 +149,7 @@ def test_apply_items_cover_each_run_once_in_list_order(d, vec4, split):
     pair order."""
     c, x, neg = _ids(split % 97 + d, 1, 400, 600)
     blk = 256
-    _, _, c_rows, c_perm = S.block_sorts_in_launch(c, x, neg, blk, 400)
+    _, _, c_rows, c_perm = _block_sorts_in_launch(c, x, neg, blk, 400)
     s0, s1 = blk * (NEG + 1), 2 * blk * (NEG + 1)      # block 1's C list
     rows, perm = c_rows[0, s0:s1].numpy(), c_perm[0, s0:s1].numpy()
     items = S.apply_items(rows, d, vec4, split, s0=s0)
@@ -171,3 +213,18 @@ def test_launch_geometry_fits_two_ctas_an_sm(n, d):
         assert (NEG + 2) * d * 4 <= S.WARP_BYTES
     main = S.geometry(10, 500, 1024, NEG, 1024, sms=132)
     assert (main.groups, main.group_ctas, main.sorters) == (10, 26, 2)
+
+
+@pytest.mark.parametrize("name", sorted(V.VARIANTS))
+def test_block_step_variant_patches_apply(name):
+    """``analysis/block_step_variants.py`` times patched copies of the
+    launch on the card; each patch must still find the code it changes,
+    and the per-lane copy variants bring the 16-byte copy the kernel no
+    longer has."""
+    text = V.patched_header(name)
+    base = (build.CSRC / V.HEADER).read_text()
+    assert (text == base) == (name == "base")
+    assert ("copy16(" in text) == name.startswith("lsu-")
+    assert "copy16(" not in base and "kSplitRuns = 32;" in base
+    if name.startswith("split") or name.endswith("nosplit"):
+        assert "kSplitRuns = 32;" not in text

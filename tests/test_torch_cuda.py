@@ -247,7 +247,10 @@ def test_sgns_fused_tiered_with_no_hot_rows_runs_k5(device):
 # block; n = 40 workers, more than the card's groups; a vocabulary of 8
 # rows, whose runs all pass the split threshold (narrow chunks); a batch
 # whose C list (24,576 keys) is sorted in global scratch, not shared
-# memory; and a vocabulary of a million rows, whose C keys take 64 bits.
+# memory; and a vocabulary of a million rows, whose 20-bit rows take five
+# 4-bit radix passes (block count * V stays far below 2**31: the sort is by
+# row within each (block, table) list; the CPU test of block_sorts covers
+# keys of 64 bits).
 BLOCK_CASES = {
     "d48": dict(d=48, n=3, V=5000, B=300, blk=128),
     "d50": dict(d=50, n=3, V=5000, B=300, blk=128),
@@ -255,7 +258,7 @@ BLOCK_CASES = {
     "n40": dict(d=48, n=40, V=2000, B=200, blk=64),
     "vocab8": dict(d=500, n=2, V=8, B=300, blk=128),
     "global-sort": dict(d=48, n=2, V=5000, B=4096, blk=4096),
-    "keys64": dict(d=48, n=1, V=1_000_000, B=1024, blk=256),
+    "vocab1m": dict(d=48, n=1, V=1_000_000, B=1024, blk=256),
 }
 
 
