@@ -23,8 +23,9 @@ Phases:
    configuration of ``examples/train_w2v_100m.py``: ``train_submodels``
    (10 workers, d = 500, 1 epoch of 64 steps), ``merge(..., "alir_pca")``
    and ``evaluate_all``. The kernel launch counts are reset just before and
-   read just after training; K2 and K1 must each have launched once per
-   step, and every sub-model's W must have left its init.
+   read just after training; K2 must have launched once per step and K1
+   never (K2 draws the negatives inside its launch), and every sub-model's
+   W must have left its init.
 5. ``random`` — the same configuration divided by the ``random`` strategy
    (rate 1/10: every worker its own vocabulary and noise table, trained in
    the union index space) on the ``rowgrad`` engine (the ``jax.random``
@@ -37,9 +38,9 @@ Phases:
    bit for bit, and the scatter is timed as the ordered apply and as
    ``index_add_``'s atomics on the same addends.
 6. ``hbm`` — the main configuration on the ``fused_hbm`` engine (K4a,
-   ``block_pairs=256``: four blocks a step) for 64 steps, then
-   ``sequential=True`` (K4b) for 8 steps; K4 and K1 once per step each,
-   and W moved.
+   ``block_pairs=256``: four blocks a step, the draw inside the launch) for
+   64 steps, K4a once per step and K1 never; then ``sequential=True`` (K4b)
+   for 8 steps, K4b and K1 once per step each; and W moved.
 7. ``pipe`` — the main configuration on ``fused_pipe`` (K5, ``block_pairs
    =256``, ``ring_depth=2``) and then on ``fused_tiered`` (K6, ``hot_rows
    =256``) for 64 steps each: K5 or K6 and K1 once per step, W moved, and
@@ -50,8 +51,11 @@ Phases:
    shapes, then it and its plain version timed with CUDA events beside the
    least time the card could take: K1 (ids bitwise) and K2 (ids bitwise,
    W′, C′ and loss within tolerance, repeat bitwise) at the main path's
-   shapes (n = 10, V = 89,611, its noise table); K3 on n·B = 10,240 pairs
-   gathered from random tables; K4a (ids bitwise, W′, C′ and loss within
+   shapes (n = 10, V = 89,611, its noise table), K1 beside an empty launch
+   of the same grid (``kernel_variants``' ``empty``: its launch floor); K3
+   on n·B = 10,240 pairs gathered from random tables, repeat bitwise and
+   bitwise the first design (``kernel_variants``' ``first``), both timed as
+   the whole call and on the device; K4a (ids bitwise, W′, C′ and loss within
    K2's tolerance, repeat bitwise; and with ``block_pairs >= B`` against
    K2) and K4b (against its plain per-pair loop, repeat bitwise) at the
    main path's shapes; K2, K4a and K5 with one block bitwise equal; K2 (one
@@ -336,10 +340,11 @@ def train_kw(strategy: str, engine) -> dict:
                 engine=engine)
 
 
-def _train(tag: str, device, kw: dict, kernels: tuple, steps: int | None = None):
+def _train(tag: str, device, kw: dict, kernels: tuple, steps: int | None = None,
+           absent: tuple = ()):
     """``train_submodels`` with every launch count set to 0 just before and
     read just after. Each kernel in ``kernels`` must have launched once per
-    step; losses finite, the first step's exactly (K + 1)·log 2 (C starts
+    step, each in ``absent`` never; losses finite, the first step's exactly (K + 1)·log 2 (C starts
     at zero), the tables finite, and every worker's W moved from its init
     (dW is a sum of C rows, so W moves only if the C updates landed)."""
     import numpy as np
@@ -372,6 +377,9 @@ def _train(tag: str, device, kw: dict, kernels: tuple, steps: int | None = None)
     for name in kernels:
         if launches[name] != taken:
             raise RuntimeError(f"expected {taken} launches of {name}, got {launches}")
+    for name in absent:
+        if launches[name]:
+            raise RuntimeError(f"expected no launch of {name}, got {launches}")
     if not all(np.isfinite(c).all() for c in res.chunk_losses):
         raise RuntimeError("non-finite training loss")
     first = res.chunk_losses[0][:, 0]
@@ -420,8 +428,8 @@ def _merge_and_score(tag, res, device, full_cover: bool):
 
 def phase_main(device):
     kw = train_kw("shuffle", "fused")
-    res, launches, taken = _train("main", device, kw,
-                                  ("sgns_fused_step", "sample_negatives"))
+    res, launches, taken = _train("main", device, kw, ("sgns_fused_step",),
+                                  absent=("sample_negatives",))
     _merge_and_score("main", res, device, full_cover=True)
     return {"launches": launches, "steps": taken, "counts": res.union_vocab.counts,
             "V": res.union_vocab.size, "n": NUM_WORKERS, "dim": DIM, "B": BATCH,
@@ -538,8 +546,8 @@ def phase_hbm(device, block_pairs=256, sequential_steps=8):
     from repro_torch.core.engine import get_engine
 
     kw = train_kw("shuffle", get_engine("fused_hbm", block_pairs=block_pairs))
-    res, launches, taken = _train("hbm", device, kw,
-                                  ("sgns_fused_hbm_step", "sample_negatives"))
+    res, launches, taken = _train("hbm", device, kw, ("sgns_fused_hbm_step",),
+                                  absent=("sample_negatives",))
     kw_seq = train_kw("shuffle", get_engine("fused_hbm", sequential=True))
     _, launches_seq, taken_seq = _train("hbm-seq", device, kw_seq,
                                         ("sgns_fused_hbm_step", "sample_negatives"),
@@ -873,8 +881,12 @@ def phase_time(device, main: dict, rand: dict) -> dict:
     k1_flops = draws * 2                            # u·V and the compare
     out["sample_negatives"] = _bound(k1, k1p, k1_bytes, k1_flops)
     out["sample_negatives"]["max_abs_err"] = k1_err
+    variants = _variants({"sample_negatives": ["empty"], "sgns_row_grads": ["first"]})
+    out["sample_negatives"].update(_k1_beside_empty(
+        device, variants[("sample_negatives", "empty")],
+        lambda: sample_negatives(seeds, table["prob"], table["alias"], (B, K))))
 
-    # K2: the whole step (K1's draw, then the one launch)
+    # K2: the whole step (one launch, the draw inside it)
     pk = {"W": W.clone(), "C": C.clone()}
     k2 = _time_ms(lambda: sgns_fused_step(pk, centers, contexts, table, seeds, lr,
                                           negatives=K), device, reps=20)
@@ -1008,6 +1020,8 @@ def phase_time(device, main: dict, rand: dict) -> dict:
     k3_flops = N * d * 5 * (K + 1)                 # dots 2d(K+1), dW 2d(K+1), dC d(K+1)
     out["sgns_row_grads"] = _bound(k3, k3p, k3_bytes, k3_flops)
     out["sgns_row_grads"]["max_abs_err"] = k3_err
+    out["sgns_row_grads"].update(_k3_beside_first(
+        device, variants[("sgns_row_grads", "first")], w_rows, cp_rows, cn_rows))
     del w_rows, cp_rows, cn_rows
     torch.cuda.empty_cache()
 
@@ -1055,10 +1069,12 @@ def _longest_runs(runs, blk: int) -> dict:
 
 
 def _beside_k5(label, W, C, centers, contexts, table, seeds, lr, K, ids, blk, whole_ms):
-    """K2's or K4a's launch at block size ``blk`` on a fixed draw ``ids``:
-    timed alone (no K1); K5's whole call at the same block size, timed in
-    turn with this kernel's (kernel, K5, K5, kernel); the torch block sorts
-    the launch replaced; and the longest runs of the path's sorted lists."""
+    """K2's or K4a's launch at block size ``blk`` (the draw inside it):
+    timed alone (``run_block_step``, without the wrapper's checks); K5's
+    whole call at the same block size, timed in turn with this kernel's
+    (kernel, K5, K5, kernel); the torch block sorts the launch replaced, on
+    K1's draw ``ids`` of the same step; and the longest runs of the path's
+    sorted lists."""
     from repro_torch.kernels import sgns_block_step as BS
     from repro_torch.kernels.sgns_fused_hbm import block_sorts
 
@@ -1069,8 +1085,8 @@ def _beside_k5(label, W, C, centers, contexts, table, seeds, lr, K, ids, blk, wh
                          if label == "K2" else
                          ("sgns_fused_hbm", "sgns_hbm_chain_launch", "sgns_fused_hbm_step"))
     pk = {"W": W.clone(), "C": C.clone()}
-    alone = _time_ms(lambda: BS.run_block_step(lib, sym, counter, pk, centers, contexts, ids,
-                                               lr, blk), device, reps=20)
+    alone = _time_ms(lambda: BS.run_block_step(lib, sym, counter, pk, centers, contexts, table,
+                                               seeds, lr, blk, K), device, reps=20)
     k5_step = _pipe_steps({})[0]
     k5 = [_time_ms(lambda: k5_step(pk, centers, contexts, table, seeds, lr, negatives=K,
                                    block_pairs=blk), device, reps=20) for _ in range(2)]
@@ -1218,6 +1234,93 @@ def _zipf50k(device, lr) -> dict:
     return res
 
 
+def _variants(wanted: dict) -> dict:
+    """``kernel_variants``' patched copies ``wanted`` (``{library:
+    [variant, ...]}``), built from the checkout's sources: ``{(library,
+    variant): path}``."""
+    from repro_torch.analysis import kernel_variants as KV
+    from repro_torch.kernels import build
+
+    t0 = time.perf_counter()
+    paths = KV.build_variants(build.build_dir().parent / "kernel_variants", wanted)
+    log(f"[time] built the variants {sorted(paths)} in {time.perf_counter() - t0:.1f} s")
+    return paths
+
+
+def _in_turns(device, lib: str, paths: dict, call, reps: int, pattern: str) -> dict:
+    """``call`` timed with each library of ``paths`` (``{label: path}``,
+    the kernel's first) in turns — the kernel, the others, the others
+    again, the kernel — as the whole call (ms) and on the device (µs a call,
+    ``torch.profiler``); the kernel's own library is restored."""
+    from repro_torch.analysis import kernel_variants as KV
+    from repro_torch.kernels import build
+
+    labels = list(paths)
+    order = labels[:1] + labels[1:] + labels[1:] + labels[:1]
+    ms = {k: [] for k in labels}
+    dev = {}
+    try:
+        for k in order:
+            KV.use(lib, paths[k])
+            ms[k].append(_time_ms(call, device, reps=reps))
+            if k not in dev:
+                dev[k] = sum(KV.device_us(call, 20, pattern).values())
+    finally:
+        KV.use(lib, build.library_path(lib))
+    return {"ms": ms, "device_us": dev}
+
+
+def _k1_beside_empty(device, empty, call) -> dict:
+    """K1's whole call and device time beside the same wrapper's on a copy
+    of the kernel with its body taken out: the launch floor."""
+    from repro_torch.kernels import build
+
+    t = _in_turns(device, "sample_negatives",
+                  {"k1": build.library_path("sample_negatives"), "empty": empty}, call, 200,
+                  "sample_negatives")
+    log(f"[time] K1 whole call {t['ms']['k1']} ms, {t['device_us']['k1']:.2f} us on the "
+        f"device; an empty launch of the same grid through the same wrapper "
+        f"{t['ms']['empty']} ms, {t['device_us']['empty']:.2f} us on the device")
+    return {"empty_ms": min(t["ms"]["empty"]), "device_us": t["device_us"]["k1"],
+            "empty_device_us": t["device_us"]["empty"], "turns_ms": t["ms"]}
+
+
+def _k3_beside_first(device, first, w, c_pos, c_neg) -> dict:
+    """K3 twice from the same rows (bitwise), the first design
+    (``kernel_variants``' ``first``) on them (bitwise K3's), then both timed
+    in turns as the whole call and on the device."""
+    import torch
+    from repro_torch.analysis import kernel_variants as KV
+    from repro_torch.kernels import build
+    from repro_torch.kernels.sgns_update import sgns_row_grads
+
+    call = lambda: sgns_row_grads(w, c_pos, c_neg)        # noqa: E731
+    a, b = call(), call()
+    KV.use("sgns_row_grads", first)
+    try:
+        f = call()
+    finally:
+        KV.use("sgns_row_grads", build.library_path("sgns_row_grads"))
+    torch.cuda.synchronize(device)
+    repeat = all(torch.equal(x, y) for x, y in zip(a, b))
+    same = all(torch.equal(x, y) for x, y in zip(a, f))
+    del a, b, f
+    t = _in_turns(device, "sgns_row_grads",
+                  {"k3": build.library_path("sgns_row_grads"), "first": first}, call, 50,
+                  "row_grads_")
+    log(f"[time] K3 N={w.shape[0]} d={w.shape[1]} K={c_neg.shape[1]}: run twice bitwise "
+        f"equal: {repeat}; bitwise the first design's: {same}; whole call {t['ms']['k3']} ms "
+        f"({t['device_us']['k3']:.1f} us on the device), the first design "
+        f"{t['ms']['first']} ms ({t['device_us']['first']:.1f} us)")
+    if not repeat:
+        raise RuntimeError("two K3 runs on the same rows differ")
+    if not same:
+        raise RuntimeError("K3 is not bitwise the first design")
+    return {"first_ms": min(t["ms"]["first"]), "device_us": t["device_us"]["k3"],
+            "first_device_us": t["device_us"]["first"], "turns_ms": t["ms"],
+            "repeat_bitwise": repeat, "bitwise_first": same}
+
+
 def _check_k3(tag, w, c_pos, c_neg) -> float:
     """K3 against its plain version on the same gathered rows."""
     import torch
@@ -1241,10 +1344,10 @@ def _check_k3(tag, w, c_pos, c_neg) -> float:
 
 
 PROFILE_GROUPS = {
-    "main": (("K2", ("block_step_kernel",)), ("K1", ("sample_negatives_kernel",)),
+    "main": (("K2", ("block_step_kernel",)),
              ("sorts (none since the launch sorts)", ("sort",)),
              ("copies and memsets", ("memcpy", "memset"))),
-    "hbm": (("K4a", ("block_step_kernel",)), ("K1", ("sample_negatives_kernel",)),
+    "hbm": (("K4a", ("block_step_kernel",)),
             ("sorts (none since the launch sorts)", ("sort",)),
             ("copies and memsets", ("memcpy", "memset"))),
     "pipe": (("K5", ("pipe_chain_kernel",)), ("K1", ("sample_negatives_kernel",)),
@@ -1253,7 +1356,7 @@ PROFILE_GROUPS = {
     "decode": (("K7", ("swa_partial_kernel", "swa_combine_kernel")),
                ("matmuls (cuBLAS)", ("gemm", "gemv")),
                ("copies", ("memcpy",))),
-    "random": (("K3", ("sgns_row_grads_kernel",)),
+    "random": (("K3", ("row_grads_",)),
                ("ordered apply (index_put_: stable sort, serial adds)",
                 ("indexing_backward", "index_put", "radixsort")),
                ("gathers (indexing)", ("index_elementwise", "gather", "indexselect")),
@@ -1284,6 +1387,9 @@ def phase_profile(device, label: str, kw: dict) -> None:
     summary = {"steps": steps, "train_loop_us": summary.pop("window_us"),
                "chunk_wait_s": res.timings["chunk_wait_s"], **summary}
     _write_profile(label, prof, summary)
+    if label in ("main", "hbm") and any("sample_negatives" in k["name"]
+                                        for k in summary["kernels"]):
+        raise RuntimeError(f"the {label} path launched K1: its step draws inside its launch")
     window, busy = summary["train_loop_us"], summary["device_busy_us"]
     log(f"[profile] {label} ({kw['strategy']}, {kw['engine']}): train loop "
         f"{window / 1e3:.1f} ms for {steps} steps ({window / steps / 1e3:.3f} ms/step), "
@@ -1425,7 +1531,8 @@ def main(argv=None) -> int:
     if set(PHASES) - {"build", "profile"} <= set(phases):
         # launches: each kernel's count over its own path's training run
         launches = {
-            "sample_negatives": results["main"]["launches"]["sample_negatives"],
+            # K1: the pipe path's draw (main and hbm draw inside their launch)
+            "sample_negatives": results["pipe"]["pipe"]["launches"]["sample_negatives"],
             "sgns_fused_step": results["main"]["launches"]["sgns_fused_step"],
             "sgns_row_grads": results["random"]["launches"]["sgns_row_grads"],
             "sgns_fused_hbm_step": results["hbm"]["launches"]["sgns_fused_hbm_step"],
@@ -1460,6 +1567,10 @@ def main(argv=None) -> int:
                                                       "block_pairs", "split")})
             if "longest_run" in t:     # each path's longest run of one row, per table
                 kernels[-1]["longest_run"] = t["longest_run"]
+            for k in ("empty_ms", "empty_device_us", "first_ms", "first_device_us",
+                      "device_us"):   # K1 beside an empty launch, K3 beside its first design
+                if k in t:
+                    kernels[-1][k] = t[k]
         print(json.dumps({"kernels": kernels}), flush=True)
     log(f"[env] phases {','.join(phases)} done in {time.perf_counter() - t_start:.1f} s")
     print(gpu, flush=True)

@@ -7,10 +7,11 @@ Builds copies of ``csrc/sgns_block_step.cuh`` with one change each (one
 ``nvcc`` per copy and source, all at once, into
 ``build/block_step_variants/``), loads each in place of the K2 and K4a
 libraries, and times the launch alone on the device (CUDA events around 20
-launches on a fixed K1 draw, all enqueued while a sleep kernel holds the
-stream, so no host gap is counted) at the main path's shapes (n = 10, V = 89,611, d = 500, B = 1024,
-K = 5; Zipf(1) centers, contexts and negatives): K2 with one block, K4a with
-blocks of 256. Variants:
+launches, each drawing its negatives from the same seeds, all enqueued
+while a sleep kernel holds the stream, so no host gap is counted) at the
+main path's shapes (n = 10, V = 89,611, d = 500, B = 1024, K = 5; Zipf(1)
+centers, contexts and noise table): K2 with one block, K4a with blocks of
+256. Variants:
 
 * ``base`` — the kernel as it is;
 * ``lsu-apply`` / ``lsu-pairs`` / ``lsu-both`` — the applies' addend
@@ -32,8 +33,9 @@ blocks of 256. Variants:
   block timed (the same bits), with hot runs split or not: how many, the
   longest, the last to end;
 * ``stamps`` — the kernel with ``%globaltimer`` stamps written by thread 0
-  of each CTA (the same bits): inside each sort task (after its keys, its
-  radix passes, its rows and its items) and, for each block, after the
+  of each CTA (the same bits): inside each sort task (after its keys are
+  loaded and drawn, its radix passes, its rows and its items: the draw and
+  sort's end) and, for each block, after the
   pairs, after the barrier and after the applies, and after the barrier
   that ends the block. For the first group (K2: worker 0's only block) it
   prints when each step of the first block ended, in µs from the launch's
@@ -173,7 +175,7 @@ VARIANTS = {
     },
 }
 INEXACT = ("no-pairs", "no-applies")   # the variants that change the results
-STAMP_NAMES = {1: "sort keys", 2: "sort passes", 3: "sort rows out", 4: "sort items",
+STAMP_NAMES = {1: "keys drawn", 2: "sort passes", 3: "sort rows out", 4: "draw+sort end",
                8: "pairs(0)", 9: "barrier", 10: "applies(0)"}
 LIBS = {"K2": ("sgns_fused_step", "sgns_fused_step_launch", "sgns_fused_step"),
         "K4a": ("sgns_fused_hbm", "sgns_hbm_chain_launch", "sgns_fused_hbm_step")}
@@ -324,7 +326,6 @@ def main(argv=None) -> int:
     seeds = [sgns_fused.seed_tensor(prng.split(prng.PRNGKey(s), n), device) for s in (1, 2, 3)]
     cen = sgns_fused.sample_negatives_plain(seeds[0], table["prob"], table["alias"], (B,))
     ctx = sgns_fused.sample_negatives_plain(seeds[1], table["prob"], table["alias"], (B,))
-    ids = sgns_fused.sample_negatives_plain(seeds[2], table["prob"], table["alias"], (B, K))
     gen = torch.Generator(device=device).manual_seed(0)
     W0 = 0.1 * torch.randn((n, V, d), generator=gen, device=device)
     C0 = 0.1 * torch.randn((n, V, d), generator=gen, device=device)
@@ -335,16 +336,17 @@ def main(argv=None) -> int:
             lib, sym, counter = LIBS[label]
             _use(lib, paths[(name, lib)])
             params = {"W": W0.clone(), "C": C0.clone()}
-            loss = run_block_step(lib, sym, counter, params, cen, ctx, ids, 0.025, blk)
+            loss, ids = run_block_step(lib, sym, counter, params, cen, ctx, table, seeds[2],
+                                       0.025, blk, K)
             torch.cuda.synchronize()
             same = None
             if name not in INEXACT:
-                out = (loss, params["W"], params["C"])
+                out = (loss, ids, params["W"], params["C"])
                 ref.setdefault(label, out)
                 same = all(torch.equal(a, b) for a, b in zip(out, ref[label]))
             pk = {"W": W0.clone(), "C": C0.clone()}
-            ms = _time_ms(lambda: run_block_step(lib, sym, counter, pk, cen, ctx, ids, 0.025,
-                                                 blk))
+            ms = _time_ms(lambda: run_block_step(lib, sym, counter, pk, cen, ctx, table,
+                                                 seeds[2], 0.025, blk, K))
             del params, pk
             results[f"{name}/{label}"] = {"ms": ms, "bitwise_base": same}
             print(f"{name:10s} {label:3s} (block_pairs={blk}): launch alone {ms:.4f} ms"

@@ -22,17 +22,19 @@ Registry (``get_engine``):
     (``kernels/sgns_update.py``); the draw, the gathers and the scatter
     stay torch. The counterpart of ``pallas``.
 ``fused``
-    The whole step in one kernel launch (``kernels/sgns_fused.py``, K2)
-    after K1's draw of the negatives from the alias tables by the counter
-    hash: the sort of each worker's touched rows, the forward, the row
-    gradients and the deterministic accumulating apply. The counterpart of
-    ``pallas_fused``; the port's main-path engine.
+    The whole step in one kernel launch (``kernels/sgns_fused.py``, K2):
+    the draw of the negatives from the alias tables by the counter hash
+    (K1's draw, made inside the launch), the sort of each worker's touched
+    rows, the forward, the row gradients and the deterministic
+    accumulating apply. The counterpart of ``pallas_fused``; the port's
+    main-path engine.
 ``fused_hbm``
     The fused step as a chain of pair blocks, or in word2vec's per-pair
     order (``kernels/sgns_fused_hbm.py``, K4). Fields ``block_pairs`` (a
     shorter tail block covers any remainder) and ``sequential``. On the
-    card the chain is one persistent launch a step, the row sort inside it
-    (K4a, shared with K2). The counterpart of ``pallas_fused_hbm``.
+    card the chain is one persistent launch a step, the draw and the row
+    sort inside it (K4a, shared with K2). The counterpart of
+    ``pallas_fused_hbm``.
 ``fused_pipe``
     The same block chain in one kernel launch a step
     (``kernels/sgns_fused_pipe.py: chain_step``, K5): K1's draw, K4a's two

@@ -34,15 +34,32 @@ __device__ __forceinline__ float counter_uniform(uint32_t s0, uint32_t s1,
   return __fmul_rn(__uint2float_rn(bits >> 8), 5.9604644775390625e-08f);
 }
 
-// One alias-table draw for the draw at row-major position `n`: counters 2n
-// (index pick) and 2n+1 (acceptance).
+// The table index and the acceptance uniform of the draw at row-major
+// position `n`: counters 2n (index pick) and 2n+1 (acceptance).
+struct AliasPick {
+  int idx;
+  float u_acc;
+};
+
+__device__ __forceinline__ AliasPick alias_pick(uint32_t s0, uint32_t s1, int V, uint32_t n) {
+  const float u_idx = counter_uniform(s0, s1, n * 2u);
+  const float u_acc = counter_uniform(s0, s1, n * 2u + 1u);
+  const int idx = __float2int_rz(__fmul_rn(u_idx, static_cast<float>(V)));
+  return AliasPick{min(idx, V - 1), u_acc};
+}
+
+// The draw from its pick and the table's entries at the pick's index. A
+// caller that loads prob[idx] and alias[idx] for several draws before it
+// takes any has all their loads in flight at once.
+__device__ __forceinline__ int alias_take(const AliasPick& p, float prob_at, int alias_at) {
+  return p.u_acc < prob_at ? p.idx : alias_at;
+}
+
+// One alias-table draw for the draw at row-major position `n`.
 __device__ __forceinline__ int alias_draw(uint32_t s0, uint32_t s1,
                                           const float* __restrict__ prob,
                                           const int* __restrict__ alias,
                                           int V, uint32_t n) {
-  const float u_idx = counter_uniform(s0, s1, n * 2u);
-  const float u_acc = counter_uniform(s0, s1, n * 2u + 1u);
-  int idx = __float2int_rz(__fmul_rn(u_idx, static_cast<float>(V)));
-  idx = min(idx, V - 1);
-  return u_acc < __ldg(prob + idx) ? idx : __ldg(alias + idx);
+  const AliasPick p = alias_pick(s0, s1, V, n);
+  return p.u_acc < __ldg(prob + p.idx) ? p.idx : __ldg(alias + p.idx);
 }

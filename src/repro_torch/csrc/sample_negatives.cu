@@ -8,10 +8,16 @@
 //
 // Bound on the H100: memory. A draw reads 8 bytes of table (prob + alias,
 // at a random index) and writes 4 bytes; the hash is ~20 integer ops. At
-// the main path's shapes (tens of thousands of draws) the whole call is a
-// few hundred KB, far below one launch's fixed cost, so the design is the
-// simplest one that is exact: one thread per draw, read-only-cache loads
-// (__ldg) for the gathered table entries, coalesced stores.
+// the main path's shapes (51,200 draws) the whole call is 614 KB, 0.18 us at
+// 3.35 TB/s, far below one launch's fixed cost: what bounds this kernel is
+// the launch floor. So the draw runs where it can ride another launch: K2
+// and K4a (`sgns_block_step.cuh`) make it inside their own launch with the
+// same `alias_draw` at the same counters, and the `main` and `hbm` (block)
+// paths launch this kernel no more. It stays the counterpart of the TPU
+// kernel and the draw of K4b, K5 and K6, whose bits K2 and K4a are held to;
+// its design is the simplest one that is exact: one thread per draw,
+// read-only-cache loads (__ldg) for the gathered table entries, coalesced
+// stores.
 
 #include "counter_prng.cuh"
 

@@ -1,6 +1,7 @@
 // K2 and K4a: one SGNS step for every worker as a chain of pair blocks, in
-// one persistent launch — the row sort inside it, pair rows and apply
-// addends fed by bulk asynchronous copies, hot runs split over columns.
+// one persistent launch — the negative draw and the row sort inside it, pair
+// rows and apply addends fed by bulk asynchronous copies, hot runs split over
+// columns.
 //
 // Replaces: repro/kernels/sgns_fused.py `_sgns_fused_kernel` (K2,
 // `sgns_fused_step.cu`: one block of B pairs, the loss in the softplus form)
@@ -9,7 +10,12 @@
 // the log-sigmoid form; the two forms give the same bits). Per block, every
 // gradient is taken from the tables as of block start, then each touched
 // row's addends are added serially in reference order (W at centers; C at
-// contexts, then at negatives); block b + 1 reads block b's writes.
+// contexts, then at negatives); block b + 1 reads block b's writes. The
+// negatives are the counter-hash alias draw (`counter_prng.cuh`), made inside
+// the launch as the TPU kernel makes them inside itself (the reference's
+// `_sgns_fused_kernel`: "ids live only in VMEM/registers"): negative k of
+// pair p of worker w is alias_draw at counter p K + k under w's seed and
+// table, a pure function that any thread needing it computes where it stands.
 //
 // Bound on the H100: memory. A step must read each distinct touched row once
 // and write it once (195.5 MB at the main path's n = 10, d = 500, B = 1024,
@@ -20,23 +26,34 @@
 // read twice from device memory, dW and the coefficients sent through it,
 // the torch sorts and five launches a step. Here:
 //
-//   one launch: CTAs are split into one group per worker (a group takes
-//     several workers in turn when there are more workers than groups),
-//     co-resident by cooperative launch; a worker's phases are separated by
-//     a group barrier (`sm90_async.cuh`). Per block: pairs | barrier |
-//     applies | barrier (none after the worker's last block).
+//   one launch a step, the draw included: CTAs are split into one group
+//     per worker (a group takes several workers in turn when there are more
+//     workers than groups), co-resident by cooperative launch; a worker's
+//     phases are separated by a group barrier (`sm90_async.cuh`). Per
+//     block: pairs | barrier | applies | barrier (none after the worker's
+//     last block).
+//   the draw: in the first phase, the CTAs that run the first block's
+//     pairs first make the worker's whole (B, K) draw into `ids` (which the
+//     wrappers return), one thread a draw, each CTA the negatives of the
+//     pairs its own warps take, and arrive on a per-worker counter. Spread
+//     over the group's SMs its scattered table loads take about one round
+//     trip; one sorting CTA alone took ~40 us for K2's 5,120 draws (the
+//     table is not in L2 after a step's row traffic).
 //   the sort: in the first phase, `sorters` CTAs of the group sort the
 //     step's touched rows, one (block, table) list a task, while the others
 //     run the first block's pairs. A list's rows, in element order (C:
-//     contexts, then negatives; W: centers), are sorted stably by row in
+//     contexts, then negatives, read from `ids` once every drawing CTA has
+//     arrived; W: centers), are sorted stably by row in
 //     shared memory (global scratch for a list too long): a radix sort of
 //     4-bit digits, each pass stable, so the order is exactly
 //     torch.sort(stable=True)'s on (block, row). The rows and indices go to
 //     scratch in `block_sorts`' layout, and the list's apply items are made
 //     from them by two prefix sums. At the main path's shapes the sort ends
 //     before the first block's pairs do.
-//   pairs: one warp a pair. Its K + 2 rows are brought into the warp's
-//     shared-memory region by 1-D bulk copies (cp.async.bulk, one a row,
+//   pairs: one warp a pair; lane k < K reads negative k from `ids` (a pair
+//     ahead): in the first block its own CTA's draws, in later blocks the
+//     group's. The K + 2 rows are brought into the warp's shared-memory
+//     region by 1-D bulk copies (cp.async.bulk, one a row,
 //     completing on an mbarrier), or by 4-byte cp.async copies where rows
 //     are not 16-byte multiples (d = 50); where two pairs' rows fit, the
 //     next pair's copies are in flight while this one reduces. `pair_step`
@@ -66,6 +83,7 @@
 
 #include <cstdint>
 
+#include "counter_prng.cuh"
 #include "sgns_step.cuh"
 #include "sm90_async.cuh"
 
@@ -87,7 +105,10 @@ struct StepArgs {
   float* loss;               // (n, B)
   const int* centers;        // (n, B)
   const int* contexts;       // (n, B)
-  const int* ids;            // (n, B, K)
+  int* ids;                  // (n, B, K) written: the step's draw
+  const uint32_t* seeds;     // (n, 2) each worker's seed words
+  const float* prob;         // (n, V) each worker's alias table
+  const int* alias;          // (n, V)
   int* w_rows;               // (n, B) center rows sorted stably by (block, row): written
   long long* w_perm;         // (n, B) the pair each came from
   int* c_rows;               // (n, B (K + 1)) context and negative rows, so sorted
@@ -99,6 +120,7 @@ struct StepArgs {
   int* n_items;              // (n, nblocks, 2)
   int* arrive;               // (groups) barrier counters, zeroed by the launch
   int* work;                 // (n, nblocks) item counters, zeroed by the launch
+  int* drawn;                // (n) draw-pass arrivals, zeroed by the launch
   unsigned char* sort_mem;   // (n, 2 nblocks, sort_bytes): lists too long for shared memory
   long long sort_bytes;
   int item_cap, n, V, d, B, K, blk, nblocks, group_ctas, groups, sorters;
@@ -259,6 +281,65 @@ __device__ __forceinline__ void make_items(const StepArgs& a, const int* rows, i
   if (threadIdx.x == 0) *count = total_items;
 }
 
+// The CTAs of a group that draw in the first phase: those that run the first
+// block's pairs (all of them when every CTA also sorts).
+__device__ __forceinline__ int drawers(const StepArgs& a) {
+  return a.group_ctas > a.sorters ? a.group_ctas - a.sorters : a.group_ctas;
+}
+
+// Worker w's whole draw, (B, K) ids at counters p K + k, by the drawing CTA
+// `index`, one thread a draw: in each block the negatives of the pairs
+// that this CTA's warps take in the first block's pairs phase (pair j of a
+// block goes to warp j mod (drawers kWarps)), so each warp of the first
+// block reads its own CTA's writes; then one release arrival on the
+// worker's `drawn` counter, which the C lists' sort tasks wait for. Spread
+// over the group's SMs, the draw's scattered table loads take about one
+// round trip; one sorting CTA alone took ~40 us for K2's 5,120 draws
+// (`block_step_variants` stamps: the table is out of L2 after a step's row
+// traffic).
+__device__ __forceinline__ void draw_pass(const StepArgs& a, int w, int index) {
+  const int K = a.K;
+  const uint32_t seed0 = a.seeds[2 * w], seed1 = a.seeds[2 * w + 1];
+  const float* prob = a.prob + static_cast<long long>(w) * a.V;
+  const int* alias = a.alias + static_cast<long long>(w) * a.V;
+  int* out = a.ids + static_cast<long long>(w) * a.B * K;
+  const int gw = drawers(a) * kWarps;
+  const int per_block = (a.blk + gw - 1) / gw * kWarps * K;   // this CTA's (pair, k) slots
+  const int slots = a.nblocks * per_block;
+  constexpr int kDraws = 2;   // draws a thread with their table loads in flight together
+  for (int x0 = threadIdx.x; x0 < slots; x0 += kDraws * blockDim.x) {
+    int i[kDraws], al[kDraws];
+    float pr[kDraws];
+    AliasPick pick[kDraws];
+#pragma unroll
+    for (int u = 0; u < kDraws; ++u) {
+      const int x = x0 + u * blockDim.x;
+      const int b = x / per_block, y = x - b * per_block;
+      const int q = y / K, k = y - q * K;                 // slot y: its q-th pair of block b
+      const int j = index * kWarps + q % kWarps + q / kWarps * gw;
+      i[u] = -1;
+      al[u] = 0;
+      pr[u] = 0.0f;
+      pick[u] = AliasPick{0, 0.0f};
+      if (x < slots && j < min(a.blk, a.B - b * a.blk)) {
+        i[u] = (b * a.blk + j) * K + k;
+        pick[u] = alias_pick(seed0, seed1, a.V, static_cast<uint32_t>(i[u]));
+        pr[u] = __ldg(prob + pick[u].idx);
+        al[u] = __ldg(alias + pick[u].idx);
+      }
+    }
+#pragma unroll
+    for (int u = 0; u < kDraws; ++u) {
+      if (i[u] >= 0) out[i[u]] = alias_take(pick[u], pr[u], al[u]);
+    }
+  }
+  __syncthreads();
+  if (threadIdx.x == 0) {
+    __threadfence();
+    asm volatile("red.release.gpu.global.add.s32 [%0], 1;" : : "l"(a.drawn + w) : "memory");
+  }
+}
+
 // The shared memory (or global scratch) a sort task of N entries takes: its
 // rows, three int arrays of the sort and the digit counters.
 __host__ __device__ inline size_t sort_need(int N) {
@@ -292,6 +373,18 @@ __device__ __forceinline__ void sort_task(const StepArgs& a, int w, int t, int w
     return (!c_table || e < nb) ? static_cast<long long>(p0 + e)
                                 : B + static_cast<long long>(p0) * K + (e - nb);
   };
+  if (c_table) {   // the worker's draw is in `ids` once every drawing CTA has arrived
+    if (threadIdx.x == 0) {
+      int seen = 0;
+      do {
+        asm volatile("ld.acquire.gpu.global.s32 %0, [%1];"
+                     : "=r"(seen)
+                     : "l"(a.drawn + w)
+                     : "memory");
+      } while (seen < drawers(a));
+    }
+    __syncthreads();
+  }
   const int T = blockDim.x;
   for (int e0 = threadIdx.x; e0 < N; e0 += 4 * T) {   // four independent loads a thread
     int v[4];
@@ -302,7 +395,7 @@ __device__ __forceinline__ void sort_task(const StepArgs& a, int w, int t, int w
       if (e < N) {
         v[u] = !c_table ? __ldg(a.centers + wB + p0 + e)
                : e < nb ? __ldg(a.contexts + wB + p0 + e)
-                        : __ldg(a.ids + wB * K + index_of(e) - B);
+                        : __ldcg(a.ids + wB * K + index_of(e) - B);   // written in this launch
       }
     }
 #pragma unroll
@@ -364,9 +457,10 @@ __device__ __forceinline__ void pairs_phase(const StepArgs& a, int w, int p0, in
   const int row_floats = (K + 2) * d;
   const int stages = row_floats * 4 > kWarpBytes ? 0 : (2 * row_floats * 4 <= kWarpBytes ? 2 : 1);
 
-  // Pair j's row ids (lane k < K holds negative k's), loaded a pair ahead,
-  // and its row pointers (0: W at the center, 1: C at the context, 2 + k:
-  // C at negative k).
+  // Pair j's row ids (lane k < K holds negative k's, from the draw pass:
+  // this CTA's own writes in the first block, the group's after a barrier
+  // in later blocks), loaded a pair ahead, and its row pointers (0: W at
+  // the center, 1: C at the context, 2 + k: C at negative k).
   struct Ids {
     int cen = 0, ctx = 0, neg = 0;
   };
@@ -375,7 +469,7 @@ __device__ __forceinline__ void pairs_phase(const StepArgs& a, int w, int p0, in
     Ids x;
     x.cen = __ldg(a.centers + wp);
     x.ctx = __ldg(a.contexts + wp);
-    if (lane < K) x.neg = __ldg(a.ids + wp * K + lane);
+    if (lane < K) x.neg = __ldcg(a.ids + wp * K + lane);   // written in this launch
     return x;
   };
   auto rows_of = [&](const Ids& x, const float* (&row)[kMaxNegatives + 2]) {
@@ -687,8 +781,9 @@ __global__ void __launch_bounds__(kWarps * 32, 2) block_step_kernel(StepArgs a) 
       const int nb = min(a.blk, a.B - p0);
       int first = 0;                   // the first CTA of the pairs phase
       if (b == 0) {
-        if (rank < a.sorters) sort_tasks(a, w, rank, BULK ? kWideCols : 32, smem);
         first = a.group_ctas > a.sorters ? a.sorters : 0;
+        if (rank >= first) draw_pass(a, w, rank - first);
+        if (rank < a.sorters) sort_tasks(a, w, rank, BULK ? kWideCols : 32, smem);
       }
       if (rank >= first) {
         pairs_phase<BULK, LOGSIG>(a, w, p0, nb, (rank - first) * kWarps + warp,
@@ -707,9 +802,9 @@ __global__ void __launch_bounds__(kWarps * 32, 2) block_step_kernel(StepArgs a) 
   }
 }
 
-// Checks the arguments, zeroes the barrier and item counters (`counters`:
-// groups, then n nblocks ints) and launches the grid cooperatively on
-// `stream`. LOGSIG picks the loss form.
+// Checks the arguments, zeroes the barrier, item and draw counters
+// (`counters`: groups, then n nblocks, then n ints) and launches the grid
+// cooperatively on `stream`. LOGSIG picks the loss form.
 template <bool LOGSIG>
 int block_step_launch(StepArgs a, int* counters, int vec4, cudaStream_t stream) {
   if (a.n == 0 || a.B == 0) return 0;
@@ -726,6 +821,7 @@ int block_step_launch(StepArgs a, int* counters, int vec4, cudaStream_t stream) 
   if (a.item_cap < cap || a.sort_bytes < need) return static_cast<int>(cudaErrorInvalidValue);
   a.arrive = counters;
   a.work = counters + a.groups;
+  a.drawn = a.work + static_cast<long long>(a.n) * a.nblocks;
   auto kernel = vec4 ? block_step_kernel<true, LOGSIG> : block_step_kernel<false, LOGSIG>;
   int dev = 0, sms = 0, per_sm = 0;
   cudaError_t err = cudaGetDevice(&dev);
@@ -742,7 +838,7 @@ int block_step_launch(StepArgs a, int* counters, int vec4, cudaStream_t stream) 
   }
   err = cudaMemsetAsync(counters, 0,
                         sizeof(int) * (static_cast<size_t>(a.groups) +
-                                       static_cast<size_t>(a.n) * a.nblocks),
+                                       static_cast<size_t>(a.n) * (a.nblocks + 1)),
                         stream);
   if (err != cudaSuccess) return static_cast<int>(err);
   void* params[] = {&a};
@@ -755,14 +851,17 @@ int block_step_launch(StepArgs a, int* counters, int vec4, cudaStream_t stream) 
 
 // The C entry points' common body (K2: LOGSIG false, blk >= B; K4a: true).
 // W, C (n, V, d) float32, updated in place; loss (n, B); centers, contexts
-// (n, B) and ids (n, B, K) int32; w_rows/w_perm (n, B) and c_rows/c_perm
-// (n, B (K + 1)), int32 and int64, written: the block sorts; coef
-// (n, blk, K + 1), dW and wrows (n, blk, d), items (n, nblocks, 2, item_cap)
-// int4, n_items (n, nblocks, 2) int32, counters (groups + n nblocks) int32
-// and sort_mem (n, 2 nblocks, sort_bytes) scratch.
+// (n, B) int32; ids (n, B, K) int32, written: the draw from seeds (n, 2)
+// uint32 and the alias tables prob (n, V) float32, alias (n, V) int32;
+// w_rows/w_perm (n, B) and c_rows/c_perm (n, B (K + 1)), int32 and int64,
+// written: the block sorts; coef (n, blk, K + 1), dW and wrows (n, blk, d),
+// items (n, nblocks, 2, item_cap) int4, n_items (n, nblocks, 2) int32,
+// counters (groups + n (nblocks + 1)) int32 and sort_mem (n, 2 nblocks,
+// sort_bytes) scratch.
 template <bool LOGSIG>
 int block_step_entry(void* W, void* C, void* loss, const void* centers, const void* contexts,
-                     const void* ids, void* w_rows, void* w_perm, void* c_rows, void* c_perm,
+                     void* ids, const void* seeds, const void* prob, const void* alias,
+                     void* w_rows, void* w_perm, void* c_rows, void* c_perm,
                      void* coef, void* dW, void* wrows, void* items, void* n_items,
                      void* counters, void* sort_mem, long long sort_bytes, int item_cap, int n,
                      int V, int d, int B, int K, int blk, int group_ctas, int groups,
@@ -773,7 +872,10 @@ int block_step_entry(void* W, void* C, void* loss, const void* centers, const vo
   a.loss = static_cast<float*>(loss);
   a.centers = static_cast<const int*>(centers);
   a.contexts = static_cast<const int*>(contexts);
-  a.ids = static_cast<const int*>(ids);
+  a.ids = static_cast<int*>(ids);
+  a.seeds = static_cast<const uint32_t*>(seeds);
+  a.prob = static_cast<const float*>(prob);
+  a.alias = static_cast<const int*>(alias);
   a.w_rows = static_cast<int*>(w_rows);
   a.w_perm = static_cast<long long*>(w_perm);
   a.c_rows = static_cast<int*>(c_rows);
@@ -785,6 +887,7 @@ int block_step_entry(void* W, void* C, void* loss, const void* centers, const vo
   a.n_items = static_cast<int*>(n_items);
   a.arrive = nullptr;
   a.work = nullptr;
+  a.drawn = nullptr;
   a.sort_mem = static_cast<unsigned char*>(sort_mem);
   a.sort_bytes = sort_bytes;
   a.item_cap = item_cap;

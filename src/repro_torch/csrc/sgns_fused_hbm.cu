@@ -53,9 +53,10 @@
 //   The apply's arithmetic is the batch-1 sparse step's, rounded as before
 //   (__fmul_rn / __fadd_rn).
 //
-// Negatives: K1's draw of the whole step's (n, B, K) ids (the wrapper's
-// launch of `sample_negatives.cu`), which equals the per-block draws at the
-// pairs' global counters (`_block_negative_ids`).
+// Negatives: the whole step's (n, B, K) draw at the pairs' global counters,
+// which equals the per-block draws (`block_negative_ids`): K4a makes it
+// inside its launch (`sgns_block_step.cuh`); K4b takes K1's
+// (`sample_negatives.cu`, the wrapper's launch before this one).
 //
 // Bound on the H100: memory for K4a — the step's distinct touched rows read
 // once and written once (what bounds the launch and what its design does
@@ -416,15 +417,17 @@ cudaError_t launch_sequential(float* W, float* C, const int* centers, const int*
 
 // K4a. The arguments are `sgns::block_step_entry`'s.
 extern "C" int sgns_hbm_chain_launch(
-    void* W, void* C, void* loss, const void* centers, const void* contexts, const void* ids,
-    void* w_rows, void* w_perm, void* c_rows, void* c_perm, void* coef, void* dW, void* wrows,
-    void* items, void* n_items, void* counters, void* sort_mem, long long sort_bytes,
-    int item_cap, int n, int V, int d, int B, int K, int blk, int group_ctas, int groups,
-    int sorters, float neg_lr, int vec4, void* stream) {
-  return sgns::block_step_entry<true>(W, C, loss, centers, contexts, ids, w_rows, w_perm,
-                                      c_rows, c_perm, coef, dW, wrows, items, n_items, counters,
-                                      sort_mem, sort_bytes, item_cap, n, V, d, B, K, blk,
-                                      group_ctas, groups, sorters, neg_lr, vec4, stream);
+    void* W, void* C, void* loss, const void* centers, const void* contexts, void* ids,
+    const void* seeds, const void* prob, const void* alias, void* w_rows, void* w_perm,
+    void* c_rows, void* c_perm, void* coef, void* dW, void* wrows, void* items, void* n_items,
+    void* counters, void* sort_mem, long long sort_bytes, int item_cap, int n, int V, int d,
+    int B, int K, int blk, int group_ctas, int groups, int sorters, float neg_lr, int vec4,
+    void* stream) {
+  return sgns::block_step_entry<true>(W, C, loss, centers, contexts, ids, seeds, prob, alias,
+                                      w_rows, w_perm, c_rows, c_perm, coef, dW, wrows, items,
+                                      n_items, counters, sort_mem, sort_bytes, item_cap, n, V, d,
+                                      B, K, blk, group_ctas, groups, sorters, neg_lr, vec4,
+                                      stream);
 }
 
 // K4b. Same tables and ids; loss (n, B). One cluster of kSeqCluster CTAs

@@ -7,14 +7,15 @@
 // through `sgns_fused_step`). The TPU kernel holds both (V, d) tables in
 // VMEM and applies the step with `.at[].add` on the resident copy. On the
 // H100 the tables stay in HBM (80 GB holds the paper's 300k x 500 tables for
-// ten workers). The wrapper draws the step's (n, B, K) negatives with K1
-// (`sample_negatives.cu`, the same counter-hash `alias_draw`); then one
-// persistent launch runs the step: K4a's block chain (`sgns_block_step.cuh`)
-// with one block of all B pairs — the sort of each worker's touched rows,
-// every pair's gradients from the pre-step tables, then each touched row's
-// addends applied serially in pair order and stored once (C at contexts,
-// then negatives; W at centers). No float atomics, so the same inputs give
-// the same bits on every run.
+// ten workers). One persistent launch runs the step, as one kernel runs it on
+// the TPU: K4a's block chain (`sgns_block_step.cuh`) with one block of all B
+// pairs — the step's (n, B, K) negatives drawn inside it (the counter-hash
+// `alias_draw` of K1, `sample_negatives.cu`, at the same counters, and
+// written out for the wrapper to return), the sort of each worker's touched
+// rows, every pair's gradients from the pre-step tables, then each touched
+// row's addends applied serially in pair order and stored once (C at
+// contexts, then negatives; W at centers). No float atomics, so the same
+// inputs give the same bits on every run.
 //
 // Bound on the H100: memory. Per step the function must read each distinct
 // touched row of W and C once and write it back once (195.5 MB at n = 10,
@@ -28,14 +29,16 @@
 
 // The arguments are `sgns::block_step_entry`'s; blk must be >= B.
 extern "C" int sgns_fused_step_launch(
-    void* W, void* C, void* loss, const void* centers, const void* contexts, const void* ids,
-    void* w_rows, void* w_perm, void* c_rows, void* c_perm, void* coef, void* dW, void* wrows,
-    void* items, void* n_items, void* counters, void* sort_mem, long long sort_bytes,
-    int item_cap, int n, int V, int d, int B, int K, int blk, int group_ctas, int groups,
-    int sorters, float neg_lr, int vec4, void* stream) {
+    void* W, void* C, void* loss, const void* centers, const void* contexts, void* ids,
+    const void* seeds, const void* prob, const void* alias, void* w_rows, void* w_perm,
+    void* c_rows, void* c_perm, void* coef, void* dW, void* wrows, void* items, void* n_items,
+    void* counters, void* sort_mem, long long sort_bytes, int item_cap, int n, int V, int d,
+    int B, int K, int blk, int group_ctas, int groups, int sorters, float neg_lr, int vec4,
+    void* stream) {
   if (blk < B) return static_cast<int>(cudaErrorInvalidValue);
-  return sgns::block_step_entry<false>(W, C, loss, centers, contexts, ids, w_rows, w_perm,
-                                       c_rows, c_perm, coef, dW, wrows, items, n_items,
-                                       counters, sort_mem, sort_bytes, item_cap, n, V, d, B,
-                                       K, blk, group_ctas, groups, sorters, neg_lr, vec4, stream);
+  return sgns::block_step_entry<false>(W, C, loss, centers, contexts, ids, seeds, prob, alias,
+                                       w_rows, w_perm, c_rows, c_perm, coef, dW, wrows, items,
+                                       n_items, counters, sort_mem, sort_bytes, item_cap, n, V,
+                                       d, B, K, blk, group_ctas, groups, sorters, neg_lr, vec4,
+                                       stream);
 }

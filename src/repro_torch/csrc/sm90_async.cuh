@@ -5,8 +5,9 @@
 // the cooperative block-chain kernels.
 //
 // Used by K7 (`swa_decode.cu`: a ring of bulk copies under full/empty
-// mbarriers), K5 and K6 (`sgns_pipe.cuh`: the group barrier) and K2 and K4a
-// (`sgns_block_step.cuh`: all of them).
+// mbarriers), K3 (`sgns_row_grads.cu`: the same ring, with 4-byte copies for
+// spans that are not 16-byte aligned), K5 and K6 (`sgns_pipe.cuh`: the
+// group barrier) and K2 and K4a (`sgns_block_step.cuh`: all of them).
 #pragma once
 
 #include <cstdint>
@@ -66,6 +67,13 @@ __device__ __forceinline__ void copy4(float* dst, const float* src) {
 
 __device__ __forceinline__ void copy_commit() {
   asm volatile("cp.async.commit_group;" ::: "memory");
+}
+
+// One arrival on `bar`, made when every cp.async this thread has issued so
+// far has landed (counts against the barrier's expected arrivals).
+__device__ __forceinline__ void copy_arrive_noinc(uint64_t* bar) {
+  asm volatile("cp.async.mbarrier.arrive.noinc.shared.b64 [%0];" ::"r"(smem_u32(bar))
+               : "memory");
 }
 
 // Waits until at most N of this thread's newest commit groups are pending.

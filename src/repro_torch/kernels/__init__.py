@@ -2,8 +2,8 @@
 with their plain torch versions and wrappers.
 
 * ``sgns_fused`` — K1 ``sample_negatives`` (the counter-hash alias draw)
-  and K2 ``sgns_fused_step`` (the whole SGNS step for n workers). Powers
-  the ``fused`` update engine. Holds the launch counters and the C
+  and K2 ``sgns_fused_step`` (the whole SGNS step for n workers, the draw
+  inside its one launch). Powers the ``fused`` update engine. Holds the launch counters and the C
   binding helpers the other kernel modules share.
 * ``sgns_update`` — K3 ``sgns_row_grads`` (forward and row gradients on
   gathered rows). Powers the ``rowgrad`` engine; ``ops`` wraps it in the

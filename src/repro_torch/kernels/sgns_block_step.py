@@ -1,17 +1,22 @@
 """The launch that K2 (``sgns_fused_step``) and K4a (``sgns_fused_hbm_step``
-with ``sequential=False``) share, its shape, and the plain mirror of its
-apply items.
+with ``sequential=False``) share, its shape, and the plain mirrors of its
+draw and its apply items.
 
 Source: ``repro_torch/csrc/sgns_block_step.cuh`` (included by
 ``sgns_fused_step.cu`` and ``sgns_fused_hbm.cu``). One persistent
-cooperative launch runs a step's chain of pair blocks for every worker: a
-group of CTAs a worker; in the first phase some of the group's CTAs sort
-each (block, table) list of the worker's touched rows while the others run
-the first block's pairs; then, per block, the pairs phase, a group barrier,
-the applies, a group barrier. K2 is the chain with one block of all B pairs.
+cooperative launch runs a step's chain of pair blocks for every worker,
+the negative draw included: a group of CTAs a worker; in the first phase
+some of the group's CTAs sort each (block, table) list of the worker's
+touched rows while the others make the worker's draw (written out for the
+wrappers to return) and then run the first block's pairs, each pair warp
+drawing its own negatives again; then, per block, the pairs phase, a group
+barrier, the applies, a group barrier. K2 is the chain with one block of
+all B pairs.
 
 What the CPU can check lies here, in Python:
 
+* :func:`list_rows` — a sort task's list in element order, its negatives
+  drawn at their counters as the launch's draw pass draws them;
 * :func:`geometry` — groups, CTAs a group and the sorting CTAs, as the
   launch is sized (``SMEM_BYTES`` of dynamic shared memory a CTA);
 * :func:`apply_items` — the apply's item rule: whole runs of a sorted list
@@ -44,6 +49,26 @@ CTAS_PER_SM = 2
 #: Runs of at least this many addends are applied in chunks of 32 columns
 #: (``kSplitRuns`` in the kernel, a compile-time constant).
 SPLIT_RUNS = 32
+
+
+def list_rows(centers: torch.Tensor, contexts: torch.Tensor, table: dict,
+              seeds: torch.Tensor, K: int, blk: int, b: int, c_table: bool) -> torch.Tensor:
+    """The rows of block ``b``'s C list (``c_table``) or W list, ``(n, N)``
+    int32 in element order, as a sort task loads them: W, the block's
+    centers; C, its contexts, then its negatives, element ``e >= nb`` the
+    draw pass's draw at counter ``p0 K + (e - nb)`` (``index_of(e) - B``)
+    under each worker's seed and alias table."""
+    from repro_torch.kernels.sgns_fused import alias_draw_from_counters
+
+    n, B = centers.shape
+    p0 = b * blk
+    nb = min(blk, B - p0)
+    if not c_table:
+        return centers[:, p0:p0 + nb]
+    e = torch.arange(nb, nb * (K + 1), dtype=torch.int64, device=centers.device)
+    negs = alias_draw_from_counters(seeds, table["prob"], table["alias"],
+                                    (p0 * K + e - nb).expand(n, -1))
+    return torch.cat([contexts[:, p0:p0 + nb], negs], 1)
 
 
 class Geometry(NamedTuple):
@@ -134,15 +159,16 @@ def _align(x: int, a: int = 256) -> int:
 
 
 def run_block_step(lib: str, symbol: str, counter: str, params: dict, centers: torch.Tensor,
-                   contexts: torch.Tensor, ids: torch.Tensor, lr: float, blk: int, *,
-                   scratch: bool = False):
+                   contexts: torch.Tensor, table: dict, seeds: torch.Tensor, lr: float,
+                   blk: int, K: int, *, scratch: bool = False):
     """One launch of K2 (``lib="sgns_fused_step"``, ``blk >= B``) or K4a
-    (``lib="sgns_fused_hbm"``) on the step's draw ``ids`` ``(n, B, K)``:
-    updates ``params`` in place, adds one to ``LAUNCHES[counter]`` and
-    returns the loss ``(n, B)``; with ``scratch``, also the launch's sorted
-    lists ``(w_rows, w_perm, c_rows, c_perm)`` (``block_sorts``' layout) and
-    its items ``(n, nblocks, 2, cap, 4)`` with their counts ``(n, nblocks,
-    2)``."""
+    (``lib="sgns_fused_hbm"``), which draws the step's ``K`` negatives a
+    pair from the alias ``table`` under ``seeds`` itself: updates
+    ``params`` in place, adds one to ``LAUNCHES[counter]`` and returns the
+    loss ``(n, B)`` and the draw ``(n, B, K)``; with ``scratch``, also the
+    launch's sorted lists ``(w_rows, w_perm, c_rows, c_perm)``
+    (``block_sorts``' layout) and its items ``(n, nblocks, 2, cap, 4)`` with
+    their counts ``(n, nblocks, 2)``."""
     from repro_torch.kernels.sgns_fused import (
         LAUNCHES, _entry, _kernel_device, _ptr, _raise_on, _stream)
 
@@ -150,7 +176,7 @@ def run_block_step(lib: str, symbol: str, counter: str, params: dict, centers: t
     device = W.device
     _kernel_device(device)
     n, V, d = W.shape
-    B, K = centers.shape[1], ids.shape[-1]
+    B = centers.shape[1]
     vec4 = d % 4 == 0 and W.data_ptr() % 16 == 0 and C.data_ptr() % 16 == 0
     geo = geometry(n, d, B, K, blk, _sms(device), vec4)
     blk, nblocks = geo.blk, geo.nblocks
@@ -163,7 +189,7 @@ def run_block_step(lib: str, symbol: str, counter: str, params: dict, centers: t
         "w_perm": (torch.int64, (n, B)), "c_rows": (torch.int32, (n, Lc)),
         "c_perm": (torch.int64, (n, Lc)), "items": (torch.int32, (n, nblocks, 2, item_cap, 4)),
         "n_items": (torch.int32, (n, nblocks, 2)),
-        "counters": (torch.int32, (geo.groups + n * nblocks,)),
+        "counters": (torch.int32, (geo.groups + n * (nblocks + 1),)),
         "sort_mem": (torch.uint8, (n, 2 * nblocks, sort_bytes)),
     }
     offsets, total = {}, 0
@@ -172,12 +198,13 @@ def run_block_step(lib: str, symbol: str, counter: str, params: dict, centers: t
         total = _align(total + int(np.prod(shape)) * dt.itemsize)
     buf = torch.empty(total, dtype=torch.uint8, device=device)
     loss = torch.empty((n, B), dtype=torch.float32, device=device)
+    ids = torch.empty((n, B, K), dtype=torch.int32, device=device)
     base = buf.data_ptr()
     ptr = {k: ctypes.c_void_p(base + off) for k, off in offsets.items()}
     fn = _entry(lib, symbol)
     with torch.cuda.device(device):
         err = fn(_ptr(W), _ptr(C), _ptr(loss), _ptr(centers), _ptr(contexts), _ptr(ids),
-                 ptr["w_rows"], ptr["w_perm"], ptr["c_rows"], ptr["c_perm"], ptr["coef"],
+                 _ptr(seeds), _ptr(table["prob"]), _ptr(table["alias"]), ptr["w_rows"], ptr["w_perm"], ptr["c_rows"], ptr["c_perm"], ptr["coef"],
                  ptr["dW"], ptr["wrows"], ptr["items"], ptr["n_items"], ptr["counters"],
                  ptr["sort_mem"], sort_bytes, item_cap, n, V, d, B, K, blk, geo.group_ctas,
                  geo.groups, geo.sorters, -float(np.float32(lr)), int(vec4),
@@ -185,7 +212,7 @@ def run_block_step(lib: str, symbol: str, counter: str, params: dict, centers: t
     _raise_on(err, counter)
     LAUNCHES[counter] += 1
     if not scratch:
-        return loss
+        return loss, ids
 
     def view(name):
         dt, shape = parts[name]
@@ -193,4 +220,4 @@ def run_block_step(lib: str, symbol: str, counter: str, params: dict, centers: t
         return buf[offsets[name]:offsets[name] + nbytes].view(dt).view(shape)
 
     lists = tuple(view(k) for k in ("w_rows", "w_perm", "c_rows", "c_perm"))
-    return loss, lists, view("items"), view("n_items")
+    return loss, ids, lists, view("items"), view("n_items")

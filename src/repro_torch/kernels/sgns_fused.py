@@ -8,12 +8,16 @@ Two kernels (sources in ``repro_torch/csrc/``):
   per draw. Bit-identical to :func:`sample_negatives_plain` and to the
   reference's ``fused_negative_ids``.
 * **K2** ``sgns_fused_step`` (``sgns_fused_step.cu``) — replaces
-  ``_sgns_fused_kernel``: the whole SGNS step for n workers at once. Its
-  wrapper draws the step's negatives with K1; then one persistent launch
-  (``sgns_block_step.cuh``, shared with K4a: :mod:`~repro_torch.kernels
-  .sgns_block_step`) sorts each worker's touched rows, runs the forward
-  and the row gradients from the pre-step tables, and applies them
-  deterministically, without float atomics.
+  ``_sgns_fused_kernel``: the whole SGNS step for n workers at once, in
+  one persistent launch (``sgns_block_step.cuh``, shared with K4a:
+  :mod:`~repro_torch.kernels.sgns_block_step`) that draws the step's
+  negatives itself, as the TPU kernel does (K1's ``alias_draw`` at the same
+  counters, so the returned ids are K1's bit for bit), sorts each worker's
+  touched rows, runs the forward and the row gradients from the pre-step
+  tables, and applies them deterministically, without float atomics.
+
+K1 keeps its own launch where a step takes a draw from outside: K4b's
+sequential step, K5 and K6.
 
 Every wrapper takes stacked per-worker operands (a leading worker axis
 ``n``) and runs the plain version when its tensors lie on the CPU; on a
@@ -41,7 +45,7 @@ from repro_torch.kernels.sgns_block_step import run_block_step
 _MASK = 0xFFFFFFFF
 _P, _I = ctypes.c_void_p, ctypes.c_int
 # K2's and K4a's launch (`sgns_block_step.cuh`: block_step_entry)
-_BLOCK_STEP = [_P] * 17 + [ctypes.c_longlong] + [_I] * 10 + [ctypes.c_float, _I, _P]
+_BLOCK_STEP = [_P] * 20 + [ctypes.c_longlong] + [_I] * 10 + [ctypes.c_float, _I, _P]
 # C entry points: (library, symbol) -> argument types; all return an int
 # (cudaGetLastError() after the launch).
 _SIGNATURES = {
@@ -250,7 +254,7 @@ def sgns_fused_step(params: dict, centers: torch.Tensor, contexts: torch.Tensor,
     ``lr`` the step's learning rate.
 
     Returns ``(params, loss (n, B), ids (n, B, K))``: the per-pair loss
-    and the negatives the step drew.
+    and the negatives the step drew (on the card, inside its one launch).
     """
     W, C = params["W"], params["C"]
     device = W.device
@@ -270,10 +274,9 @@ def sgns_fused_step(params: dict, centers: torch.Tensor, contexts: torch.Tensor,
         return sgns_fused_step_plain(params, centers, contexts, table, seeds,
                                      lr, negatives=K)
     _kernel_device(device)
-    # K1 draws the step's negatives; one launch sorts each worker's touched
-    # rows into runs in addend order (W at centers; C at contexts, then at
+    # One launch draws the step's negatives, sorts each worker's touched rows
+    # into runs in addend order (W at centers; C at contexts, then at
     # negatives) and runs the step as one block of all B pairs.
-    ids = sample_negatives(seeds, table["prob"], table["alias"], (B, K))
-    loss = run_block_step("sgns_fused_step", "sgns_fused_step_launch", "sgns_fused_step",
-                          params, centers, contexts, ids, lr, B)
+    loss, ids = run_block_step("sgns_fused_step", "sgns_fused_step_launch", "sgns_fused_step",
+                               params, centers, contexts, table, seeds, lr, B, K)
     return params, loss, ids

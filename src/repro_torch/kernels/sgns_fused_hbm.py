@@ -24,9 +24,10 @@ they are there anyway, and what this step adds over K2 is its
   on the card).
 
 The negatives sit at the pairs' global counters
-(:func:`block_negative_ids`), so one K1 draw of the whole step's
-``(n, B, K)`` ids is the blocks' draws. The loss is the log-sigmoid form
-of ``sparse_row_grads_per_pair``.
+(:func:`block_negative_ids`), so one draw of the whole step's ``(n, B,
+K)`` ids is the blocks' draws: on the card K4a's launch makes it itself,
+and K4b takes K1's. The loss is the log-sigmoid form of
+``sparse_row_grads_per_pair``.
 """
 
 from __future__ import annotations
@@ -157,8 +158,8 @@ def sgns_fused_hbm_step(params: dict, centers: torch.Tensor,
     _kernel_device(device)
     if sequential and d > MAX_SEQUENTIAL_DIM:
         raise ValueError(f"the sequential kernel takes d <= {MAX_SEQUENTIAL_DIM}, got {d}")
-    ids = sample_negatives(seeds, table["prob"], table["alias"], (B, K))
     if sequential:
+        ids = sample_negatives(seeds, table["prob"], table["alias"], (B, K))
         loss = torch.empty((n, B), dtype=torch.float32, device=device)
         fn = _entry("sgns_fused_hbm", "sgns_hbm_sequential_launch")
         with torch.cuda.device(device):
@@ -167,6 +168,7 @@ def sgns_fused_hbm_step(params: dict, centers: torch.Tensor,
         _raise_on(err, "sgns_fused_hbm_step (sequential)")
         LAUNCHES["sgns_fused_hbm_step"] += 1
         return params, loss, ids
-    loss = run_block_step("sgns_fused_hbm", "sgns_hbm_chain_launch", "sgns_fused_hbm_step",
-                          params, centers, contexts, ids, lr, pick_block_pairs(B, block_pairs))
+    loss, ids = run_block_step("sgns_fused_hbm", "sgns_hbm_chain_launch", "sgns_fused_hbm_step",
+                               params, centers, contexts, table, seeds, lr,
+                               pick_block_pairs(B, block_pairs), K)
     return params, loss, ids

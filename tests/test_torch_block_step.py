@@ -1,19 +1,24 @@
-"""K2's and K4a's shared launch, what the CPU can check of it: the in-launch
-sort's order (a plain mirror of its radix passes, here) against
-``block_sorts`` and the reference's planner, the apply's item rule, and the
-launch geometry (``kernels/sgns_block_step.py``). The kernel itself runs
-only on the card (``test_torch_cuda.py``, which also holds its sort bitwise
-against ``block_sorts``)."""
+"""K2's and K4a's shared launch, what the CPU can check of it: the draw it
+makes inside itself (its counters against K1's draw and the reference's),
+the in-launch sort's order (a plain mirror of its radix passes, here)
+against ``block_sorts`` and the reference's planner, the apply's item rule,
+and the launch geometry (``kernels/sgns_block_step.py``). The kernel itself
+runs only on the card (``test_torch_cuda.py``, which also holds its sort
+bitwise against ``block_sorts`` and its draw against K1's)."""
 
 import jax
+import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
 
 from repro.kernels import sgns_fused_pipe as JP
+from repro.kernels.sgns_fused import fused_negative_ids
 from repro_torch.analysis import block_step_variants as V
+from repro_torch.core.distributions import build_alias_table
 from repro_torch.kernels import build
 from repro_torch.kernels import sgns_block_step as S
+from repro_torch.kernels import sgns_fused as K1
 from repro_torch.kernels import sgns_fused_hbm as H
 
 NEG = 5
@@ -35,6 +40,72 @@ def _ids(seed, n, V, B, K=NEG):
     x[:, 10:20] = 5
     neg[:, 14:18, 0] = 5
     return torch.from_numpy(c), torch.from_numpy(x), torch.from_numpy(neg)
+
+
+def _draw_inputs(n: int, V: int, seed: int = 3):
+    """A Zipf(1.1) alias table a worker (each its own), the workers' JAX
+    keys and their seed tensor."""
+    rng = np.random.default_rng(seed)
+    prob, alias = [], []
+    for _ in range(n):
+        p = 1.0 / np.arange(1, V + 1) ** 1.1
+        prob_w, alias_w = build_alias_table(rng.permutation(p) / p.sum())
+        prob.append(np.asarray(prob_w, np.float32))
+        alias.append(np.asarray(alias_w, np.int32))
+    table = {"prob": torch.from_numpy(np.stack(prob)), "alias": torch.from_numpy(np.stack(alias))}
+    keys = np.asarray(jax.random.split(jax.random.PRNGKey(seed), n))
+    return table, keys, K1.seed_tensor(keys)
+
+
+@pytest.mark.parametrize("B, blk", ((45, 64), (45, 16), (300, 128)))
+def test_folded_draw_counters_are_k1s_and_the_references(B, blk):
+    """The launch draws negative k of pair p at counter p·K + k (a pair
+    warp: (p0 + j)·K + lane; the draw pass: i = p·K + k, which a sort task
+    reads at index_of(e) − B = p0·K + (e − nb)), under each worker's own
+    seed and table: for n = 3 workers, bitwise K1's plain draw and the
+    reference's ``fused_negative_ids``, block by block."""
+    n, Vv = 3, 500
+    table, keys, seeds = _draw_inputs(n, Vv)
+    k1 = K1.sample_negatives_plain(seeds, table["prob"], table["alias"], (B, NEG))
+    pairs = torch.arange(B, dtype=torch.int64)[:, None] * NEG + torch.arange(NEG)
+    warps = K1.alias_draw_from_counters(seeds, table["prob"], table["alias"],
+                                        pairs.expand(n, B, NEG))
+    assert warps.dtype == torch.int32 and torch.equal(warps, k1)
+    for w in range(n):
+        ref = fused_negative_ids(jnp.asarray(keys[w]), jnp.asarray(table["prob"][w].numpy()),
+                                 jnp.asarray(table["alias"][w].numpy()), (B, NEG))
+        np.testing.assert_array_equal(k1[w].numpy(), np.asarray(ref))
+    blk = H.pick_block_pairs(B, blk)
+    ctx = torch.zeros((n, B), dtype=torch.int32)
+    for b in range(-(-B // blk)):
+        p0 = b * blk
+        nb = min(blk, B - p0)
+        rows = S.list_rows(ctx, ctx, table, seeds, NEG, blk, b, c_table=True)
+        assert torch.equal(rows[:, nb:].reshape(n, nb, NEG), k1[:, p0:p0 + nb])
+
+
+@pytest.mark.parametrize("c_table", (True, False), ids=("C", "W"))
+@pytest.mark.parametrize("case", ("one-block", "tail"))
+def test_sort_lists_from_counters_equal_the_lists_from_k1s_ids(case, c_table):
+    """A sort task's list, its negatives drawn from their counters
+    (``list_rows``), is the list built from K1's ids of the step (C: the
+    block's contexts, then its K negatives a pair; W: its centers), for
+    every block of a tail-block batch and of one block (blk ≥ B); and the
+    in-launch sort of those lists is ``block_sorts`` on K1's ids."""
+    n, Vv, B, blk = SORT_CASES[case]
+    table, _, seeds = _draw_inputs(n, Vv, seed=5)
+    c, x, _ = _ids(len(case), n, Vv, B)
+    ids = K1.sample_negatives_plain(seeds, table["prob"], table["alias"], (B, NEG))
+    blk = H.pick_block_pairs(B, blk)
+    for b in range(-(-B // blk)):
+        p0 = b * blk
+        nb = min(blk, B - p0)
+        got = S.list_rows(c, x, table, seeds, NEG, blk, b, c_table)
+        want = (torch.cat([x[:, p0:p0 + nb], ids[:, p0:p0 + nb].reshape(n, -1)], 1)
+                if c_table else c[:, p0:p0 + nb])
+        assert got.dtype == torch.int32 and torch.equal(got, want)
+    for g, r in zip(_block_sorts_in_launch(c, x, ids, blk, Vv), H.block_sorts(c, x, ids, blk, Vv)):
+        assert torch.equal(g, r)
 
 
 RADIX_BITS = 4             # the in-launch sort's digit (kRadixBits)

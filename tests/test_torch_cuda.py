@@ -95,6 +95,74 @@ def test_sgns_row_grads_kernel_matches_plain(device, d):
         assert float((o - p).abs().max()) <= 1e-5
 
 
+# K3, the ring kernel: against its plain version at the 16-byte and scalar
+# paths' widths and the random path's (d = 48, 50, 500) and at N = 1, 7 (a
+# tail tile of 3 pairs: 4-byte copies at d = 50) and 10,240 (the random
+# path's n·B); run twice, bitwise; and bitwise its first design
+# (kernel_variants' `first`, built from the checkout's sources): the same
+# column stride, warp butterfly and rounding tree.
+@pytest.fixture(scope="module")
+def k3_first():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    from repro_torch.analysis import kernel_variants as KV
+    from repro_torch.kernels import build
+
+    out = build.build_dir().parent / "kernel_variants"
+    return KV.build_variants(out, {"sgns_row_grads": ["first"]})[("sgns_row_grads", "first")]
+
+
+def _k3_check(device, first, w, cp, cn):
+    from repro_torch.analysis import kernel_variants as KV
+    from repro_torch.kernels import build
+    from repro_torch.kernels import sgns_update as U
+
+    before = K.LAUNCHES["sgns_row_grads"]
+    out = U.sgns_row_grads(w, cp, cn)
+    again = U.sgns_row_grads(w, cp, cn)
+    assert K.LAUNCHES["sgns_row_grads"] == before + 2
+    KV.use("sgns_row_grads", first)
+    try:
+        old = U.sgns_row_grads(w, cp, cn)
+    finally:
+        KV.use("sgns_row_grads", build.library_path("sgns_row_grads"))
+    plain = U.sgns_row_grads_plain(w, cp, cn)
+    torch.cuda.synchronize(device)
+    for o, a, f, p, tol in zip(out, again, old, plain, (1e-4, 1e-5, 1e-5, 1e-5)):
+        assert o.shape == p.shape and bool(torch.isfinite(o).all())
+        assert torch.equal(o, a) and torch.equal(o, f)
+        assert float((o - p).abs().max()) <= tol
+
+
+@pytest.mark.parametrize("N", (1, 7, 10_240))
+@pytest.mark.parametrize("d", (48, 50, 500))
+def test_sgns_row_grads_ring_matches_plain_and_the_first_design(device, k3_first, d, N):
+    gen = torch.Generator(device=device).manual_seed(d + N)
+    w = 0.3 * torch.randn((N, d), generator=gen, device=device)
+    cp = 0.3 * torch.randn((N, d), generator=gen, device=device)
+    cn = 0.3 * torch.randn((N, 5, d), generator=gen, device=device)
+    _k3_check(device, k3_first, w, cp, cn)
+
+
+@pytest.mark.parametrize("which", ("w", "c_neg"))
+@pytest.mark.parametrize("d", (48, 500))
+def test_sgns_row_grads_ring_takes_misaligned_inputs(device, k3_first, d, which):
+    """An input one float into its storage: its spans go by 4-byte copies
+    and the column stride is the scalar one, as in the first design."""
+    gen = torch.Generator(device=device).manual_seed(d)
+    N = 1_003
+    shapes = {"w": (N, d), "c_pos": (N, d), "c_neg": (N, 5, d)}
+    t = {}
+    for name, shape in shapes.items():
+        if name == which:
+            storage = 0.3 * torch.randn(int(np.prod(shape)) + 1, generator=gen, device=device)
+            t[name] = storage[1:].view(shape)
+            assert t[name].data_ptr() % 16 == 4
+        else:
+            t[name] = 0.3 * torch.randn(shape, generator=gen, device=device)
+    _k3_check(device, k3_first, t["w"], t["c_pos"], t["c_neg"])
+
+
 def _hbm_inputs(device, d, n=2, V=5000, B=300):
     t = _table(V, n, device)
     gen = torch.Generator(device=device).manual_seed(1)
@@ -129,6 +197,37 @@ def test_sgns_fused_hbm_kernel_matches_plain_and_repeats(device, d, sequential):
         assert float((p1[k] - (W if k == "W" else C)).abs().max()) > 0
     assert torch.equal(l1, l2)
     assert float((l1 - plain[1]).abs().max()) <= 1e-4
+
+
+@pytest.mark.parametrize("step", ("K2", "K4a"))
+def test_block_step_draws_inside_its_launch(device, step):
+    """K2 and K4a draw the step's negatives inside their one launch: K1's
+    count does not move, and the ids they return are K1's bit for bit,
+    each worker from its own table (three Zipf exponents) and seed."""
+    from repro_torch.kernels import sgns_fused_hbm as H
+
+    n, V, B = 3, 5000, 300
+    W, C, cen, ctx, _, seeds = _hbm_inputs(device, 48, n=n, V=V, B=B)
+    tables = [build_alias_table(p / p.sum()) for p in
+              (np.arange(1, V + 1, dtype=np.float64) ** -a for a in (0.6, 1.0, 1.4))]
+    t = {"prob": torch.tensor(np.stack([x[0] for x in tables]), dtype=torch.float32,
+                              device=device),
+         "alias": torch.tensor(np.stack([x[1] for x in tables]), dtype=torch.int32,
+                               device=device)}
+    counter = "sgns_fused_step" if step == "K2" else "sgns_fused_hbm_step"
+    before = dict(K.LAUNCHES)
+    p = {"W": W.clone(), "C": C.clone()}
+    if step == "K2":
+        _, _, ids = K.sgns_fused_step(p, cen, ctx, t, seeds, 0.05, negatives=5)
+    else:
+        _, _, ids = H.sgns_fused_hbm_step(p, cen, ctx, t, seeds, 0.05, negatives=5,
+                                          block_pairs=128)
+    assert K.LAUNCHES[counter] == before[counter] + 1
+    assert K.LAUNCHES["sample_negatives"] == before["sample_negatives"]
+    k1 = K.sample_negatives(seeds, t["prob"], t["alias"], (B, 5))
+    torch.cuda.synchronize(device)
+    assert ids.shape == (n, B, 5) and torch.equal(ids, k1)
+    assert not torch.equal(ids[0], ids[2])
 
 
 def test_sgns_fused_hbm_one_block_equals_the_fused_step(device):
@@ -314,10 +413,11 @@ def test_block_step_kernels_match_plain_repeat_and_agree(device, case):
     assert _same(k2, one) and _same(k2, k5_one)
     # the launch's sort and items, against block_sorts and the item rule
     blk = H.pick_block_pairs(c["B"], c["blk"])
-    _, lists, items, n_items = BS.run_block_step(
+    _, ids, lists, items, n_items = BS.run_block_step(
         "sgns_fused_hbm", "sgns_hbm_chain_launch", "sgns_fused_hbm_step",
-        {"W": W.clone(), "C": C.clone()}, cen, ctx, k4[2], 0.05, blk, scratch=True)
+        {"W": W.clone(), "C": C.clone()}, cen, ctx, t, seeds, 0.05, blk, 5, scratch=True)
     torch.cuda.synchronize(device)
+    assert torch.equal(ids, k4[2])
     for got, want in zip(lists, H.block_sorts(cen, ctx, k4[2], blk, c["V"])):
         assert torch.equal(got, want)
     vec4 = c["d"] % 4 == 0

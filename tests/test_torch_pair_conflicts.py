@@ -77,7 +77,7 @@ def test_hbm_batches_are_the_trainers_shapes_and_draws():
 @pytest.mark.parametrize("lib, name", [(lib, name) for lib, v in VARIANTS.items()
                                        for name in v])
 def test_kernel_variant_patches_apply(lib, name):
-    """``analysis/kernel_variants.py`` times patched copies of K7 and K4b
-    on the card; each patch must still find the code it takes out."""
+    """``analysis/kernel_variants.py`` times patched copies of K7, K4b, K3
+    and K1 on the card; each patch must still find the code it changes."""
     text = patched_source(lib, name)
     assert "extern \"C\"" in text
