@@ -6,6 +6,7 @@
     python3 chip_smoke.py --phases build,random,hbm
     python3 chip_smoke.py --phases build,hbm,pipe
     python3 chip_smoke.py --phases build,decode
+    python3 chip_smoke.py --phases build,main,sync,merge
 
 Phases:
 
@@ -26,7 +27,28 @@ Phases:
    read just after training; K2 must have launched once per step and K1
    never (K2 draws the negatives inside its launch), and every sub-model's
    W must have left its init.
-5. ``random`` — the same configuration divided by the ``random`` strategy
+5. ``sync`` — the synchronous baselines at the main configuration. The
+   paper's comparison: ``train_sync_baseline`` (one shared 89,611 × 500
+   table, batches of n·B = 10,240 pairs, 64 steps, ``engine="fused"``:
+   K1 draws each step's negatives, the gradient is dense) twice, bitwise
+   equal, with K1 launched once a step and K2 never; its pairs/s printed
+   beside the ``main`` phase's; its first 4 steps held against the same
+   steps on the CPU (ids bitwise, K2's tolerances) and run in an NCCL
+   process group of world size 1 (bitwise the run without a group). Then
+   local SGD: ``make_periodic_sync_epoch`` over the main path's 10 workers
+   (10 stacked copies, one K2 launch a local step, a mean over the worker
+   axis every 8 steps), bitwise a hand loop of K2 steps and means, and
+   within K2's tolerances of the same loop with K2's plain version.
+6. ``merge`` — the ``Merger`` registry on the ``main`` phase's 10 × 89,611
+   × 500 sub-models: each of ``alir``, ``alir_tree`` (fan_in 2),
+   ``average``, ``concat`` and ``pca`` timed (and the tree's critical
+   path); ``get_merger("alir")`` bitwise ``merge(..., "alir_pca")``;
+   ``IncrementalAlirMerger`` fed in two arrival orders (warm folds on each
+   arrival in the first) bitwise the batch merge; the tree's root bitwise
+   the same under a permuted arrival order, and its quality beside flat
+   ALiR's; ``mesh_sharded_gram`` in an NCCL group of one at S = 4 bitwise
+   ``sharded_gram``, with exactly one ``all_gather_into_tensor``.
+7. ``random`` — the same configuration divided by the ``random`` strategy
    (rate 1/10: every worker its own vocabulary and noise table, trained in
    the union index space) on the ``rowgrad`` engine (the ``jax.random``
    CDF draw, torch gathers, K3 ``sgns_row_grads``, the ordered scatter
@@ -37,17 +59,17 @@ Phases:
    ``sparse`` and ``rowgrad`` run twice from the same state must repeat
    bit for bit, and the scatter is timed as the ordered apply and as
    ``index_add_``'s atomics on the same addends.
-6. ``hbm`` — the main configuration on the ``fused_hbm`` engine (K4a,
+8. ``hbm`` — the main configuration on the ``fused_hbm`` engine (K4a,
    ``block_pairs=256``: four blocks a step, the draw inside the launch) for
    64 steps, K4a once per step and K1 never; then ``sequential=True`` (K4b)
    for 8 steps, K4b and K1 once per step each; and W moved.
-7. ``pipe`` — the main configuration on ``fused_pipe`` (K5, ``block_pairs
+9. ``pipe`` — the main configuration on ``fused_pipe`` (K5, ``block_pairs
    =256``, ``ring_depth=2``) and then on ``fused_tiered`` (K6, ``hot_rows
    =256``) for 64 steps each: K5 or K6 and K1 once per step, W moved, and
    the trained W and every step's losses bitwise equal to the ``hbm``
    phase's ``fused_hbm`` run (same seeds, same chunks): the whole training
    run is held against K4a.
-8. ``time`` — each kernel held against its plain version at its path's
+10. ``time`` — each kernel held against its plain version at its path's
    shapes, then it and its plain version timed with CUDA events beside the
    least time the card could take: K1 (ids bitwise) and K2 (ids bitwise,
    W′, C′ and loss within tolerance, repeat bitwise) at the main path's
@@ -71,7 +93,7 @@ Phases:
    d = 512, B = 8,192, 64 blocks of 128) the planner's row traffic on the
    card (91,386 and 59,692 rows at ``hot_rows`` 0 and 2,048) and K5 and K6
    bitwise against, and timed beside, K4a.
-9. ``profile`` — the main path's, the ``random``/``rowgrad`` path's, the
+11. ``profile`` — the main path's, the ``random``/``rowgrad`` path's, the
    ``fused_hbm`` path's (K4a) and (after ``pipe``) the ``fused_pipe``
    path's training again under
    ``torch.profiler``, those of them that ran: device time per step by
@@ -80,7 +102,7 @@ Phases:
    ``profile_{main,random,hbm,pipe}*.json`` in the output directory); with
    ``decode``, 16
    full-ring decode steps too (``chiprun_out/profile_decode.json``).
-10. ``decode`` — the LLM decode path (``repro_torch.launch.decode_llm
+12. ``decode`` — the LLM decode path (``repro_torch.launch.decode_llm
    .serve``) on h2o-danube-1.8b at full width (24 layers, d = 2560, 32
    query heads over 8 KV heads, window 4096, float32; weights from seed
    0): batch 4, a prompt of 4,096 tokens, 64 new ones. Every SWA layer's
@@ -109,6 +131,7 @@ import math
 import subprocess
 import sys
 import time
+from contextlib import contextmanager
 from dataclasses import replace
 from pathlib import Path
 
@@ -143,8 +166,8 @@ K3_LOSS_ATOL = 1e-4
 K7_ATOL = {"float32": 1e-5, "bfloat16": 3e-2}
 DECODE_LOGITS_TOL = 2e-3
 
-PHASES = ("build", "k1", "k2", "main", "random", "hbm", "pipe", "time", "profile",
-          "decode")
+PHASES = ("build", "k1", "k2", "main", "sync", "merge", "random", "hbm", "pipe", "time",
+          "profile", "decode")
 REPLACES = {
     "sample_negatives": "src/repro/kernels/sgns_fused.py:197",
     "sgns_fused_step": "src/repro/kernels/sgns_fused.py:105",
@@ -171,6 +194,9 @@ NUM_WORKERS, DIM, BATCH, STEPS, STEPS_PER_CHUNK = 10, 500, 1024, 64, 32
 # The decode path's: h2o-danube-1.8b at full width, a prompt of one window.
 DECODE = dict(arch="h2o-danube-1.8b", batch=4, prompt_len=4096, new_tokens=64, seed=0)
 DECODE_CHECK_STEPS, DECODE_KERNEL_CHECKS = 16, 4
+# The sync phase: the baseline's first steps held against the CPU, and
+# local SGD's syncs (8 of 8 local steps in the 64-step epoch).
+SYNC_CHECK_STEPS, SYNC_EVERY = 4, 8
 _WORLD: dict = {}
 
 
@@ -430,10 +456,342 @@ def phase_main(device):
     kw = train_kw("shuffle", "fused")
     res, launches, taken = _train("main", device, kw, ("sgns_fused_step",),
                                   absent=("sample_negatives",))
-    _merge_and_score("main", res, device, full_cover=True)
+    emb, scores = _merge_and_score("main", res, device, full_cover=True)
+    # the sync phase compares its pairs/s with this run's; the merge phase
+    # merges these sub-models again (and drops them)
     return {"launches": launches, "steps": taken, "counts": res.union_vocab.counts,
             "V": res.union_vocab.size, "n": NUM_WORKERS, "dim": DIM, "B": BATCH,
-            "K": kw["cfg"].negatives, "lr": kw["cfg"].lr, "train_kw": kw}
+            "K": kw["cfg"].negatives, "lr": kw["cfg"].lr, "train_kw": kw,
+            "train_s": res.timings["train_s"], "stacked": res.stacked,
+            "alir_pca": emb, "scores": scores, "vocab": res.union_vocab}
+
+
+@contextmanager
+def _nccl_world_of_one(tag: str, device):
+    """An NCCL process group of world size 1 on ``device``, rendezvous
+    through a file under the build directory (no network), destroyed on
+    exit so that later phases run with no group."""
+    import os
+    import torch
+    import torch.distributed as dist
+
+    os.environ.setdefault("NCCL_SOCKET_IFNAME", "lo")
+    store = ROOT / "build" / f"nccl_store_{tag}"
+    store.parent.mkdir(exist_ok=True)
+    store.unlink(missing_ok=True)
+    torch.cuda.set_device(device)
+    dist.init_process_group("nccl", store=dist.FileStore(str(store), 1), rank=0,
+                            world_size=1)
+    try:
+        if dist.get_backend() != "nccl":
+            raise RuntimeError(f"expected an NCCL group, got {dist.get_backend()}")
+        yield dist.group.WORLD
+    finally:
+        dist.destroy_process_group()
+        store.unlink(missing_ok=True)
+
+
+@contextmanager
+def _collective_calls():
+    """Count every ``torch.distributed`` collective the block makes (by
+    name), without changing what the calls do."""
+    import torch.distributed as dist
+
+    calls: list = []
+    names = ("all_gather_into_tensor", "all_gather", "all_reduce", "broadcast",
+             "reduce_scatter_tensor", "all_to_all_single", "barrier")
+    real = {n: getattr(dist, n) for n in names}
+
+    def counted(name):
+        def call(*a, **k):
+            calls.append(name)
+            return real[name](*a, **k)
+        return call
+
+    for n in names:
+        setattr(dist, n, counted(n))
+    try:
+        yield calls
+    finally:
+        for n, fn in real.items():
+            setattr(dist, n, fn)
+
+
+def _sync_inputs(device):
+    """The sync baseline's inputs, rebuilt with the driver's own helpers
+    (``train_sync_baseline`` with seed 0 and one epoch): the vocabulary's
+    alias table, the epoch's first STEPS batches of n·B pairs, its key."""
+    from repro_torch.core import driver
+    from repro_torch.core.sgns import SGNSConfig
+    from repro_torch.data.pairs import build_noise_table, extract_pairs
+    from repro_torch.data.vocab import build_vocab
+
+    corpus, _ = world()
+    batch = NUM_WORKERS * BATCH
+    vocab = build_vocab(corpus, VOCAB, min_count=1, max_size=VOCAB)
+    cfg = SGNSConfig(vocab_size=vocab.size, dim=DIM, window=5, negatives=5)
+    centers, contexts = extract_pairs(corpus, vocab, window=5, subsample_t=1e-4, seed=0)
+    steps = min(max(1, len(centers) // batch), STEPS)
+    rng = driver._epoch_rng(0, driver._STREAM_SYNC_PERM, 0)
+    perm = driver._tiled_permutation(rng, len(centers), steps * batch)
+    return dict(cfg=cfg, table=build_noise_table(vocab.counts, kind="alias"),
+                centers=centers[perm].reshape(steps, batch),
+                contexts=contexts[perm].reshape(steps, batch),
+                key=driver._epoch_key(0, driver._STREAM_SYNC_EPOCH, 0), steps=steps)
+
+
+def phase_sync(device, main: dict) -> dict:
+    """The synchronous baselines at the main configuration: the paper's
+    comparison (one shared table, the gradient synchronized every step)
+    and local SGD over the main path's 10 workers."""
+    import torch
+    from repro_torch import prng
+    from repro_torch.core.async_trainer import make_periodic_sync_epoch, make_sync_epoch
+    from repro_torch.core.driver import train_sync_baseline
+    from repro_torch.core.engine import get_engine
+    from repro_torch.core.sgns import SGNSConfig, init_params, linear_lr
+    from repro_torch.kernels import sgns_fused as K
+
+    corpus, _ = world()
+    batch = NUM_WORKERS * BATCH
+    cfg = SGNSConfig(vocab_size=0, dim=DIM, window=5, negatives=5)
+    plateau = (cfg.negatives + 1) * math.log(2.0)
+    # 1. the baseline through its entry point, twice
+    runs = []
+    for _ in range(2):
+        K.reset_launch_counts()
+        params, vocab, info = train_sync_baseline(
+            corpus, VOCAB, cfg, epochs=1, batch_size=batch, window=5, max_vocab=VOCAB,
+            max_steps_per_epoch=STEPS, engine="fused", device=device)
+        runs.append((params, info, dict(K.LAUNCHES)))
+        log(f"[sync] baseline {vocab.size} x {DIM}, batch {batch}: "
+            f"{info['steps_per_epoch']} steps in {info['train_s']:.3f} s, epoch loss "
+            f"{info['losses'][0]:.7f}; launches {runs[-1][2]}")
+    (p1, i1, l1), (p2, i2, _) = runs
+    steps = i1["steps_per_epoch"]
+    if l1["sample_negatives"] != steps or l1["sgns_fused_step"]:
+        raise RuntimeError(f"expected {steps} K1 launches and no K2, got {l1}")
+    if steps != STEPS or not all(math.isfinite(x) for x in i1["losses"]):
+        raise RuntimeError(f"bad baseline run: {steps} steps, losses {i1['losses']}")
+    if not i1["losses"][0] < plateau:
+        raise RuntimeError(f"the baseline's loss did not fall below (K+1)·log 2: "
+                           f"{i1['losses']}")
+    same = (torch.equal(p1["W"], p2["W"]) and torch.equal(p1["C"], p2["C"])
+            and i1["losses"] == i2["losses"])
+    log(f"[sync] repeat run bitwise identical (W, C, losses): {same}")
+    if not same:
+        raise RuntimeError("two baseline runs from the same seed differ")
+    del runs, p1, p2
+    sync_pps = [batch * i["steps_per_epoch"] / i["train_s"] for i in (i1, i2)]
+    async_pps = main["n"] * main["B"] / (main["train_s"] / main["steps"])
+    log(f"[sync] pairs/s: synchronous baseline {sync_pps[0]:.4e} / {sync_pps[1]:.4e} "
+        f"(10,240 x {steps} / train_s); asynchronous main path {async_pps:.4e} "
+        f"(n·B / step wall, {main['train_s']:.3f} s for {main['steps']} steps): "
+        f"{async_pps / sync_pps[0]:.3f}x")
+
+    # its first steps against the same steps on the CPU
+    inp = _sync_inputs(device)
+    cfg_v, n_check = inp["cfg"], SYNC_CHECK_STEPS
+    c, x = inp["centers"][:n_check], inp["contexts"][:n_check]
+    out = []
+    init = init_params(prng.PRNGKey(cfg_v.seed), cfg_v, device=device)
+    for dev in (device, torch.device("cpu")):
+        K.reset_launch_counts()
+        params = {k: v.to(dev, copy=True) for k, v in init.items()}
+        epoch = make_sync_epoch(cfg_v, inp["table"], inp["steps"], engine="fused",
+                                device=dev)
+        out.append((*epoch(params, c, x, inp["key"], 0), K.LAUNCHES["sample_negatives"]))
+    (pg, lg, kg), (pc, lc, _) = out
+    if kg != n_check:
+        raise RuntimeError(f"expected {n_check} K1 launches, got {kg}")
+    seeds = K.seed_tensor(prng.step_keys(inp["key"], n_check))
+    engine = get_engine("fused")
+    table = {k: v[None] for k, v in inp["table"].items()}
+    mism = sum(int((engine.sample({k: v.to(device) for k, v in table.items()},
+                                  seeds[i:i + 1].to(device), (batch, 5)).cpu()
+                    != engine.sample(table, seeds[i:i + 1], (batch, 5))).sum())
+               for i in range(n_check))
+    err_t = max(float((pg[k].cpu() - pc[k]).abs().max()) for k in ("W", "C"))
+    err_l = float((lg.cpu() - lc).abs().max())
+    log(f"[sync] first {n_check} steps on the card vs the CPU: ids {mism} mismatches, "
+        f"max |Δtable| {err_t:.3e} (tol {K2_TABLE_ATOL:g}), max |Δloss| {err_l:.3e} "
+        f"(tol {K2_LOSS_ATOL:g}); step losses "
+        + " ".join(f"{v:.7f}" for v in lg.tolist()))
+    if mism or err_t > K2_TABLE_ATOL or err_l > K2_LOSS_ATOL:
+        raise RuntimeError("the sync epoch on the card disagrees with the CPU's")
+    if abs(float(lg[0]) - plateau) > 1e-5:
+        raise RuntimeError(f"the first step's loss {float(lg[0])} is not (K+1)·log 2")
+
+    # the process-group path: an NCCL group of one is no group, bitwise
+    with _nccl_world_of_one("sync", device) as group, _collective_calls() as calls:
+        params = {k: v.clone() for k, v in init.items()}
+        pn, ln = make_sync_epoch(cfg_v, inp["table"], inp["steps"], group=group,
+                                 engine="fused", device=device)(params, c, x, inp["key"], 0)
+        torch.cuda.synchronize(device)
+    same = torch.equal(pn["W"], pg["W"]) and torch.equal(pn["C"], pg["C"]) and \
+        torch.equal(ln, lg)
+    log(f"[sync] NCCL group of one, {n_check} steps: bitwise the run without a group: "
+        f"{same}; collectives {len(calls)} ({sorted(set(calls))})")
+    if not same or len(calls) != 3 * n_check:
+        raise RuntimeError("the sync epoch in a group of one is not the run without one")
+    del out, pg, pc, pn
+
+    # 2. local SGD: 10 stacked workers, a mean every SYNC_EVERY steps
+    n, every = NUM_WORKERS, SYNC_EVERY
+    c3 = inp["centers"].reshape(-1, every, batch)
+    x3 = inp["contexts"].reshape(-1, every, batch)
+    total = inp["steps"]
+    K.reset_launch_counts()
+    t0 = time.perf_counter()
+    got, losses = make_periodic_sync_epoch(cfg_v, inp["table"], total, sync_every=every,
+                                           num_workers=n, engine="fused", device=device)(
+        init, c3, x3, inp["key"], 0)
+    torch.cuda.synchronize(device)
+    periodic_s = time.perf_counter() - t0
+    launches = dict(K.LAUNCHES)
+    log(f"[sync] periodic sync, {n} workers x {BATCH} pairs, a mean every {every} "
+        f"steps: {total} steps in {periodic_s:.3f} s ({n * BATCH * total / periodic_s:.4e} "
+        f"pairs/s); launches {launches}; mean loss per sync "
+        + " ".join(f"{v:.7f}" for v in losses.mean(dim=1).tolist()))
+    if launches["sgns_fused_step"] != total or launches["sample_negatives"]:
+        raise RuntimeError(f"expected {total} K2 launches and no K1, got {launches}")
+    moved = max(float((got[k] - init[k]).abs().max()) for k in ("W", "C"))
+    if not torch.isfinite(losses).all() or not (math.isfinite(moved) and moved > 0.0):
+        raise RuntimeError(f"periodic sync: losses {losses.mean(dim=1)}, the tables "
+                           f"moved {moved} from their init")
+    tab = {k: v.to(device).expand(n, -1).contiguous() for k, v in inp["table"].items()}
+    seeds = K.seed_tensor(prng.step_keys(inp["key"], total), device)
+    cen = torch.from_numpy(c3).to(device)
+    ctx = torch.from_numpy(x3).to(device)
+    errs = {}
+    for label, step in (("K2", K.sgns_fused_step), ("plain", K.sgns_fused_step_plain)):
+        stacked = {k: v.repeat(n, 1, 1) for k, v in init.items()}
+        hand = torch.empty_like(losses)
+        for o in range(total // every):
+            for j in range(every):
+                i = o * every + j
+                _, loss, _ = step(stacked, cen[o, j].reshape(n, BATCH).contiguous(),
+                                  ctx[o, j].reshape(n, BATCH).contiguous(), tab,
+                                  seeds[i].expand(n, 2).contiguous(),
+                                  float(linear_lr(i, total, cfg_v)), negatives=5)
+                hand[o, j] = loss.mean(dim=1).mean()
+            means = {k: t.mean(dim=0) for k, t in stacked.items()}
+            for k, t in stacked.items():
+                t.copy_(means[k].expand_as(t))
+        torch.cuda.synchronize(device)
+        errs[label] = (max(float((got[k] - means[k]).abs().max()) for k in ("W", "C")),
+                       float((losses - hand).abs().max()))
+        del stacked, means
+    log(f"[sync] periodic sync vs a hand loop of {total // every} x ({every} K2 steps, "
+        f"then the mean): max |Δtable| {errs['K2'][0]:.3e}, max |Δloss| "
+        f"{errs['K2'][1]:.3e} (bitwise required); vs the same loop with K2's plain "
+        f"version: {errs['plain'][0]:.3e} (tol {K2_TABLE_ATOL:g}), {errs['plain'][1]:.3e} "
+        f"(tol {K2_LOSS_ATOL:g})")
+    if errs["K2"] != (0.0, 0.0):
+        raise RuntimeError("the periodic sync is not bitwise its hand loop")
+    if errs["plain"][0] > K2_TABLE_ATOL or errs["plain"][1] > K2_LOSS_ATOL:
+        raise RuntimeError("the periodic sync disagrees with K2's plain version")
+    return {"launches": l1, "periodic_launches": launches, "steps": steps,
+            "pairs_per_s": sync_pps, "async_pairs_per_s": async_pps,
+            "train_s": [i1["train_s"], i2["train_s"]], "periodic_s": periodic_s}
+
+
+def phase_merge(device, main: dict) -> dict:
+    """The Merger registry and the reduction tree on the main path's
+    sub-models: batch ≡ incremental and the tree's arrival independence,
+    bitwise; the mesh Gram in an NCCL group of one; each merger's wall."""
+    import numpy as np
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.core.merge import IncrementalAlirMerger, get_merger, sharded_gram
+    from repro_torch.eval.benchmarks import evaluate_all
+    from repro_torch.sharding.merge import mesh_sharded_gram
+
+    _, suite = world()
+    stacked = main["stacked"]
+    n, V, d = stacked.models.shape
+    walls, out = {}, {}
+
+    def timed(label, fn):
+        torch.cuda.synchronize(device)
+        t0 = time.perf_counter()
+        res = fn()
+        torch.cuda.synchronize(device)
+        walls[label] = time.perf_counter() - t0
+        return res
+
+    for name in ("alir", "alir_tree", "average", "concat", "pca"):
+        merger = get_merger(name, device=device)
+        out[name] = timed(name, lambda: merger.merge(stacked))
+        if name == "alir_tree":
+            tree = merger
+        if not torch.isfinite(out[name].emb).all():
+            raise RuntimeError(f"{name}: non-finite merged table")
+    log(f"[merge] {n} x ({V}, {d}) on the card, wall s: "
+        + ", ".join(f"{k} {v:.3f}" for k, v in walls.items())
+        + f"; the tree's critical path {tree.critical_path_s():.3f} s over "
+        f"{tree.stats['solved']} node solves ({tree.stats['passthrough']} passed through)")
+    batch = out["alir"]
+    if not torch.equal(batch.emb, main["alir_pca"]):
+        raise RuntimeError('get_merger("alir") is not merge(..., "alir_pca") bitwise')
+
+    def arrive(merger, order, fold: bool):
+        for w in order:
+            merger.add(int(w), stacked.models[w], stacked.mask[w], fold=fold)
+        return merger.final()
+
+    # batch ≡ incremental, two arrival orders (warm folds on each arrival in
+    # the first), the final cold fold in canonical order
+    for k, order in enumerate((np.random.default_rng(1).permutation(n),
+                               np.random.default_rng(2).permutation(n))):
+        final = timed(f"incremental_{k}",
+                      lambda: arrive(IncrementalAlirMerger(device=device), order, k == 0))
+        same = all(torch.equal(getattr(final, f), getattr(batch, f))
+                   for f in ("emb", "valid", "transforms"))
+        log(f"[merge] IncrementalAlirMerger, arrivals {order.tolist()} "
+            f"({'a warm fold each' if k == 0 else 'no fold'}), then final(): bitwise "
+            f"the batch merge: {same} ({walls[f'incremental_{k}']:.3f} s)")
+        if not same or final.worker_ids != tuple(range(n)):
+            raise RuntimeError("the incremental ALiR merge is not the batch merge")
+
+    # the tree's root under a permuted arrival order
+    order = np.random.default_rng(3).permutation(n)
+    root = timed("alir_tree_arrivals",
+                 lambda: arrive(get_merger("alir_tree", fan_in=2, device=device), order,
+                                False))
+    same = all(torch.equal(getattr(root, f), getattr(out["alir_tree"], f))
+               for f in ("emb", "valid", "transforms"))
+    log(f"[merge] alir_tree (fan_in 2), arrivals {order.tolist()}: root bitwise the "
+        f"batch tree's: {same}")
+    if not same:
+        raise RuntimeError("the tree's root depends on the arrival order")
+    union = stacked.mask.any(0)
+    scores = {}
+    for name in ("alir", "alir_tree"):
+        if not torch.equal(out[name].valid, union):
+            raise RuntimeError(f"{name}: valid rows are not the union presence mask")
+        scores[name] = evaluate_all(out[name].emb.cpu().numpy(), out[name].valid.cpu().numpy(),
+                                    main["vocab"], suite)
+    log(f"[merge] quality: flat alir_pca sim rho={scores['alir']['similarity']:.3f} "
+        f"analogy={scores['alir']['analogy']:.3f} purity="
+        f"{scores['alir']['categorization']:.3f}; alir_tree sim rho="
+        f"{scores['alir_tree']['similarity']:.3f} analogy={scores['alir_tree']['analogy']:.3f}"
+        f" purity={scores['alir_tree']['categorization']:.3f}")
+
+    # the mesh Gram: one all_gather in an NCCL group of one
+    S = 4
+    pad = (-V) % S
+    A = F.pad(stacked.models[0], (0, 0, 0, pad))
+    B = F.pad(batch.emb, (0, 0, 0, pad))
+    with _nccl_world_of_one("merge", device) as group, _collective_calls() as calls:
+        g = mesh_sharded_gram(A, B, group, num_shards=S)
+        torch.cuda.synchronize(device)
+    same = torch.equal(g, sharded_gram(A, B, S))
+    log(f"[merge] mesh_sharded_gram, S = {S}, V padded {V} -> {V + pad}: bitwise "
+        f"sharded_gram: {same}; collectives {calls}")
+    if not same or calls != ["all_gather_into_tensor"]:
+        raise RuntimeError("the mesh Gram is not sharded_gram with one all_gather")
+    return {"walls": walls, "critical_path_s": tree.critical_path_s(), "scores": scores}
 
 
 def phase_random(device):
@@ -1479,6 +1837,8 @@ def main(argv=None) -> int:
         ap.error("the profile phase needs the main, random or decode phase")
     if "pipe" in phases and "hbm" not in phases:
         ap.error("the pipe phase needs the hbm phase")
+    if {"sync", "merge"} & set(phases) and "main" not in phases:
+        ap.error("the sync and merge phases need the main phase")
 
     import torch
 
@@ -1506,6 +1866,15 @@ def main(argv=None) -> int:
         torch.cuda.empty_cache()
     if "main" in phases:
         results["main"] = phase_main(device)
+        torch.cuda.empty_cache()
+    if "sync" in phases:
+        results["sync"] = phase_sync(device, results["main"])
+        torch.cuda.empty_cache()
+    if "merge" in phases:
+        results["merge"] = phase_merge(device, results["main"])
+    if "main" in results:
+        for k in ("stacked", "alir_pca"):          # the sub-models are merged
+            results["main"].pop(k)
         torch.cuda.empty_cache()
     if "random" in phases:
         results["random"] = phase_random(device)
@@ -1571,6 +1940,14 @@ def main(argv=None) -> int:
                       "device_us"):   # K1 beside an empty launch, K3 beside its first design
                 if k in t:
                     kernels[-1][k] = t[k]
+        # K1 and K2 also run on this slice's paths: the sync baseline's draw
+        # (K1 a step) and the periodic sync's local steps (K2 a step)
+        kernels[0]["launches_by_path"] = {
+            "pipe": launches["sample_negatives"],
+            "sync": results["sync"]["launches"]["sample_negatives"]}
+        kernels[1]["launches_by_path"] = {
+            "main": launches["sgns_fused_step"],
+            "periodic": results["sync"]["periodic_launches"]["sgns_fused_step"]}
         print(json.dumps({"kernels": kernels}), flush=True)
     log(f"[env] phases {','.join(phases)} done in {time.perf_counter() - t_start:.1f} s")
     print(gpu, flush=True)

@@ -16,6 +16,14 @@ port derives a chunk's ``(n, S, 2)`` seed words on the host with
 Every engine consumes the same per-step ``(n, 2)`` words: the fused
 kernels as their counter-hash seed, the ``jax.random`` samplers as each
 worker's key.
+
+The synchronized baselines (:func:`make_sync_epoch`, the paper's
+Hogwild/MLLib stand-in, and :func:`make_periodic_sync_epoch`, local SGD)
+share one table. The reference runs them over a ``worker`` mesh with
+``psum``/``pmean``; here the mesh's devices are an optional
+``torch.distributed`` process group (``all_reduce``), and the periodic
+sync's devices are also a leading axis of ``n`` stacked copies in one
+process. Without a group they make no collective call.
 """
 
 from __future__ import annotations
@@ -24,6 +32,7 @@ from dataclasses import dataclass
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from repro_torch import prng
 from repro_torch.core import sgns
@@ -132,6 +141,151 @@ class AsyncShardTrainer:
                                      _tensor(contexts)[None], table, keys,
                                      int(step0))
         return params, losses[0]
+
+
+# ---------------------------------------------------------------------------
+# Synchronized baselines: one shared table
+# ---------------------------------------------------------------------------
+def _rank_world(group) -> tuple[int, int]:
+    if group is None:
+        return 0, 1
+    return dist.get_rank(group), dist.get_world_size(group)
+
+
+def _stacked_table(neg_table, n: int, device):
+    """One vocabulary's ``(V,)`` table(s) as ``n`` contiguous copies ``(n,
+    V)`` on ``device`` (every worker draws from the shared table)."""
+    if isinstance(neg_table, dict):
+        return {k: _tensor(v).to(device).expand(n, -1).contiguous()
+                for k, v in neg_table.items()}
+    return _tensor(neg_table).to(device).expand(n, -1).contiguous()
+
+
+def _batch_part(ids, device, parts: int, part: int) -> torch.Tensor:
+    """``ids`` ``(..., B)`` → the contiguous slice ``part`` of ``parts``
+    along the batch axis (a worker's share under the reference's batch
+    sharding)."""
+    t = _tensor(ids).to(device)
+    B = t.shape[-1]
+    if B % parts:
+        raise ValueError(f"batch {B} does not split over {parts} workers")
+    b = B // parts
+    return t[..., part * b:(part + 1) * b].contiguous()
+
+
+def make_sync_epoch(cfg: SGNSConfig, neg_table, total_steps: int, group=None,
+                    engine="dense", device=None):
+    """One shared table; per-step gradient synchronization. Returns
+    ``epoch_fn(params, centers (S, B), contexts (S, B), key, step0) ->
+    (params, losses (S,))``, ``params`` ``{"W", "C"}`` of ``(V, d)`` on
+    ``device`` (the GPU unless ``device="cpu"``).
+
+    Each step splits the key as the reference's scan does, draws ``(B,
+    K)`` negatives with ``engine.sample`` from the vocabulary's ``neg_table``
+    (layout ``engine.table_kind``), takes the dense gradient of
+    :func:`sgns.sum_loss_fn` and applies ``p − lr·g``: only the engine's
+    draw is used, since the gradient must be dense for the all-reduce.
+    With a process ``group``, rank r trains on slice r of the batch and the
+    gradients are ``all_reduce``d (sum) and the loss averaged — the
+    reference's ``psum``/``pmean`` over its ``worker`` axis, the per-step
+    collective the paper eliminates."""
+    engine = get_engine(engine)
+    device = resolve_device(device)
+    table = _stacked_table(neg_table, 1, device)
+    rank, world = _rank_world(group)
+
+    def step(params, c_b, x_b, seed, i):
+        negs = engine.sample(table, seed, (c_b.shape[0], cfg.negatives))[0]
+        lr32 = float(sgns.linear_lr(i, total_steps, cfg))
+        sum_loss, grads = sgns.sum_loss_grads(params, c_b, x_b, negs)
+        loss = sum_loss / c_b.shape[0]
+        if group is not None:
+            for g in grads.values():
+                dist.all_reduce(g, group=group)
+            dist.all_reduce(loss, group=group)
+            loss = loss / world
+        return {k: params[k] - lr32 * g for k, g in grads.items()}, loss
+
+    def epoch_fn(params, centers, contexts, key, step0):
+        cen = _batch_part(centers, device, world, rank)
+        ctx = _batch_part(contexts, device, world, rank)
+        S = cen.shape[0]
+        seeds = seed_tensor(prng.step_keys(key, S), device)      # (S, 2)
+        losses = torch.empty(S, dtype=torch.float32, device=device)
+        for i in range(S):
+            params, losses[i] = step(params, cen[i], ctx[i], seeds[i:i + 1],
+                                     int(step0) + i)
+        return params, losses
+
+    return epoch_fn
+
+
+def make_periodic_sync_epoch(cfg: SGNSConfig, neg_table, total_steps: int,
+                             sync_every: int, num_workers: int = 1, *, group=None,
+                             engine="dense", device=None):
+    """One shared table; parameters *averaged* across workers every
+    ``sync_every`` steps (local SGD) instead of gradients every step.
+    Returns ``epoch_fn(params, centers (outer, sync_every, B), contexts,
+    key, step0) -> (params, losses (outer, sync_every))``, ``params`` the
+    ``(V, d)`` tables after the last average.
+
+    The reference's devices on the ``worker`` axis are ``num_workers``
+    stacked ``(n, V, d)`` copies of the table here (times the ranks of
+    ``group``, if given): worker w of rank r trains on slice ``r·n + w`` of
+    the batch, and between syncs every copy takes the ``engine``'s own
+    worker-batched step (with ``fused``, one K2 launch for all n). Every
+    worker steps with **the same seed**, since the reference's key is
+    replicated. A sync replaces every copy by the mean over the worker
+    axis (``all_reduce`` and a division by the world size across ranks,
+    as ``pmean``); the losses are that mean over workers too."""
+    engine = get_engine(engine)
+    engine.validate(vocab_size=cfg.vocab_size)
+    device = resolve_device(device)
+    n = int(num_workers)
+    if n < 1 or sync_every < 1:
+        raise ValueError(f"need num_workers >= 1 and sync_every >= 1, got "
+                         f"{num_workers} and {sync_every}")
+    table = _stacked_table(neg_table, n, device)
+    step = engine.make_step(cfg, total_steps)
+    rank, world = _rank_world(group)
+
+    def pmean(t: torch.Tensor) -> torch.Tensor:
+        t = t.mean(dim=0)
+        if group is not None:
+            dist.all_reduce(t, group=group)
+            t = t / world
+        return t
+
+    def epoch_fn(params, centers, contexts, key, step0):
+        outer, k = centers.shape[:2]
+        if k != sync_every:
+            raise ValueError(f"centers (outer, sync_every, B) has {k} steps "
+                             f"between syncs, expected {sync_every}")
+        parts = [(_batch_part(centers, device, world * n, rank * n + w),
+                  _batch_part(contexts, device, world * n, rank * n + w))
+                 for w in range(n)]
+        cen = torch.stack([c for c, _ in parts], dim=2)    # (outer, k, n, b)
+        ctx = torch.stack([x for _, x in parts], dim=2)
+        seeds = seed_tensor(prng.step_keys(key, outer * k), device)
+        # copies (never views: the caller's tables stay as they were)
+        stacked = {name: p.to(device).repeat(n, 1, 1) for name, p in params.items()}
+        losses = torch.empty((outer, k), dtype=torch.float32, device=device)
+        for o in range(outer):
+            for j in range(k):
+                i = o * k + j
+                stacked, loss = step(stacked, cen[o, j], ctx[o, j], table,
+                                     seeds[i].expand(n, 2).contiguous(),
+                                     int(step0) + i)
+                losses[o, j] = loss.mean()
+            params = {name: pmean(t) for name, t in stacked.items()}
+            for name, t in stacked.items():
+                t.copy_(params[name].expand_as(t))
+        if group is not None:
+            dist.all_reduce(losses, group=group)
+            losses = losses / world
+        return params, losses
+
+    return epoch_fn
 
 
 def _tensor(a) -> torch.Tensor:

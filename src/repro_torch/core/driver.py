@@ -14,7 +14,10 @@ tables stack into ``(n, V_union, d)``.
 The divide phase (vocabularies, noise tables, pair streams, schedule)
 is numpy and bitwise equal to the reference's; the epoch, chunk and
 worker keys follow the same threefry derivation, so a run from the same
-seed draws the same negatives.
+seed draws the same negatives. :func:`train_sync_baseline` is the
+paper's synchronized baseline end to end (one shared table, the gradient
+synchronized every step), the comparison the asynchronous path is
+measured against.
 """
 
 from __future__ import annotations
@@ -27,7 +30,8 @@ import torch
 
 from repro_torch import prng
 from repro_torch.core.sgns import SGNSConfig
-from repro_torch.core.async_trainer import AsyncShardTrainer, _mean_loss
+from repro_torch.core.async_trainer import (
+    AsyncShardTrainer, _mean_loss, make_sync_epoch)
 from repro_torch.core.engine import get_engine
 from repro_torch.core.merge import StackedModels, merge as merge_models
 from repro_torch.core.schedule import plan_epoch
@@ -41,6 +45,8 @@ from repro_torch.device import resolve_device
 # PRNG streams: fold_in(fold_in(PRNGKey(seed), stream), epoch), as in the
 # reference (its arithmetic-seed predecessors collided across runs).
 _STREAM_ASYNC_DATA = 0      # per-chunk keys for the async workers' epochs
+_STREAM_SYNC_EPOCH = 1      # the sync baseline's in-epoch negative draws
+_STREAM_SYNC_PERM = 2       # the sync baseline's numpy pair permutation
 
 # Leading entropy word of every numpy SeedSequence built here, disjoint
 # from the pipeline's pair-extraction domain.
@@ -65,6 +71,19 @@ def _epoch_rng(seed: int, stream: int, epoch: int) -> np.random.Generator:
     SeedSequence)."""
     return np.random.default_rng(
         np.random.SeedSequence((_SEED_DOMAIN, seed, stream, epoch)))
+
+
+def _tiled_permutation(rng: np.random.Generator, n_pairs: int,
+                       need: int) -> np.ndarray:
+    """``need`` pair indices covering [0, n_pairs) as evenly as possible:
+    whole independent permutations back to back."""
+    if n_pairs <= 0:
+        raise ValueError("no training pairs extracted from the corpus")
+    reps = -(-need // n_pairs)
+    if reps == 1:
+        return rng.permutation(n_pairs)[:need]
+    return np.concatenate(
+        [rng.permutation(n_pairs) for _ in range(reps)])[:need]
 
 
 # ---------------------------------------------------------------------------
@@ -321,6 +340,7 @@ def run_pipeline(
     num_workers: int = 10,
     cfg: SGNSConfig | None = None,
     merge_methods: tuple[str, ...] = ("concat", "pca", "alir_pca"),
+    merge_fan_in: int = 2,
     merge_shard: int = 1,
     device=None,
     **kw,
@@ -330,19 +350,85 @@ def run_pipeline(
     cfg = cfg or SGNSConfig(vocab_size=0, dim=64)
     res = train_submodels(corpus, raw_vocab_size, strategy, num_workers, cfg,
                           device=device, **kw)
-    return apply_merges(res, merge_methods, out_dim=cfg.dim, shard=merge_shard)
+    return apply_merges(res, merge_methods, out_dim=cfg.dim,
+                        fan_in=merge_fan_in, shard=merge_shard)
 
 
 def apply_merges(res: PipelineResult, merge_methods, out_dim: int, *,
-                 shard: int = 1) -> PipelineResult:
+                 fan_in: int = 2, shard: int = 1) -> PipelineResult:
     """Fold the stacked sub-models with each requested method on their
-    device, recording wall-clock per method in ``res.timings``."""
+    device, recording wall-clock per method in ``res.timings``.
+    ``fan_in`` sizes the ``alir_tree`` reduction tree; ``shard`` the ALiR
+    Gram accumulation."""
     device = res.stacked.models.device
     for method in merge_methods:
         t0 = time.perf_counter()
         emb, valid = merge_models(res.stacked, method, out_dim=out_dim,
-                                  key=prng.PRNGKey(42), shard=shard,
-                                  device=device)
+                                  key=prng.PRNGKey(42), fan_in=fan_in,
+                                  shard=shard, device=device)
         res.merged[method] = (emb.cpu().numpy(), valid.cpu().numpy())
         res.timings[f"merge_{method}_s"] = time.perf_counter() - t0
     return res
+
+
+# ---------------------------------------------------------------------------
+# Synchronized baseline (the paper's Hogwild stand-in) end to end.
+# ---------------------------------------------------------------------------
+def train_sync_baseline(
+    corpus: Corpus,
+    raw_vocab_size: int,
+    cfg: SGNSConfig,
+    epochs: int = 3,
+    batch_size: int = 512,
+    window: int | None = None,
+    subsample_t: float | None = 1e-4,
+    max_vocab: int | None = 300_000,
+    seed: int = 0,
+    max_steps_per_epoch: int | None = None,
+    engine="dense",
+    device=None,
+    group=None,
+):
+    """One table trained on the whole corpus with the gradient
+    synchronized every step (:func:`make_sync_epoch`) on ``device`` (the
+    GPU unless ``device="cpu"``); ``group`` is the optional process group
+    the gradients are all-reduced over. Returns ``(params, vocab, {"train_s",
+    "steps_per_epoch", "losses"})``, ``losses`` one mean per epoch."""
+    from repro_torch.core import sgns
+    from repro_torch.data.pairs import extract_pairs
+
+    device = resolve_device(device)
+    engine = get_engine(engine)
+    vocab = build_vocab(corpus, raw_vocab_size, min_count=1, max_size=max_vocab)
+    cfg = SGNSConfig(**{**cfg.__dict__, "vocab_size": vocab.size})
+    window = window if window is not None else cfg.window
+    neg_table = _neg_tables([vocab], kind=engine.table_kind)
+    # single model: drop the stacked leading worker axis
+    neg_table = ({k: v[0] for k, v in neg_table.items()}
+                 if isinstance(neg_table, dict) else neg_table[0])
+
+    centers, contexts = extract_pairs(corpus, vocab, window=window,
+                                      subsample_t=subsample_t, seed=seed)
+    steps = max(1, len(centers) // batch_size)
+    if max_steps_per_epoch is not None:
+        steps = min(steps, max_steps_per_epoch)
+    total_steps = steps * epochs
+    epoch_fn = make_sync_epoch(cfg, neg_table, total_steps, group=group,
+                               engine=engine, device=device)
+    params = sgns.init_params(prng.PRNGKey(cfg.seed), cfg, device=device)
+    need = steps * batch_size
+    losses = []
+    t0 = time.perf_counter()
+    for epoch in range(epochs):
+        rng = _epoch_rng(seed, _STREAM_SYNC_PERM, epoch)
+        perm = _tiled_permutation(rng, len(centers), need)
+        c = torch.from_numpy(centers[perm].reshape(steps, batch_size))
+        x = torch.from_numpy(contexts[perm].reshape(steps, batch_size))
+        params, ep_losses = epoch_fn(params, c, x,
+                                     _epoch_key(seed, _STREAM_SYNC_EPOCH, epoch),
+                                     epoch * steps)
+        losses.append(float(ep_losses.mean()))
+    if device.type == "cuda":
+        torch.cuda.synchronize(device)
+    return params, vocab, {"train_s": time.perf_counter() - t0,
+                           "steps_per_epoch": steps, "losses": losses}

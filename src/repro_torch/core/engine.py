@@ -178,6 +178,14 @@ class FusedEngine(UpdateEngine):
                 f"{self.name} samples in-kernel from alias tables; "
                 f"sampler {self.sampler!r} is not supported")
 
+    def sample(self, table, seeds, shape: tuple[int, ...]):
+        """The kernel's counter-hash draw outside a step: ``(n, *shape)``
+        ids, exactly those an in-kernel step with these ``(n, 2)`` seeds
+        draws (K1 on the card, its plain version on the CPU)."""
+        from repro_torch.kernels.sgns_fused import sample_negatives
+
+        return sample_negatives(seeds, table["prob"], table["alias"], shape)
+
     def make_step(self, cfg: SGNSConfig, total_steps: int):
         from repro_torch.kernels.sgns_fused import sgns_fused_step
 

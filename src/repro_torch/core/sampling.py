@@ -52,3 +52,17 @@ def sample_sentence_indices(
         rng = np.random.default_rng((seed, 0x5EED, worker, epoch))
     return rng.integers(0, num_sentences, size=target, dtype=np.int64)
 
+
+
+def coverage_stats(indices_per_worker: list[np.ndarray], num_sentences: int) -> dict:
+    """Vocabulary-coverage-style stats at the sentence level (paper §3.1)."""
+    seen = np.zeros(num_sentences, dtype=bool)
+    per_worker_unique = []
+    for idx in indices_per_worker:
+        u = np.unique(idx)
+        per_worker_unique.append(len(u))
+        seen[u] = True
+    return {
+        "union_coverage": float(seen.mean()),
+        "mean_worker_unique": float(np.mean(per_worker_unique)),
+    }

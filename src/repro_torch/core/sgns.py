@@ -30,6 +30,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch import prng
+from repro_torch.device import resolve_device
 
 
 @dataclass(frozen=True)
@@ -43,9 +44,10 @@ class SGNSConfig:
     seed: int = 0
 
 
-def init_params(key, cfg: SGNSConfig, device="cpu") -> dict:
+def init_params(key, cfg: SGNSConfig, device=None) -> dict:
     """``{"W": U(−0.5/d, 0.5/d), "C": 0}`` of shape ``(V, d)`` from a
-    ``(2,)`` uint32 key."""
+    ``(2,)`` uint32 key, on ``device`` (the GPU unless ``device="cpu"``)."""
+    device = resolve_device(device)
     kw, _ = prng.split(key)
     w = prng.uniform(kw, (cfg.vocab_size, cfg.dim), -0.5 / cfg.dim,
                      0.5 / cfg.dim, device=device)
@@ -85,19 +87,29 @@ def sum_loss_fn(params: dict, centers: torch.Tensor, contexts: torch.Tensor,
     return loss_fn(params, centers, contexts, negatives) * centers.shape[0]
 
 
+def sum_loss_grads(params: dict, centers: torch.Tensor, contexts: torch.Tensor,
+                   negatives: torch.Tensor):
+    """:func:`sum_loss_fn` and its gradient through the gathers: ``(sum
+    loss, {"W", "C"})``, each gradient dense ``(V, d)``. The gathers'
+    backward is ``index_put_(accumulate=True)``, which on the GPU adds
+    duplicate rows in sorted serial order, so it repeats bit for bit."""
+    leaves = {k: v.detach().requires_grad_() for k, v in params.items()}
+    with torch.enable_grad():
+        sum_loss = sum_loss_fn(leaves, centers, contexts, negatives)
+        grads = torch.autograd.grad(sum_loss, [leaves["W"], leaves["C"]])
+    return sum_loss.detach(), dict(zip(("W", "C"), grads))
+
+
 def train_step_dense(params: dict, centers: torch.Tensor,
                      contexts: torch.Tensor, negatives: torch.Tensor,
                      lr: float):
     """Autograd step: the gradient of :func:`sum_loss_fn` through the
     gathers, a dense ``(V, d)`` gradient per table, ``p − lr·g`` over the
     whole table. Returns ``(new tables, mean loss)`` like the reference."""
-    leaves = {k: v.detach().requires_grad_() for k, v in params.items()}
-    with torch.enable_grad():
-        sum_loss = sum_loss_fn(leaves, centers, contexts, negatives)
-        grads = torch.autograd.grad(sum_loss, [leaves["W"], leaves["C"]])
+    sum_loss, grads = sum_loss_grads(params, centers, contexts, negatives)
     lr32 = float(np.float32(lr))
-    new = {k: params[k] - lr32 * g for k, g in zip(("W", "C"), grads)}
-    return new, sum_loss.detach() / centers.shape[0]
+    new = {k: params[k] - lr32 * g for k, g in grads.items()}
+    return new, sum_loss / centers.shape[0]
 
 
 def sparse_row_grads_per_pair(w: torch.Tensor, c_pos: torch.Tensor,

@@ -16,7 +16,8 @@ noise tables are torch tensors (built in float64 on the host, stored as
 float32/int32). The samplers are plain torch ops on the tables' device
 (they are XLA ops, not Pallas kernels, in the reference); each worker's
 ids are bitwise equal to ``jax.vmap`` of the reference sampler over the
-same keys.
+same keys. :class:`NegativeSampler` and :class:`AliasSampler` hold one
+vocabulary's table on a device and draw from it with one key.
 """
 
 from __future__ import annotations
@@ -27,6 +28,7 @@ import torch
 from repro_torch import prng
 from repro_torch.data.corpus import Corpus
 from repro_torch.data.vocab import Vocab, UNK
+from repro_torch.device import resolve_device
 
 
 def subsample_mask(
@@ -200,3 +202,45 @@ def stack_noise_tables(counts_per_worker: list[np.ndarray], kind: str = "cdf",
     if kind == "cdf":
         return torch.stack(tables)
     return {k: torch.stack([t[k] for t in tables]) for k in ("prob", "alias")}
+
+
+class NegativeSampler:
+    """Unigram^0.75 sampler: inverse-CDF lookup. ``cdf`` and ``probs`` are
+    float32 tensors on ``device`` (the GPU unless ``device="cpu"``)."""
+
+    def __init__(self, vocab_counts: np.ndarray, power: float = 0.75, device=None):
+        device = resolve_device(device)
+        p = unigram_noise_probs(vocab_counts, power)
+        cdf = np.cumsum(p)
+        cdf[-1] = 1.0
+        self.cdf = torch.tensor(cdf, dtype=torch.float32, device=device)
+        self.probs = torch.tensor(p, dtype=torch.float32, device=device)
+
+    def sample(self, key, shape: tuple[int, ...]) -> torch.Tensor:
+        """``shape`` int32 ids, bitwise the reference's draw under ``key``."""
+        return sample_negatives_cdf(self.cdf[None], np.asarray(key)[None], shape)[0]
+
+
+class AliasSampler:
+    """Unigram^0.75 sampler via Vose's alias method: O(V) build, O(1) draw.
+    ``prob``, ``alias`` and ``probs`` are tensors on ``device`` (the GPU
+    unless ``device="cpu"``)."""
+
+    def __init__(self, vocab_counts: np.ndarray, power: float = 0.75, device=None):
+        from repro_torch.core.distributions import build_alias_table
+
+        device = resolve_device(device)
+        p = unigram_noise_probs(vocab_counts, power)
+        prob, alias = build_alias_table(p)
+        self.prob = torch.tensor(prob, dtype=torch.float32, device=device)
+        self.alias = torch.tensor(alias, dtype=torch.int32, device=device)
+        self.probs = torch.tensor(p, dtype=torch.float32, device=device)
+
+    @property
+    def table(self) -> dict:
+        return {"prob": self.prob, "alias": self.alias}
+
+    def sample(self, key, shape: tuple[int, ...]) -> torch.Tensor:
+        """``shape`` int32 ids, bitwise the reference's draw under ``key``."""
+        table = {k: v[None] for k, v in self.table.items()}
+        return sample_negatives_alias(table, np.asarray(key)[None], shape)[0]

@@ -112,6 +112,16 @@ class WorkerStream:
                 break
         return total
 
+    def batches(
+        self, epoch: int, batch_size: int, max_pairs: int | None = None
+    ) -> Iterator[tuple[np.ndarray, np.ndarray]]:
+        """Full-batch slices of :meth:`pairs` (the materialized path; the
+        trailing partial batch is dropped)."""
+        centers, contexts = self.pairs(epoch, max_pairs=max_pairs)
+        n = (len(centers) // batch_size) * batch_size
+        for i in range(0, n, batch_size):
+            yield centers[i : i + batch_size], contexts[i : i + batch_size]
+
 
 def make_worker_streams(
     corpus: Corpus,
@@ -277,6 +287,13 @@ class HostShardPlan:
                    process_count=process_count or 1,
                    num_workers=num_workers)
 
+    @classmethod
+    def all_hosts(cls, process_count: int,
+                  num_workers: int) -> list["HostShardPlan"]:
+        """One plan per simulated host."""
+        return [cls(p, process_count, num_workers)
+                for p in range(process_count)]
+
     def local_streams(self, streams: Sequence[WorkerStream]
                       ) -> list[WorkerStream]:
         """This process's slice of the global per-worker stream list."""
@@ -299,6 +316,12 @@ class HostShardPlan:
             self.local_streams(streams), batch_size=batch_size,
             steps_per_chunk=steps_per_chunk,
             sentences_per_block=sentences_per_block)
+
+    def describe(self) -> str:
+        """One-line plan summary."""
+        return (f"host {self.process_index}/{self.process_count}: "
+                f"workers [{self.start}, {self.stop}) "
+                f"({self.num_local} of {self.num_workers})")
 
 
 _SENTINEL = object()
@@ -407,3 +430,17 @@ def _prefetch_gen(iterator, depth: int, device):
                 break
         thread.join(timeout=5.0)
 
+
+
+def stacked_pair_batches(
+    streams: list[WorkerStream],
+    epoch: int,
+    batch_size: int,
+    num_batches: int,
+) -> tuple[np.ndarray, np.ndarray]:
+    """(n_workers, num_batches, batch) arrays: one :class:`PairChunkStream`
+    chunk covering the whole request, so streamed and materialized
+    consumers see the same batches for the same seed."""
+    stream = PairChunkStream(streams, batch_size=batch_size,
+                             steps_per_chunk=num_batches)
+    return next(stream.chunks(epoch, num_chunks=1))

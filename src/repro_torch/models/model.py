@@ -18,6 +18,7 @@ from torch import nn
 from repro_torch import prng
 from repro_torch.configs.base import ModelConfig
 from repro_torch.configs.shapes import InputShape
+from repro_torch.device import resolve_device
 from repro_torch.models import transformer as tf
 from repro_torch.models.layers import RMSNorm, dense_param, embed_init, frozen
 
@@ -26,11 +27,13 @@ class Model(nn.Module):
     """``embed`` ``(Vp, d)``, ``layers`` (prefix, then cycle by cycle),
     ``final_norm`` and, unless embeddings are tied, ``lm_head`` ``(d,
     Vp)``. ``init_model``'s keys: ``split(key, 6)`` — embed from [0], the
-    stack from [1], lm_head from [2]."""
+    stack from [1], lm_head from [2]. ``device``: the GPU unless given
+    (``"cpu"``, or ``"meta"`` for shapes alone)."""
 
-    def __init__(self, cfg: ModelConfig, key=None, device="cpu"):
+    def __init__(self, cfg: ModelConfig, key=None, device=None):
         super().__init__()
         tf.check_supported(cfg)
+        device = resolve_device(device)
         self.cfg = cfg
         dt = getattr(torch, cfg.dtype)
         Vp, d = cfg.padded_vocab, cfg.d_model

@@ -30,6 +30,7 @@ from torch import nn
 
 from repro_torch import prng
 from repro_torch.configs.base import ModelConfig
+from repro_torch.device import resolve_device
 from repro_torch.models.attention import GQA, decode_mask, init_gqa_cache
 from repro_torch.models.layers import MLP, RMSNorm, rope_angles
 
@@ -107,9 +108,10 @@ def layer_keys(key, cfg: ModelConfig) -> list:
     return prefix + cycle
 
 
-def init_cache(cfg: ModelConfig, batch: int, cache_len: int, device="cpu") -> list:
-    """One ``{"k", "v"}`` cache per layer, in layer order; window layers
-    hold at most the window."""
+def init_cache(cfg: ModelConfig, batch: int, cache_len: int, device=None) -> list:
+    """One ``{"k", "v"}`` cache per layer, in layer order, on ``device`` (the
+    GPU unless ``device="cpu"``); window layers hold at most the window."""
+    device = resolve_device(device)
     dt = getattr(torch, cfg.dtype)
     if cfg.attention_window is not None:
         cache_len = min(cache_len, cfg.attention_window)

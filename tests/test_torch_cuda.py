@@ -663,3 +663,103 @@ def test_port_pipeline_learns_semantics_on_the_card(device, engine):
     assert s["categorization"] > 0.15, s     # 16 topics → chance ≈ 0.10
     assert res.losses[-1] < res.losses[0] * 0.8
     assert s["similarity"] >= s_avg["similarity"] - 0.02
+
+
+# This slice's paths on the card: the fused engines' draw outside a step
+# (K1, which the sync baseline runs once a step), the periodic sync (one
+# K2 launch a local step for all workers), and the merges' bitwise claims.
+@pytest.mark.parametrize("name", ("fused", "fused_hbm", "fused_pipe", "fused_tiered"))
+def test_fused_engine_sample_is_k1(device, name):
+    from repro_torch.core.engine import get_engine
+
+    t = _table(20_000, 2, device)
+    before = dict(K.LAUNCHES)
+    ids = get_engine(name).sample(t, _seeds(2, 4, device), (1024, 5))
+    assert K.LAUNCHES["sample_negatives"] == before["sample_negatives"] + 1
+    assert {k: v for k, v in K.LAUNCHES.items() if k != "sample_negatives"} == {
+        k: v for k, v in before.items() if k != "sample_negatives"}
+    ref = K.sample_negatives_plain(_seeds(2, 4, device), t["prob"], t["alias"], (1024, 5))
+    assert torch.equal(ids, ref)
+
+
+def _sync_world(device, V=3000, d=48, B=96, outer=3, every=2):
+    gen = torch.Generator(device=device).manual_seed(7)
+    params = {"W": (torch.rand((V, d), generator=gen, device=device) - 0.5) / d,
+              "C": 0.02 * torch.randn((V, d), generator=gen, device=device)}
+    t = _table(V, 1, device)
+    table = {k: v[0] for k, v in t.items()}
+    cen = K.sample_negatives_plain(_seeds(1, 1, device), t["prob"], t["alias"],
+                                   (outer, every, B))[0]
+    ctx = K.sample_negatives_plain(_seeds(1, 2, device), t["prob"], t["alias"],
+                                   (outer, every, B))[0]
+    return params, table, cen, ctx
+
+
+@pytest.mark.parametrize("n", (1, 3))
+def test_periodic_sync_is_the_hand_loop_on_the_card(device, n):
+    from repro_torch.core.async_trainer import make_periodic_sync_epoch
+    from repro_torch.core.sgns import SGNSConfig, linear_lr
+
+    params, table, cen, ctx = _sync_world(device)
+    outer, every, B = cen.shape
+    cfg = SGNSConfig(vocab_size=params["W"].shape[0], dim=params["W"].shape[1], negatives=5)
+    key = prng.PRNGKey(3)
+    K.reset_launch_counts()
+    got, losses = make_periodic_sync_epoch(cfg, table, 12, sync_every=every, num_workers=n,
+                                           engine="fused", device=device)(
+        {k: v.clone() for k, v in params.items()}, cen, ctx, key, 1)
+    assert K.LAUNCHES["sgns_fused_step"] == outer * every
+    assert K.LAUNCHES["sample_negatives"] == 0
+    tab = {k: v.expand(n, -1).contiguous() for k, v in table.items()}
+    seeds = K.seed_tensor(prng.step_keys(key, outer * every), device)
+    for step, tol in ((K.sgns_fused_step, 0.0), (K.sgns_fused_step_plain, 1e-5)):
+        stacked = {k: v.repeat(n, 1, 1) for k, v in params.items()}
+        hand = torch.empty((outer, every), device=device)
+        for o in range(outer):
+            for j in range(every):
+                i = o * every + j
+                _, loss, _ = step(stacked, cen[o, j].reshape(n, -1).contiguous(),
+                                  ctx[o, j].reshape(n, -1).contiguous(), tab,
+                                  seeds[i].expand(n, 2).contiguous(),
+                                  float(linear_lr(1 + i, 12, cfg)), negatives=5)
+                hand[o, j] = loss.mean(dim=1).mean()
+            means = {k: t.mean(dim=0) for k, t in stacked.items()}
+            for k, t in stacked.items():
+                t.copy_(means[k].expand_as(t))
+        for k in ("W", "C"):
+            assert float((got[k] - means[k]).abs().max()) <= tol
+        assert float((losses - hand).abs().max()) <= 10 * tol
+    assert float((got["W"] - params["W"]).abs().max()) > 0
+
+
+def _merge_world(device, V=2000, d=32, n=5):
+    gen = torch.Generator(device=device).manual_seed(1)
+    Y = torch.randn((V, d), generator=gen, device=device)
+    models, masks = [], []
+    for i in range(n):
+        q, _ = torch.linalg.qr(torch.randn((d, d), generator=gen, device=device))
+        mask = torch.rand(V, generator=gen, device=device) > (0.0 if i == 0 else 0.2)
+        mask[: d + 2] = True
+        models.append((Y @ q) * mask[:, None])
+        masks.append(mask)
+    return models, masks
+
+
+@pytest.mark.parametrize("name", ("alir", "alir_tree"))
+def test_merges_are_arrival_order_invariant_on_the_card(device, name):
+    from repro_torch.core.merge import StackedModels, get_merger
+
+    models, masks = _merge_world(device)
+    stacked = StackedModels(models=torch.stack(models), mask=torch.stack(masks))
+    batch = get_merger(name, max_iters=6, device=device).merge(stacked)
+    again = get_merger(name, max_iters=6, device=device).merge(stacked)
+    assert torch.equal(batch.emb, again.emb)
+    for order in ((4, 0, 3, 1, 2), (2, 4, 1, 0, 3)):
+        m = get_merger(name, max_iters=6, device=device)
+        for w in order:
+            m.add(w, models[w], masks[w], fold=(name == "alir" and w == order[2]))
+        final = m.final()
+        assert final.worker_ids == tuple(range(5))
+        assert final.emb.device.type == "cuda"
+        for k in ("emb", "valid", "transforms"):
+            assert torch.equal(getattr(final, k), getattr(batch, k)), k

@@ -231,6 +231,26 @@ def test_engine_draws_match_the_reference_samplers(world):
         np.testing.assert_array_equal(got.numpy(), np.asarray(ref_ids))
 
 
+@pytest.mark.parametrize("name", ("fused", "fused_hbm", "fused_pipe", "fused_tiered"))
+def test_fused_engines_sample_replays_the_reference_draw(name):
+    """A fused engine's draw outside a step is the kernel's counter-hash
+    draw, as the reference's ``pallas_fused*`` ``sample`` replays it: the
+    ids are bitwise equal on the same table and key (the sync baseline
+    draws its negatives through ``engine.sample``)."""
+    from repro.data.pairs import build_noise_table as j_build_table
+    from repro_torch.data.pairs import build_noise_table as t_build_table
+
+    counts = np.random.default_rng(11).zipf(1.3, 50).astype(np.float64)
+    jt = j_build_table(counts, kind="alias")
+    tt = {k: v[None] for k, v in t_build_table(counts, kind="alias").items()}
+    j_eng, t_eng = j_get_engine(REFERENCE_ENGINE[name]), get_engine(name)
+    for seed, shape in ((3, (8, 5)), (0, (7,)), (12, (33, 3)), (2**31 + 5, (4, 2, 5))):
+        key = jax.random.PRNGKey(seed)
+        want = np.asarray(j_eng.sample(jt, key, shape))
+        got = t_eng.sample(tt, K.seed_tensor(np.asarray(key)[None]), shape)[0]
+        np.testing.assert_array_equal(got.numpy(), want)
+
+
 # ------------------------------------------------------------- sgns steps
 def test_train_step_dense_matches_reference(world):
     from repro.core import sgns as jsgns

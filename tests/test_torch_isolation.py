@@ -41,7 +41,9 @@ def test_port_has_the_slice_modules():
               "repro_torch.configs.sgns_wiki", "repro_torch.kernels.swa_decode",
               "repro_torch.models", "repro_torch.models.layers",
               "repro_torch.models.attention", "repro_torch.models.transformer",
-              "repro_torch.models.model", "repro_torch.launch.decode_llm"):
+              "repro_torch.models.model", "repro_torch.launch.decode_llm",
+              "repro_torch.core.merge_tree", "repro_torch.core.distributions",
+              "repro_torch.sharding", "repro_torch.sharding.merge"):
         assert m in mods
 
 
@@ -102,6 +104,50 @@ def test_entry_points_refuse_to_run_on_the_cpu_by_default(monkeypatch):
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         AsyncShardTrainer(cfg=SGNSConfig(vocab_size=10, dim=8), num_workers=2,
                           total_steps=1, device="cuda")
+
+
+def test_constructors_and_the_slice_entry_points_refuse_the_cpu_by_default(monkeypatch):
+    """The public constructors and this slice's entry points raise without
+    a GPU unless they are given device="cpu"."""
+    import numpy as np
+    from repro_torch import configs, prng
+    from repro_torch.core.async_trainer import make_periodic_sync_epoch, make_sync_epoch
+    from repro_torch.core.driver import train_sync_baseline
+    from repro_torch.core.merge import IncrementalAlirMerger, get_merger, merge_concat
+    from repro_torch.core.merge import stack_models
+    from repro_torch.core.merge_tree import TreeAlirMerger
+    from repro_torch.core.sgns import SGNSConfig, init_params
+    from repro_torch.data.corpus import SemanticCorpusModel
+    from repro_torch.data.pairs import AliasSampler, NegativeSampler
+    from repro_torch.models import Model
+    from repro_torch.models.transformer import init_cache
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    cfg = SGNSConfig(vocab_size=10, dim=8)
+    llm = configs.get_config("h2o-danube-1.8b").reduced()
+    corpus = SemanticCorpusModel.create(vocab_size=50, seed=0).generate(40, seed=1)
+    table = np.linspace(0.1, 1.0, 10).astype(np.float32)
+    stacked = stack_models([np.zeros((5, 2), np.float32)], [np.ones(5, bool)])
+    calls = [
+        lambda: init_params(prng.PRNGKey(0), cfg),
+        lambda: Model(llm, prng.PRNGKey(0)),
+        lambda: init_cache(llm, 1, 4),
+        lambda: make_sync_epoch(cfg, table, 4),
+        lambda: make_periodic_sync_epoch(cfg, table, 4, sync_every=2),
+        lambda: train_sync_baseline(corpus, 50, SGNSConfig(vocab_size=0, dim=8), epochs=1),
+        lambda: get_merger("alir"),
+        lambda: get_merger("alir_tree"),
+        lambda: IncrementalAlirMerger(),
+        lambda: TreeAlirMerger(),
+        lambda: merge_concat(stacked),
+        lambda: NegativeSampler(np.ones(10)),
+        lambda: AliasSampler(np.ones(10)),
+    ]
+    for call in calls:
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            call()
+    assert init_params(prng.PRNGKey(0), cfg, device="cpu")["W"].device.type == "cpu"
+    assert init_cache(llm, 1, 4, device="cpu")[0]["k"].device.type == "cpu"
 
 
 def test_version_and_package_data():

@@ -139,9 +139,9 @@ def test_procrustes_gram_and_reconstruction_match():
 
 def test_merge_dispatch_and_errors():
     _, ts = _stack(seed=7)
-    assert set(tm.MERGE_METHODS) == set(jm.MERGE_METHODS) - {"alir_tree"}
+    assert tm.MERGE_METHODS == jm.MERGE_METHODS
     with pytest.raises(ValueError, match="unknown merge method"):
-        tm.merge(ts, "alir_tree", out_dim=8, device="cpu")
+        tm.merge(ts, "alir_star", out_dim=8, device="cpu")
     with pytest.raises(ValueError, match="out_dim must equal d"):
         tm.merge(ts, "alir_pca", out_dim=4, device="cpu")
     assert torch.backends.cuda.matmul.allow_tf32 is False

@@ -115,7 +115,7 @@ def test_init_matches_the_reference_init(arch):
     jparams = JaxModel(jconfigs.get_config(arch).reduced()).init(jax.random.PRNGKey(0))
     flat = dict(convert.from_jax_model_params(cfg, jax.tree.map(np.asarray, jparams))
                 .named_parameters())
-    ours = dict(Model(cfg, prng.PRNGKey(0)).named_parameters())
+    ours = dict(Model(cfg, prng.PRNGKey(0), device="cpu").named_parameters())
     assert set(ours) == set(flat)
     drawn = _jax_param_keys(cfg, 0)
     lo = float(np.nextafter(np.float32(-1.0), np.float32(0.0), dtype=np.float32))
@@ -235,7 +235,7 @@ def test_full_ring_through_k7_equals_the_plain_masked_attention(num_kv_heads):
     1/sqrt(D) or dividing by sqrt(D) and in reduction order."""
     cfg, _ = _danube(num_kv_heads)
     W = cfg.attention_window
-    model = Model(cfg, prng.PRNGKey(2))
+    model = Model(cfg, prng.PRNGKey(2), device="cpu")
     toks = torch.from_numpy(
         np.random.default_rng(2).integers(0, cfg.vocab_size, (2, W + 6), dtype=np.int32))
     caches = [model.init_cache(2, W), model.init_cache(2, W)]
@@ -277,7 +277,7 @@ def test_decode_cache_len_matches_the_reference(arch):
 @pytest.mark.parametrize("arch", NOT_PORTED)
 def test_an_unported_arch_raises(arch):
     with pytest.raises(NotImplementedError, match="ROADMAP.md queue 1 item 12"):
-        Model(configs.get_config(arch).reduced())
+        Model(configs.get_config(arch).reduced(), device="cpu")
 
 
 def test_serve_refuses_to_run_on_the_cpu_by_default(monkeypatch):

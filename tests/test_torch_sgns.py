@@ -31,7 +31,8 @@ RTOL = 1e-5
 def test_init_params_bitwise(seed, shape):
     V, d = shape
     j = jsgns.init_params(jax.random.PRNGKey(seed), jsgns.SGNSConfig(vocab_size=V, dim=d))
-    t = tsgns.init_params(prng.PRNGKey(seed), tsgns.SGNSConfig(vocab_size=V, dim=d))
+    t = tsgns.init_params(prng.PRNGKey(seed), tsgns.SGNSConfig(vocab_size=V, dim=d),
+                          device="cpu")
     np.testing.assert_array_equal(t["W"].numpy().view(np.uint32),
                                   np.asarray(j["W"]).view(np.uint32))
     assert not t["C"].any() and t["C"].shape == (V, d)
