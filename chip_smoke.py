@@ -7,6 +7,7 @@
     python3 chip_smoke.py --phases build,hbm,pipe
     python3 chip_smoke.py --phases build,decode
     python3 chip_smoke.py --phases build,main,sync,merge
+    python3 chip_smoke.py --phases build,main,serve,cli
 
 Phases:
 
@@ -48,7 +49,33 @@ Phases:
    the same under a permuted arrival order, and its quality beside flat
    ALiR's; ``mesh_sharded_gram`` in an NCCL group of one at S = 4 bitwise
    ``sharded_gram``, with exactly one ``all_gather_into_tensor``.
-7. ``random`` — the same configuration divided by the ``random`` strategy
+7. ``serve`` — train → publish → serve on the ``main`` phase's 10 × 89,611
+   × 500 sub-models, after a seeded knock-out (20 % of the rows masked out
+   of 1 to 9 random sub-models each, as ``benchmarks/bench_oov.py`` does, so
+   every sub-model has absent rows): ``publish_incremental`` (``alir``,
+   ``publish_every=5``, the sub-models included) writes v1 after 5 folds
+   and v2 (the final cold fold) while a tracking ``EmbeddingServer`` (its
+   table on the card) serves v1. Checked on the card: merged rows bitwise
+   the final fold's Y and unknown raw ids not found; in every sub-model's
+   space present rows bitwise the sub-model and absent rows within 1e-5 of
+   ``reconstruct_missing``; a store pinned at v1 stays there while
+   ``refresh()`` moves the tracking one to v2 and clears its cache; the
+   JSON-lines TCP round trip (``ids``, ``stats``, a malformed line,
+   ``refresh``). Printed: the publish and load walls, p50/p99 latency and
+   lookups/s at ``ServeConfig()``'s defaults (32 concurrent clients, each
+   32 ``embed_ids`` calls of 64 raw ids over Zipf(1) rows), and the
+   device's share of a dispatched batch (its gathers and the copy to the
+   host, from the profiler).
+8. ``cli`` — ``repro_torch.launch.train_sgns.main`` in-process on the card
+   (``--engine fused``, 10 workers, d = 500, B = 1024, a 100,000-word model,
+   60,000 sentences: one epoch of 306 steps a worker; ``--merge alir_pca
+   --publish DIR --publish-every 5 --save PATH``) with K2 launched once a
+   step and K1 never; ``repro_torch.launch.serve.main`` on what it
+   published (merged space with an unknown id; ``--submodel 0 --version
+   1``); then ``python -m repro_torch.examples.quickstart``, ``serve_decode``
+   and ``train_w2v_100m --steps 64 --epochs 1 --engine fused`` as
+   processes, each to exit 0 with its expected lines.
+9. ``random`` — the same configuration divided by the ``random`` strategy
    (rate 1/10: every worker its own vocabulary and noise table, trained in
    the union index space) on the ``rowgrad`` engine (the ``jax.random``
    CDF draw, torch gathers, K3 ``sgns_row_grads``, the ordered scatter
@@ -59,17 +86,17 @@ Phases:
    ``sparse`` and ``rowgrad`` run twice from the same state must repeat
    bit for bit, and the scatter is timed as the ordered apply and as
    ``index_add_``'s atomics on the same addends.
-8. ``hbm`` — the main configuration on the ``fused_hbm`` engine (K4a,
+10. ``hbm`` — the main configuration on the ``fused_hbm`` engine (K4a,
    ``block_pairs=256``: four blocks a step, the draw inside the launch) for
    64 steps, K4a once per step and K1 never; then ``sequential=True`` (K4b)
    for 8 steps, K4b and K1 once per step each; and W moved.
-9. ``pipe`` — the main configuration on ``fused_pipe`` (K5, ``block_pairs
+11. ``pipe`` — the main configuration on ``fused_pipe`` (K5, ``block_pairs
    =256``, ``ring_depth=2``) and then on ``fused_tiered`` (K6, ``hot_rows
    =256``) for 64 steps each: K5 or K6 and K1 once per step, W moved, and
    the trained W and every step's losses bitwise equal to the ``hbm``
    phase's ``fused_hbm`` run (same seeds, same chunks): the whole training
    run is held against K4a.
-10. ``time`` — each kernel held against its plain version at its path's
+12. ``time`` — each kernel held against its plain version at its path's
    shapes, then it and its plain version timed with CUDA events beside the
    least time the card could take: K1 (ids bitwise) and K2 (ids bitwise,
    W′, C′ and loss within tolerance, repeat bitwise) at the main path's
@@ -93,7 +120,7 @@ Phases:
    d = 512, B = 8,192, 64 blocks of 128) the planner's row traffic on the
    card (91,386 and 59,692 rows at ``hot_rows`` 0 and 2,048) and K5 and K6
    bitwise against, and timed beside, K4a.
-11. ``profile`` — the main path's, the ``random``/``rowgrad`` path's, the
+13. ``profile`` — the main path's, the ``random``/``rowgrad`` path's, the
    ``fused_hbm`` path's (K4a) and (after ``pipe``) the ``fused_pipe``
    path's training again under
    ``torch.profiler``, those of them that ran: device time per step by
@@ -102,7 +129,7 @@ Phases:
    ``profile_{main,random,hbm,pipe}*.json`` in the output directory); with
    ``decode``, 16
    full-ring decode steps too (``chiprun_out/profile_decode.json``).
-12. ``decode`` — the LLM decode path (``repro_torch.launch.decode_llm
+14. ``decode`` — the LLM decode path (``repro_torch.launch.decode_llm
    .serve``) on h2o-danube-1.8b at full width (24 layers, d = 2560, 32
    query heads over 8 KV heads, window 4096, float32; weights from seed
    0): batch 4, a prompt of 4,096 tokens, 64 new ones. Every SWA layer's
@@ -126,6 +153,7 @@ result.
 from __future__ import annotations
 
 import argparse
+import asyncio
 import json
 import math
 import subprocess
@@ -166,8 +194,8 @@ K3_LOSS_ATOL = 1e-4
 K7_ATOL = {"float32": 1e-5, "bfloat16": 3e-2}
 DECODE_LOGITS_TOL = 2e-3
 
-PHASES = ("build", "k1", "k2", "main", "sync", "merge", "random", "hbm", "pipe", "time",
-          "profile", "decode")
+PHASES = ("build", "k1", "k2", "main", "sync", "merge", "serve", "cli", "random", "hbm",
+          "pipe", "time", "profile", "decode")
 REPLACES = {
     "sample_negatives": "src/repro/kernels/sgns_fused.py:197",
     "sgns_fused_step": "src/repro/kernels/sgns_fused.py:105",
@@ -197,6 +225,23 @@ DECODE_CHECK_STEPS, DECODE_KERNEL_CHECKS = 16, 4
 # The sync phase: the baseline's first steps held against the CPU, and
 # local SGD's syncs (8 of 8 local steps in the 64-step epoch).
 SYNC_CHECK_STEPS, SYNC_EVERY = 4, 8
+# The serve phase: the main path's sub-models with 20 % of the rows knocked
+# out of 1 to n - 1 of them; served reconstructions against
+# reconstruct_missing on the card (other cuBLAS kernels for other M: the
+# sums run in other orders); the load at ServeConfig()'s defaults.
+SERVE_KNOCKOUT, SERVE_REC_ATOL = 0.2, 1e-5
+SERVE_CLIENTS, SERVE_CALLS, SERVE_IDS = 32, 32, 64
+# The cli phase: train_sgns at the main width on 60,000 sentences (306
+# steps a worker in its one epoch; 40,000 give 204), and the examples with
+# what each prints.
+CLI_SENTENCES = 60_000
+EXAMPLES = (
+    ("quickstart", [], ("trained 4 async sub-models", "alir_pca   similarity")),
+    ("serve_decode", [], ("serving starts at artifact v1", "hot-swapped to artifact v4",
+                          "reconstructed", "serving stats:")),
+    ("train_w2v_100m", ["--steps", "64", "--epochs", "1", "--engine", "fused"],
+     ("async training:", "ALiR merge of 10", "merged model: sim", "checkpoint →")),
+)
 _WORLD: dict = {}
 
 
@@ -792,6 +837,374 @@ def phase_merge(device, main: dict) -> dict:
     if not same or calls != ["all_gather_into_tensor"]:
         raise RuntimeError("the mesh Gram is not sharded_gram with one all_gather")
     return {"walls": walls, "critical_path_s": tree.critical_path_s(), "scores": scores}
+
+
+def _knocked_out(stacked, seed: int):
+    """``stacked`` with ``SERVE_KNOCKOUT`` of the rows masked out of 1 to
+    n − 1 random sub-models each (``benchmarks/bench_oov.py``'s knock-out:
+    every row keeps a holder) and zeroed there, on the card."""
+    import numpy as np
+    import torch
+    from repro_torch.core.merge import StackedModels
+
+    n, V, _ = stacked.models.shape
+    rng = np.random.default_rng(seed)
+    mask = stacked.mask.cpu().numpy().copy()
+    rows = rng.choice(V, size=int(SERVE_KNOCKOUT * V), replace=False)
+    k = rng.integers(1, n, size=len(rows))                 # models that lose the row
+    order = rng.permuted(np.tile(np.arange(n), (len(rows), 1)), axis=1)
+    lose = np.arange(n)[None, :] < k[:, None]
+    mask[order[lose], np.repeat(rows, k)] = False
+    mask_t = torch.from_numpy(mask).to(stacked.models.device)
+    return StackedModels(models=stacked.models * mask_t[..., None], mask=mask_t)
+
+
+async def _serve_clients(server, batches) -> tuple[list, float]:
+    """Each client sends its ``embed_ids`` calls one after the other; the
+    clients run concurrently. Per-call latencies (s) and the wall."""
+    lat: list = []
+
+    async def client(calls):
+        for ids in calls:
+            t0 = time.perf_counter()
+            out = await server.embed_ids(ids)
+            lat.append(time.perf_counter() - t0)
+            if not out["found"].all():
+                raise RuntimeError("a served id was not found")
+
+    t0 = time.perf_counter()
+    await asyncio.gather(*(client(c) for c in batches))
+    return lat, time.perf_counter() - t0
+
+
+def _batch_device_share(prof, span: str, DeviceType) -> dict:
+    """Over every host span named ``span`` (one dispatched batch each):
+    the mean host window, the device's busy time inside it (the union of
+    kernel and copy intervals) and its share, and device µs by kind."""
+    events = list(prof.events())
+    windows = [(e.time_range.start, e.time_range.end) for e in events if e.name == span]
+    dev = [(e.time_range.start, e.time_range.end, e.name) for e in events
+           if e.device_type == DeviceType.CUDA and "Command Buffer" not in e.name
+           and not e.name.startswith("repro_torch.")]
+    kinds = {"copy to the host": 0.0, "copy to the device": 0.0, "kernels": 0.0}
+    total = busy = 0.0
+    for t0, t1 in windows:
+        total += t1 - t0
+        inside = [(max(s, t0), min(f, t1), n) for s, f, n in dev if min(f, t1) > max(s, t0)]
+        busy += _union_us([(s, f) for s, f, _ in inside], t0)
+        for s, f, name in inside:
+            kind = ("copy to the host" if "DtoH" in name else
+                    "copy to the device" if "HtoD" in name else "kernels")
+            kinds[kind] += f - s
+    n = len(windows)
+    return {"batches": n, "batch_us": total / n, "device_busy_us": busy / n,
+            "device_share": busy / total, "device_us_by_kind": {k: v / n for k, v in kinds.items()}}
+
+
+def phase_serve(device, main: dict) -> dict:
+    """Publish → serve on the card from the main path's sub-models (a
+    seeded knock-out gives each sub-model absent rows): v1 after 5 folds,
+    v2 final; the served rows against the published tables and
+    ``reconstruct_missing``; a pinned store and a hot reload; the TCP
+    round trip; latency and lookups/s at ``ServeConfig()``'s defaults; the
+    device's share of a batch; the publish and load walls."""
+    import shutil
+
+    import numpy as np
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile, record_function
+    from repro_torch.checkpoint import load_manifest
+    from repro_torch.core.merge import get_merger, reconstruct_missing
+    from repro_torch.serve import (ArtifactStore, EmbeddingServer, ServeConfig,
+                                   publish_incremental, request_once, start_tcp_server)
+    from repro_torch.serve.publish import submodel_arrivals
+
+    gpu = nvidia_smi_line()
+    vocab = main["vocab"]
+    stacked = _knocked_out(main["stacked"], seed=0)
+    n, V, d = stacked.models.shape
+    absent = int((~stacked.mask).sum())
+    art = ROOT / "build" / "chip_smoke_serve"
+    shutil.rmtree(art, ignore_errors=True)
+    walls = {}
+
+    def timed(label, fn):
+        torch.cuda.synchronize(device)
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize(device)
+        walls[label] = time.perf_counter() - t0
+        return out
+
+    arrivals = list(submodel_arrivals(stacked))
+    merger = get_merger("alir", device=device)
+    v1, _ = timed("publish_v1", lambda: publish_incremental(
+        arrivals[:5], str(art), word_ids=vocab.word_ids, publish_every=5,
+        include_models=True, merger=merger, final_cold_fold=False))
+    server = timed("load_v1", lambda: EmbeddingServer(str(art), ServeConfig(), device=device))
+    pinned = ArtifactStore(str(art), version=1, device=device)
+    asyncio.run(server.embed_rows(np.arange(1000)))
+    cached = len(server.cache)
+    v2, final = timed("publish_v2", lambda: publish_incremental(
+        arrivals[5:], str(art), word_ids=vocab.word_ids, publish_every=5,
+        include_models=True, merger=merger))
+    swapped = timed("refresh_v2", server.refresh)
+    sizes = {e["file"]: (art / e["file"]).stat().st_size
+             for e in load_manifest(str(art))["versions"]}
+    log(f"[serve] {n} x ({V}, {d}) sub-models, {SERVE_KNOCKOUT:.0%} of the rows knocked "
+        f"out of 1..{n - 1} of them ({absent} absent (worker, row) pairs); published "
+        f"v{v1} after 5 folds in {walls['publish_v1']:.3f} s, v{v2} (final, cold) in "
+        f"{walls['publish_v2']:.3f} s; files {sizes} ({sum(sizes.values()) / 1e9:.3f} GB); "
+        f"store load v1 {walls['load_v1']:.3f} s, refresh to v2 {walls['refresh_v2']:.3f} s "
+        f"({gpu})")
+    if (v1, v2) != ([1], [2]):
+        raise RuntimeError(f"expected versions [1] and [2], got {v1} and {v2}")
+    if not (swapped and server.store.version == 2 and cached and not len(server.cache)):
+        raise RuntimeError("the tracking store did not swap to v2 and clear its cache")
+    if pinned.refresh() or pinned.version != 1:
+        raise RuntimeError("the store pinned at v1 moved")
+    t = server.store.table
+    if not all(x.device == device for x in (t.emb, t.valid, t.mask, t.transforms, t.models)):
+        raise RuntimeError("the served table is not on the card")
+
+    # merged space: bitwise the final fold's Y at every valid row asked,
+    # unknown raw ids (never in the vocabulary) not found
+    rng = np.random.default_rng(1)
+    rows = rng.choice(V, size=min(8192, V), replace=False)
+    unknown = np.setdiff1d(np.arange(VOCAB), vocab.word_ids)[:64]
+    ids = np.concatenate([vocab.word_ids[rows], unknown, [-5]])
+    out = asyncio.run(server.embed_ids(ids))
+    Y = final.Y.cpu().numpy()
+    found = out["found"]
+    if not found[:len(rows)].all() or found[len(rows):].any():
+        raise RuntimeError("found flags disagree with the vocabulary and valid rows")
+    if not np.array_equal(out["vectors"][:len(rows)], Y[rows]):
+        raise RuntimeError("served merged rows are not the published table's bits")
+    # sub-model spaces: present rows bitwise the sub-model, absent rows
+    # within SERVE_REC_ATOL of reconstruct_missing on the card
+    rec = reconstruct_missing(stacked, final.Y)
+    mask = stacked.mask.cpu().numpy()
+    rec_err, n_absent = 0.0, 0
+    for w in range(n):
+        got = asyncio.run(server.embed_rows(rows, submodel=w))["vectors"]
+        present = mask[w, rows]
+        if not np.array_equal(got[present], stacked.models[w, rows].cpu().numpy()[present]):
+            raise RuntimeError(f"worker {w}'s present rows are not its sub-model's bits")
+        rec_err = max(rec_err, float(np.abs(got - rec[w, rows].cpu().numpy()).max()))
+        n_absent += int((~present).sum())
+    del rec
+    log(f"[serve] {len(rows)} rows asked: merged bitwise final Y; {len(unknown) + 1} unknown "
+        f"ids not found; in the {n} sub-model spaces the present rows bitwise, {n_absent} "
+        f"absent rows reconstructed: max |served - reconstruct_missing| {rec_err:.3e} "
+        f"(tol {SERVE_REC_ATOL:g}); pinned store at v1, tracking store v1 -> v2, cache "
+        f"{cached} -> 0 rows")
+    if rec_err > SERVE_REC_ATOL:
+        raise RuntimeError("served reconstructions disagree with reconstruct_missing")
+
+    # the JSON-lines front end on an ephemeral port
+    async def tcp():
+        srv = await start_tcp_server(server)
+        port = srv.sockets[0].getsockname()[1]
+        try:
+            r = await request_once("127.0.0.1", port, {"ids": [int(ids[0]), int(unknown[0])]})
+            s = await request_once("127.0.0.1", port, {"op": "stats"})
+            reader, writer = await asyncio.open_connection("127.0.0.1", port)
+            writer.write(b"{not json\n")
+            await writer.drain()
+            bad = json.loads(await reader.readline())
+            writer.close()
+            again = await request_once("127.0.0.1", port, {"op": "refresh"})
+            return r, s, bad, again
+        finally:
+            srv.close()
+            await srv.wait_closed()
+
+    r, s, bad, again = asyncio.run(tcp())
+    ok = (r["version"] == 2 and r["found"] == [True, False]
+          and np.array_equal(np.asarray(r["vectors"][0], np.float32), Y[rows[0]])
+          and s["stats"]["requests"] > 0 and "error" in bad
+          and again == {"refreshed": False, "version": 2})
+    log(f"[serve] TCP: ids -> version {r['version']} found {r['found']}; stats requests "
+        f"{s['stats']['requests']}; malformed line -> {bad}; refresh -> {again}")
+    if not ok:
+        raise RuntimeError("the TCP round trip answered wrongly")
+
+    # latency and lookups/s at ServeConfig()'s defaults: concurrent clients,
+    # each a series of embed_ids calls of SERVE_IDS raw ids over Zipf(1) rows
+    bench = EmbeddingServer(server.store, ServeConfig())
+    p = 1.0 / np.arange(1, V + 1)
+    zrows = np.random.default_rng(2).choice(V, p=p / p.sum(),
+                                            size=(2, SERVE_CLIENTS, SERVE_CALLS, SERVE_IDS))
+    keys_seen: list = []
+    real_dispatch = bench.batcher._dispatch
+
+    def recording(keys):
+        keys_seen.append(list(keys))
+        return real_dispatch(keys)
+
+    bench.batcher._dispatch = recording
+    asyncio.run(_serve_clients(bench, vocab.word_ids[zrows[0]]))          # warm-up
+    warm = bench.stats()
+    bench.batcher._latencies_s.clear()
+    bench.batcher._batch_sizes.clear()
+    keys_seen.clear()
+    d0, h0, m0 = bench.batcher.dispatches, bench.cache.hits, bench.cache.misses
+    lat, wall = asyncio.run(_serve_clients(bench, vocab.word_ids[zrows[1]]))
+    st = bench.stats()
+    lat_ms = np.sort(np.asarray(lat)) * 1e3
+    lookups = SERVE_CLIENTS * SERVE_CALLS * SERVE_IDS
+    hits = bench.cache.hits - h0
+    serving = {
+        "calls": len(lat), "ids_per_call": SERVE_IDS, "clients": SERVE_CLIENTS,
+        "wall_s": wall, "lookups_per_s": lookups / wall,
+        "call_p50_ms": float(np.percentile(lat_ms, 50)),
+        "call_p99_ms": float(np.percentile(lat_ms, 99)),
+        "key_p50_ms": st["p50_ms"], "key_p99_ms": st["p99_ms"],
+        "dispatches": bench.batcher.dispatches - d0, "mean_batch": st["mean_batch"],
+        "cache_hit_rate": hits / (hits + bench.cache.misses - m0),
+        "warmup_cache_hit_rate": warm["cache_hit_rate"]}
+    log(f"[serve] ServeConfig() defaults, {SERVE_CLIENTS} concurrent clients x "
+        f"{SERVE_CALLS} embed_ids calls of {SERVE_IDS} raw ids (Zipf(1) over rows), after "
+        f"a warm-up round: {lookups} lookups in {wall:.4f} s = {serving['lookups_per_s']:.1f} "
+        f"lookups/s; per call p50 {serving['call_p50_ms']:.4f} ms, p99 "
+        f"{serving['call_p99_ms']:.4f} ms; per key p50 {st['p50_ms']:.4f} ms, p99 "
+        f"{st['p99_ms']:.4f} ms; {serving['dispatches']} dispatches, mean batch "
+        f"{st['mean_batch']:.2f}, cache hit rate {serving['cache_hit_rate']:.4f} ({gpu})")
+
+    # the device's share of a batch: the measured round's batches replayed
+    # through the gather under the profiler
+    replay = keys_seen[:200]
+    for keys in replay[:5]:
+        bench._gather(keys)
+    torch.cuda.synchronize(device)
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for keys in replay:
+            with record_function("repro_torch.serve_batch"):
+                bench._gather(keys)
+        torch.cuda.synchronize(device)
+    share = _batch_device_share(prof, "repro_torch.serve_batch", DeviceType)
+    log(f"[serve] a dispatched batch (mean {np.mean([len(k) for k in replay]):.1f} keys, "
+        f"{share['batches']} replayed under the profiler): host window "
+        f"{share['batch_us']:.1f} us, device busy {share['device_busy_us']:.1f} us "
+        f"(share {share['device_share']:.4f}); device us by kind "
+        + ", ".join(f"{k} {v:.2f}" for k, v in share["device_us_by_kind"].items())
+        + f" ({gpu})")
+    del server, pinned, bench, stacked, arrivals, merger, final
+    shutil.rmtree(art, ignore_errors=True)
+    return {"walls": walls, "bytes": sizes, "rec_err": rec_err, "serving": serving,
+            "batch": share}
+
+
+def _run_cli(main_fn, argv: list):
+    """A CLI's ``main`` in this process: its standard output (captured and
+    logged) and what it returned."""
+    import contextlib
+    import io
+
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        result = main_fn(argv)
+    text = buf.getvalue()
+    for line in text.splitlines():
+        log(f"[cli]   | {line}")
+    return text, result
+
+
+def _expect(text: str, wanted, label: str) -> None:
+    missing = [w for w in wanted if w not in text]
+    if missing:
+        raise RuntimeError(f"{label}: output lacks {missing}")
+
+
+def phase_cli(device) -> dict:
+    """The port's CLIs and examples on the card: ``train_sgns`` (``fused``,
+    10 × 500, ``--publish`` and ``--save``) with its K2 launches counted,
+    ``serve`` on what it published (merged space, a sub-model space pinned
+    at v1, an unknown id), and the three examples as ``python -m``
+    processes."""
+    import os
+    import shutil
+
+    import numpy as np
+    import torch
+    from repro_torch.checkpoint import load_checkpoint, load_table
+    from repro_torch.kernels import sgns_fused
+    from repro_torch.launch import serve as serve_cli
+    from repro_torch.launch import train_sgns
+
+    out = ROOT / "build" / "chip_smoke_cli"
+    shutil.rmtree(out, ignore_errors=True)
+    out.mkdir(parents=True)
+    art, ckpt = out / "artifact", out / "merged.npz"
+    argv = ["--engine", "fused", "--workers", str(NUM_WORKERS), "--dim", str(DIM),
+            "--batch", str(BATCH), "--vocab", str(VOCAB), "--epochs", "1",
+            "--merge", "alir_pca", "--sentences", str(CLI_SENTENCES),
+            "--publish", str(art), "--publish-every", "5", "--save", str(ckpt),
+            "--device", str(device)]
+    log(f"[cli] python -m repro_torch.launch.train_sgns {' '.join(argv)}")
+    sgns_fused.reset_launch_counts()
+    t0 = time.perf_counter()
+    text, res = _run_cli(train_sgns.main, argv)
+    wall = time.perf_counter() - t0
+    launches = dict(sgns_fused.LAUNCHES)
+    steps = res.timings["steps_per_epoch"]
+    _expect(text, ("engine=fused:alias", "alir_pca   sim=",
+                   "published 2 incremental table version(s)",
+                   f"saved merged embedding → {ckpt}"), "train_sgns")
+    log(f"[cli] train_sgns: {wall:.3f} s wall; {steps} steps a worker, train "
+        f"{res.timings['train_s']:.4f} s ({NUM_WORKERS * BATCH * steps / res.timings['train_s']:.1f}"
+        f" pairs/s), chunk wait {res.timings['chunk_wait_s']:.4f} s, merge alir_pca "
+        f"{res.timings['merge_alir_pca_s']:.4f} s; launches {launches} ({nvidia_smi_line()})")
+    if launches["sgns_fused_step"] != steps or launches["sample_negatives"]:
+        raise RuntimeError(f"expected {steps} K2 launches and no K1, got {launches}")
+    saved, meta = load_checkpoint(str(ckpt))
+    V = res.union_vocab.size
+    if (saved["embedding"].shape != (V, DIM) or not np.isfinite(saved["embedding"]).all()
+            or meta.get("method") != "alir_pca"):
+        raise RuntimeError(f"bad saved embedding {saved['embedding'].shape} {meta}")
+    final = load_table(str(art))
+    if final.version != 2 or final.models.shape != (NUM_WORKERS, V, DIM):
+        raise RuntimeError("the published artifact is not v2 with every sub-model")
+    del res
+    torch.cuda.empty_cache()
+
+    known = [int(x) for x in final.word_ids[:3]]
+    oov = int(np.setdiff1d(np.arange(VOCAB), final.word_ids)[0])
+    q = ",".join(str(x) for x in known + [oov])
+    t0 = time.perf_counter()
+    merged, _ = _run_cli(serve_cli.main, ["--artifact", str(art), "--query", q,
+                                       "--device", str(device)])
+    serve_s = time.perf_counter() - t0
+    _expect(merged, ("artifact v2  space=merged", f"id {oov:>8d} [OOV]", "stats:"), "serve")
+    if merged.count("[ok ]") != len(known):
+        raise RuntimeError("serve: a known id was not found")
+    sub, _ = _run_cli(serve_cli.main, ["--artifact", str(art), "--query", q, "--submodel", "0",
+                                    "--version", "1", "--device", str(device)])
+    _expect(sub, ("artifact v1  space=submodel 0", "[OOV]", "stats:"), "serve --submodel")
+    log(f"[cli] serve: merged query {serve_s:.3f} s wall (load included)")
+
+    env = {**os.environ, "PYTHONPATH": str(ROOT / "src")}
+    walls = {}
+    for name, extra, wanted in EXAMPLES:
+        cmd = [sys.executable, "-m", f"repro_torch.examples.{name}", *extra]
+        if name == "train_w2v_100m":
+            cmd += ["--save", str(out / "w2v_100m.npz")]
+        log(f"[cli] {' '.join(cmd[1:])}")
+        t0 = time.perf_counter()
+        proc = subprocess.run(cmd, capture_output=True, text=True, env=env, cwd=str(ROOT),
+                              timeout=600)
+        walls[name] = time.perf_counter() - t0
+        for line in proc.stdout.splitlines():
+            log(f"[cli]   | {line}")
+        if proc.returncode:
+            log(proc.stderr[-4000:])
+            raise RuntimeError(f"{name} exited {proc.returncode}")
+        _expect(proc.stdout, wanted, name)
+        log(f"[cli] {name}: exit 0 in {walls[name]:.3f} s")
+    shutil.rmtree(out, ignore_errors=True)
+    return {"train_wall_s": wall, "steps": steps, "launches": launches,
+            "serve_s": serve_s, "example_walls": walls}
 
 
 def phase_random(device):
@@ -1760,6 +2173,17 @@ def phase_profile(device, label: str, kw: dict) -> None:
             f"{k['name'][:90]}")
 
 
+def _union_us(spans, start: float) -> float:
+    """The length of the union of ``(start, end)`` intervals that begin at
+    or after ``start``."""
+    busy, end = 0.0, start
+    for s, f in sorted(spans):
+        if f > end:
+            busy += f - max(s, end)
+            end = f
+    return busy
+
+
 def _device_summary(prof, span: str, steps: int, groups, DeviceType) -> dict:
     """Inside the host span named ``span``: the window, the device's busy
     time (the union of kernel and copy intervals), its idle share, device
@@ -1780,11 +2204,7 @@ def _device_summary(prof, span: str, steps: int, groups, DeviceType) -> dict:
         k = by_kernel.setdefault(e.name, [0, 0.0])
         k[0] += 1
         k[1] += f - s
-    busy, end = 0.0, t0
-    for s, f in sorted(spans):
-        if f > end:
-            busy += f - max(s, end)
-            end = f
+    busy = _union_us(spans, t0)
     per_step = {g: 0.0 for g, _ in groups}
     per_step["other"] = 0.0
     for name, (_, us) in by_kernel.items():
@@ -1837,8 +2257,8 @@ def main(argv=None) -> int:
         ap.error("the profile phase needs the main, random or decode phase")
     if "pipe" in phases and "hbm" not in phases:
         ap.error("the pipe phase needs the hbm phase")
-    if {"sync", "merge"} & set(phases) and "main" not in phases:
-        ap.error("the sync and merge phases need the main phase")
+    if {"sync", "merge", "serve"} & set(phases) and "main" not in phases:
+        ap.error("the sync, merge and serve phases need the main phase")
 
     import torch
 
@@ -1872,9 +2292,14 @@ def main(argv=None) -> int:
         torch.cuda.empty_cache()
     if "merge" in phases:
         results["merge"] = phase_merge(device, results["main"])
+    if "serve" in phases:
+        results["serve"] = phase_serve(device, results["main"])
     if "main" in results:
-        for k in ("stacked", "alir_pca"):          # the sub-models are merged
+        for k in ("stacked", "alir_pca"):          # the sub-models are merged and served
             results["main"].pop(k)
+        torch.cuda.empty_cache()
+    if "cli" in phases:
+        results["cli"] = phase_cli(device)
         torch.cuda.empty_cache()
     if "random" in phases:
         results["random"] = phase_random(device)
@@ -1947,7 +2372,8 @@ def main(argv=None) -> int:
             "sync": results["sync"]["launches"]["sample_negatives"]}
         kernels[1]["launches_by_path"] = {
             "main": launches["sgns_fused_step"],
-            "periodic": results["sync"]["periodic_launches"]["sgns_fused_step"]}
+            "periodic": results["sync"]["periodic_launches"]["sgns_fused_step"],
+            "cli": results["cli"]["launches"]["sgns_fused_step"]}
         print(json.dumps({"kernels": kernels}), flush=True)
     log(f"[env] phases {','.join(phases)} done in {time.perf_counter() - t_start:.1f} s")
     print(gpu, flush=True)

@@ -334,6 +334,15 @@ REFERENCE_ENGINE = {"dense": "dense", "sparse": "sparse", "rowgrad": "pallas",
                     "fused_tiered": "pallas_fused_tiered"}
 
 
+def port_engine_spec(spec: str) -> str:
+    """An engine spec in either package's names, in the port's: the JAX
+    package's name (``"pallas_fused_hbm:alias"``) goes through the inverse
+    of :data:`REFERENCE_ENGINE`; a port name passes through."""
+    name, sep, sampler = str(spec).partition(":")
+    port = {ref: ours for ours, ref in REFERENCE_ENGINE.items()}.get(name, name)
+    return port + sep + sampler
+
+
 def get_engine(spec: str | UpdateEngine = "fused", **overrides) -> UpdateEngine:
     """Resolve an engine spec: an instance (returned as-is, or with field
     overrides applied) or a ``"name"`` / ``"name:sampler"`` string, e.g.

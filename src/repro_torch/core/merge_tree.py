@@ -28,8 +28,10 @@ over its arrived workers), the per-worker ``mask`` rows, and the
 Elastic semantics are tree-node policies: the ``deadline`` closes the
 whole tree's window; a node with only some children arrived solves over
 those (a single present child passes through untouched); ``quorum``
-applies at the root. Persisting nodes to a ``state_dir`` waits for the
-port of ``checkpoint/io.py``.
+applies at the root. With a ``state_dir``, arrived leaves and solved
+interior nodes are published as versioned artifacts
+(:func:`repro_torch.checkpoint.io.publish_tree_node`, the reference's
+format) and a restarted merger reloads and reuses them.
 """
 
 from __future__ import annotations
@@ -40,6 +42,7 @@ from dataclasses import dataclass
 import torch
 
 from repro_torch import prng
+from repro_torch.checkpoint.io import list_tree_nodes, load_tree_node, publish_tree_node
 from repro_torch.core.merge import (
     MergeConfig,
     MergeResult,
@@ -157,26 +160,27 @@ class TreeAlirMerger(Merger):
             (arrivals take their final leaf positions). ``None`` derives it
             from the workers arrived so far (``merge``: from the stack).
         key: explicit base key (default ``config.prng_key()``).
-        state_dir: persistence of leaves and solved nodes; raises
-            ``NotImplementedError`` until ``checkpoint/io.py`` is ported.
+        state_dir: persist leaves and solved interior nodes here (atomic
+            versioned artifacts) for restartable merges.
+        resume: reload persisted state from ``state_dir`` on construction.
         device: where the tables live (the GPU unless ``"cpu"``).
     """
 
     name = "alir_tree"
 
     def __init__(self, config: MergeConfig | None = None, *, workers=None, key=None,
-                 clock=None, state_dir: str | None = None, device=None):
-        if state_dir is not None:
-            raise NotImplementedError(
-                "TreeAlirMerger's state_dir persistence needs the port of "
-                "checkpoint/io.py (ROADMAP.md queue 1 item 5)")
+                 clock=None, state_dir: str | None = None, resume: bool = True,
+                 device=None):
         super().__init__(config, clock=clock, device=device)
         self._key_override = key
         self._workers = (tuple(sorted({int(w) for w in workers}))
                          if workers is not None else None)
         # node cache: (level, index) -> (arrived-signature, NodeResult)
         self._cache: dict[tuple[int, int], tuple[tuple[int, ...], NodeResult]] = {}
-        self.stats = {"solved": 0, "passthrough": 0, "node_s": {}}
+        self.state_dir = state_dir
+        self.stats = {"solved": 0, "passthrough": 0, "loaded": 0, "node_s": {}}
+        if state_dir and resume:
+            self._load_state()
 
     @property
     def key(self):
@@ -234,6 +238,12 @@ class TreeAlirMerger(Merger):
     def _topology(self) -> TreeNode:
         return build_tree(self._workers or self.worker_ids, self.config.fan_in)
 
+    def _on_arrival(self, worker_id: int) -> None:
+        if self.state_dir:
+            model, mask = self._models[worker_id]
+            publish_tree_node(self.state_dir, 0, worker_id, {"model": model, "mask": mask},
+                              meta={"worker": worker_id, "fan_in": self.config.fan_in})
+
     def _node_result(self, node: TreeNode) -> NodeResult | None:
         """Solve the subtree over its arrived workers, reusing cached
         results whose arrived-signature is unchanged; ``None`` when no
@@ -258,6 +268,8 @@ class TreeAlirMerger(Merger):
             return hit[1]
         res = self._solve_node(node, kids)
         self._cache[(node.level, node.index)] = (sig, res)
+        if self.state_dir and res.level > 0:
+            self._persist_node(res, sig)
         return res
 
     def _leaf_result(self, node: TreeNode) -> NodeResult:
@@ -298,6 +310,45 @@ class TreeAlirMerger(Merger):
         return NodeResult(level=node.level, index=node.index, worker_ids=ids, Y=Y,
                           valid=valid, mask=torch.cat([c.mask for c in kids]),
                           transforms=transforms, disps=disps)
+
+    # -- persistence -------------------------------------------------------
+    def _persist_node(self, res: NodeResult, sig: tuple[int, ...]) -> None:
+        arrays = {"Y": res.Y, "valid": res.valid, "mask": res.mask,
+                  "transforms": res.transforms}
+        if res.disps is not None:
+            arrays["disps"] = res.disps
+        publish_tree_node(self.state_dir, res.level, res.index, arrays,
+                          meta={"arrived": list(sig), "fan_in": self.config.fan_in,
+                                "level": res.level, "index": res.index})
+
+    def _load_state(self) -> None:
+        """Reload persisted leaves (arrivals) and interior solves onto the
+        merger's device; a reloaded node is only *used* when its
+        arrived-signature still matches, so stale persisted nodes are
+        harmless. Nodes persisted with another ``fan_in`` are skipped."""
+        def dev(a, dtype=None):
+            return torch.from_numpy(a).to(self.device, dtype)
+
+        for level, index in list_tree_nodes(self.state_dir):
+            loaded = load_tree_node(self.state_dir, level, index)
+            if loaded is None:
+                continue
+            arrays, meta, _ = loaded
+            if meta.get("fan_in") != self.config.fan_in:
+                continue
+            if level == 0:
+                self._models[int(index)] = (dev(arrays["model"]),
+                                            dev(arrays["mask"], torch.bool))
+            else:
+                sig = tuple(int(w) for w in meta.get("arrived", ()))
+                res = NodeResult(
+                    level=level, index=index, worker_ids=sig, Y=dev(arrays["Y"]),
+                    valid=dev(arrays["valid"], torch.bool),
+                    mask=dev(arrays["mask"], torch.bool),
+                    transforms=dev(arrays["transforms"]),
+                    disps=dev(arrays["disps"]) if "disps" in arrays else None)
+                self._cache[(level, index)] = (sig, res)
+            self.stats["loaded"] += 1
 
 
 # Register with the merge registry (get_merger imports lazily; a direct

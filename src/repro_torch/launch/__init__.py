@@ -1,1 +1,2 @@
-"""Launch layer of the port: the serving drivers (``decode_llm``)."""
+"""Launch layer of the port: the training CLI (``train_sgns``), the
+embedding server (``serve``) and the LLM decode driver (``decode_llm``)."""

@@ -763,3 +763,76 @@ def test_merges_are_arrival_order_invariant_on_the_card(device, name):
         assert final.emb.device.type == "cuda"
         for k in ("emb", "valid", "transforms"):
             assert torch.equal(getattr(final, k), getattr(batch, k)), k
+
+
+# Served reconstructions against reconstruct_missing on the card: cuBLAS
+# picks other kernels for an (m, d) @ (d, d) product than for the batched
+# (n, V, d) @ (n, d, d) one, so the sums run in other orders.
+SERVE_REC_ATOL = 1e-5
+
+
+@pytest.mark.parametrize("d", (32, 500))
+def test_store_gather_and_reconstruction_on_the_card(device, tmp_path, d):
+    """The device store's gathers: merged and present rows bitwise the
+    published tables, absent rows within SERVE_REC_ATOL of
+    ``reconstruct_missing`` on the card, one batch mixing the spaces."""
+    import asyncio
+
+    from repro_torch.core.merge import StackedModels, reconstruct_missing
+    from repro_torch.serve import EmbeddingServer, ServeConfig, publish_incremental
+    from repro_torch.serve.publish import submodel_arrivals
+
+    models, masks = _merge_world(device, V=3000, d=d, n=4)
+    stacked = StackedModels(models=torch.stack(models), mask=torch.stack(masks))
+    _, final = publish_incremental(submodel_arrivals(stacked), str(tmp_path),
+                                   publish_every=4, device=device)
+    rec = reconstruct_missing(stacked, final.emb)
+    srv = EmbeddingServer(str(tmp_path), ServeConfig(coalesce_ms=0.5), device=device)
+    t = srv.store.table
+    assert all(x.device.type == "cuda" for x in (t.emb, t.valid, t.mask, t.transforms,
+                                                  t.models))
+    rows = np.random.default_rng(0).permutation(3000)[:700]
+
+    async def go():
+        return [await srv.embed_rows(rows, submodel=w) for w in (None, 0, 1, 2, 3)]
+
+    merged, *subs = asyncio.run(go())
+    assert merged["found"].all()
+    np.testing.assert_array_equal(merged["vectors"], final.emb[rows].cpu().numpy())
+    mask = stacked.mask.cpu().numpy()
+    for w, out in enumerate(subs):
+        present = mask[w, rows]
+        got, want = out["vectors"], rec[w, rows].cpu().numpy()
+        np.testing.assert_array_equal(got[present], stacked.models[w, rows].cpu().numpy()
+                                      [present])
+        assert (~present).any() == (w > 0)              # worker 0 holds every row
+        assert float(np.abs(got - want).max()) <= SERVE_REC_ATOL
+    keys = [(-1, 5), (1, 5), (2, 7), (-1, 9)]
+    out = srv._gather(keys)
+    np.testing.assert_array_equal(out[(-1, 9)], final.emb[9].cpu().numpy())
+    assert all(v.dtype == np.float32 and v.shape == (d,) for v in out.values())
+
+
+def test_server_hot_reload_and_pinned_store_on_the_card(device, tmp_path):
+    import asyncio
+
+    from repro_torch.core.merge import StackedModels, get_merger
+    from repro_torch.serve import (ArtifactStore, EmbeddingServer, publish_incremental)
+    from repro_torch.serve.publish import submodel_arrivals
+
+    models, masks = _merge_world(device, V=1000, d=16, n=4)
+    stacked = StackedModels(models=torch.stack(models), mask=torch.stack(masks))
+    arrivals = list(submodel_arrivals(stacked))
+    merger = get_merger("alir", device=device)
+    publish_incremental(arrivals[:2], str(tmp_path), merger=merger, publish_every=2,
+                        final_cold_fold=False)
+    srv = EmbeddingServer(str(tmp_path), device=device)
+    pinned = ArtifactStore(str(tmp_path), version=1, device=device)
+    asyncio.run(srv.embed_rows(np.arange(100)))
+    assert len(srv.cache) == 100
+    _, final = publish_incremental(arrivals[2:], str(tmp_path), merger=merger,
+                                   publish_every=2)
+    assert srv.refresh() and srv.store.version == 2 and len(srv.cache) == 0
+    assert not pinned.refresh() and pinned.version == 1
+    out = asyncio.run(srv.embed_rows(np.arange(1000)))
+    np.testing.assert_array_equal(out["vectors"], final.emb.cpu().numpy())

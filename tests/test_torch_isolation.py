@@ -43,7 +43,13 @@ def test_port_has_the_slice_modules():
               "repro_torch.models.attention", "repro_torch.models.transformer",
               "repro_torch.models.model", "repro_torch.launch.decode_llm",
               "repro_torch.core.merge_tree", "repro_torch.core.distributions",
-              "repro_torch.sharding", "repro_torch.sharding.merge"):
+              "repro_torch.sharding", "repro_torch.sharding.merge",
+              "repro_torch.checkpoint", "repro_torch.checkpoint.io", "repro_torch.serve",
+              "repro_torch.serve.cache", "repro_torch.serve.batcher", "repro_torch.serve.store",
+              "repro_torch.serve.server", "repro_torch.serve.tcp", "repro_torch.serve.publish",
+              "repro_torch.launch.train_sgns", "repro_torch.launch.serve",
+              "repro_torch.examples", "repro_torch.examples.quickstart",
+              "repro_torch.examples.train_w2v_100m", "repro_torch.examples.serve_decode"):
         assert m in mods
 
 
@@ -148,6 +154,36 @@ def test_constructors_and_the_slice_entry_points_refuse_the_cpu_by_default(monke
             call()
     assert init_params(prng.PRNGKey(0), cfg, device="cpu")["W"].device.type == "cpu"
     assert init_cache(llm, 1, 4, device="cpu")[0]["k"].device.type == "cpu"
+
+
+def test_serving_launchers_and_examples_refuse_the_cpu_by_default(monkeypatch, tmp_path):
+    """The store, the server, the publisher, both CLIs and the three
+    examples raise without a GPU unless they are given the CPU."""
+    import numpy as np
+    from repro_torch.checkpoint import publish_table
+    from repro_torch.examples import quickstart, serve_decode, train_w2v_100m
+    from repro_torch.launch import serve, train_sgns
+    from repro_torch.serve import ArtifactStore, EmbeddingServer, publish_incremental
+
+    art = str(tmp_path / "art")
+    publish_table(art, np.ones((4, 2), np.float32), np.ones(4, bool))
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    arrivals = [(0, np.ones((4, 2), np.float32), np.ones(4, bool))]
+    calls = [
+        lambda: ArtifactStore(art),
+        lambda: EmbeddingServer(art),
+        lambda: publish_incremental(arrivals, str(tmp_path / "pub")),
+        lambda: train_sgns.main(["--workers", "2", "--epochs", "1", "--vocab", "50",
+                                 "--sentences", "40"]),
+        lambda: serve.main(["--artifact", art, "--query", "1"]),
+        lambda: quickstart.main([]),
+        lambda: train_w2v_100m.main([]),
+        lambda: serve_decode.main([]),
+    ]
+    for call in calls:
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            call()
+    assert ArtifactStore(art, device="cpu").table.emb.device.type == "cpu"
 
 
 def test_version_and_package_data():

@@ -1,0 +1,171 @@
+"""The port's launchers against the JAX package's, on the CPU.
+
+* ``train_sgns`` on both packages with the same arguments (``--engine
+  sparse --strategy random --workers 2 --epochs 1 --dim 16 --vocab 400
+  --sentences 3000 --merge concat --publish DIR --save PATH``, the port
+  with ``--device cpu``): every published version's ``word_ids``,
+  ``worker_ids``, ``mask`` and ``valid`` bitwise equal, ``emb`` within
+  1e-4 after Procrustes (``test_torch_slice.py``'s merge tolerance), the
+  saved merged tables within the same bound, the manifests' fields equal;
+* each package's serve CLI on the other package's artifact;
+* the parsers: the port's flags are the reference's plus ``--device``,
+  with the port's defaults for ``--engine`` (``fused``) and
+  ``--vmem-budget-mb`` (0); the flags waiting on later items raise;
+* the engine names of either package, mapped to the port's.
+"""
+
+import argparse
+import contextlib
+import io
+
+import numpy as np
+import pytest
+
+from repro.checkpoint import load_checkpoint as jload_checkpoint
+from repro.checkpoint import load_manifest as jload_manifest
+from repro.checkpoint import load_table as jload_table
+from repro.launch import serve as jserve
+from repro.launch import train_sgns as jtrain
+from repro_torch.checkpoint import load_checkpoint, load_table
+from repro_torch.core.engine import REFERENCE_ENGINE, get_engine, port_engine_spec
+from repro_torch.launch import serve as tserve
+from repro_torch.launch import train_sgns as ttrain
+
+MERGE_ATOL = 1e-4
+ARGS = ["--engine", "sparse", "--strategy", "random", "--workers", "2", "--epochs", "1",
+        "--dim", "16", "--vocab", "400", "--sentences", "3000", "--merge", "concat"]
+
+
+def _run(main, argv) -> str:
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        main(argv)
+    return buf.getvalue()
+
+
+@pytest.fixture(scope="module")
+def trained(tmp_path_factory):
+    """Both CLIs trained and published once, from the same arguments."""
+    root = tmp_path_factory.mktemp("cli")
+    out = {}
+    for pkg, main, extra in (("port", ttrain.main, ["--device", "cpu"]),
+                             ("repro", jtrain.main, [])):
+        art, ckpt = str(root / pkg / "art"), str(root / pkg / "merged.npz")
+        text = _run(main, ARGS + ["--publish", art, "--save", ckpt] + extra)
+        out[pkg] = {"art": art, "ckpt": ckpt, "out": text}
+    return out
+
+
+def _procrustes_err(A, B):
+    u, _, vt = np.linalg.svd(A.T @ B)
+    return float(np.abs(A @ (u @ vt) - B).max())
+
+
+def test_train_sgns_publishes_what_the_reference_publishes(trained):
+    port, ref = trained["port"], trained["repro"]
+    for text in (port["out"], ref["out"]):
+        assert "published 2 incremental table version(s)" in text
+        assert "sim=" in text and "saved merged embedding" in text
+    assert "engine=sparse:cdf" in port["out"] and "vmem:" not in port["out"]
+    m_t, m_j = jload_manifest(port["art"]), jload_manifest(ref["art"])
+    assert m_t["latest"] == m_j["latest"] == 2
+    for e_t, e_j in zip(m_t["versions"], m_j["versions"]):
+        assert {k: v for k, v in e_t.items() if k != "created_unix"} == \
+               {k: v for k, v in e_j.items() if k != "created_unix"}
+    for v in (1, 2):
+        t, j = load_table(port["art"], v), jload_table(ref["art"], v)
+        for k in ("word_ids", "worker_ids", "mask", "valid"):
+            got, want = getattr(t, k), getattr(j, k)
+            assert got.dtype == want.dtype, k
+            np.testing.assert_array_equal(got, want, err_msg=k)
+        assert _procrustes_err(t.emb, j.emb) < MERGE_ATOL, v
+        np.testing.assert_allclose(t.models, j.models, rtol=0, atol=1e-5)
+    saved_t, meta_t = load_checkpoint(port["ckpt"])
+    saved_j, meta_j = jload_checkpoint(ref["ckpt"])
+    assert meta_t == meta_j == {"step": None, "method": "concat", "strategy": "random"}
+    for k in ("word_ids", "valid"):
+        np.testing.assert_array_equal(saved_t[k], saved_j[k])
+    np.testing.assert_allclose(saved_t["embedding"], saved_j["embedding"], rtol=0,
+                               atol=MERGE_ATOL)
+
+
+@pytest.mark.parametrize("serve_pkg,art_pkg", [("port", "repro"), ("repro", "port")])
+def test_serve_cli_reads_the_other_packages_artifact(trained, serve_pkg, art_pkg):
+    art = trained[art_pkg]["art"]
+    main, extra = ((tserve.main, ["--device", "cpu"]) if serve_pkg == "port"
+                   else (jserve.main, []))
+    out = _run(main, ["--artifact", art, "--query", "1,2,3,999999"] + extra)
+    assert "artifact v2" in out and "space=merged" in out
+    assert "[OOV]" in out and "stats:" in out
+    out = _run(main, ["--artifact", art, "--query", "1,2", "--submodel", "0",
+                      "--version", "1"] + extra)
+    assert "artifact v1" in out and "space=submodel 0" in out
+
+
+def test_serve_cli_prints_what_the_reference_prints(trained):
+    art = trained["repro"]["art"]
+    q = ["--artifact", art, "--query", "1,2,3,999999", "--submodel", "1"]
+    ours = _run(tserve.main, q + ["--device", "cpu"]).splitlines()
+    ref = _run(jserve.main, q).splitlines()
+    assert ours[:-1] == ref[:-1]                  # all but the timings line
+    assert ours[-1].startswith("stats:") and ref[-1].startswith("stats:")
+
+
+class _Captured(Exception):
+    pass
+
+
+def _reference_parser(main, monkeypatch) -> argparse.ArgumentParser:
+    """The parser a reference ``main`` builds, caught at ``parse_args``."""
+    def capture(self, *a, **k):
+        raise _Captured(self)
+
+    with monkeypatch.context() as m:
+        m.setattr(argparse.ArgumentParser, "parse_args", capture)
+        with pytest.raises(_Captured) as exc:
+            main([])
+    return exc.value.args[0]
+
+
+def _flags(ap: argparse.ArgumentParser) -> dict:
+    return {tuple(a.option_strings): (a.dest, a.default, a.type, a.nargs, a.choices,
+                                      a.required, type(a).__name__)
+            for a in ap._actions if a.option_strings and a.dest != "help"}
+
+
+@pytest.mark.parametrize("name", ("train_sgns", "serve"))
+def test_parsers_are_the_reference_ones_plus_device(name, monkeypatch):
+    port_mod, ref_mod = {"train_sgns": (ttrain, jtrain), "serve": (tserve, jserve)}[name]
+    ours = _flags(port_mod.build_parser())
+    ref = _flags(_reference_parser(ref_mod.main, monkeypatch))
+    assert ours.pop(("--device",))[:2] == ("device", None)
+    changed = {k for k in ref if ours[k] != ref[k]}
+    assert set(ours) == set(ref)
+    if name == "train_sgns":
+        assert changed == {("--engine",), ("--vmem-budget-mb",)}
+        assert ours[("--engine",)][1] == "fused" and ref[("--engine",)][1] == "sparse"
+        assert ours[("--vmem-budget-mb",)][1] == 0.0
+        for k in changed:
+            assert ours[k][0] == ref[k][0] and ours[k][2:] == ref[k][2:]
+    else:
+        assert not changed
+
+
+@pytest.mark.parametrize("flags,exc,match", [
+    (["--elastic-state", "somewhere"], NotImplementedError, "queue 1 item 6"),
+    (["--vmem-budget-mb", "16"], NotImplementedError, "queue 1 item 7"),
+    (["--processes", "2"], ValueError, "item 9"),
+])
+def test_flags_waiting_on_later_items_raise(flags, exc, match):
+    with pytest.raises(exc, match=match):
+        ttrain.main(ARGS + ["--device", "cpu"] + flags)
+
+
+def test_engine_names_of_either_package():
+    for ours, ref in REFERENCE_ENGINE.items():
+        assert port_engine_spec(ref) == ours == port_engine_spec(ours)
+    assert port_engine_spec("pallas:cdf") == "rowgrad:cdf"
+    assert port_engine_spec("pallas_fused_hbm:alias") == "fused_hbm:alias"
+    assert get_engine(port_engine_spec("sparse:alias")).describe() == "sparse:alias"
+    with pytest.raises(ValueError, match="unknown update engine"):
+        get_engine(port_engine_spec("pallas_nope"))

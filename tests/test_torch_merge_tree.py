@@ -10,8 +10,11 @@ JAX package's, on the CPU.
   batch merge;
 * ``reconstruct_worker`` from every level, the elastic node policies
   (deadline, passthrough, quorum at the root), root-path re-solves;
-* ``state_dir`` raising until ``checkpoint/io.py`` is ported, and
-  ``apply_merges(("alir_tree",), fan_in=...)`` through the driver.
+* ``state_dir`` persistence: a persisted tree resumes without re-solving,
+  a merge resumes after partial arrivals to the uninterrupted root
+  bitwise, and nodes persisted by either package reload in the other
+  (the reference's ``tests/test_merge_tree.py`` cases, run on the port);
+* ``apply_merges(("alir_tree",), fan_in=...)`` through the driver.
 """
 
 import numpy as np
@@ -165,9 +168,76 @@ def test_critical_path_below_serial_solve_time():
     assert len(m.stats["node_s"]) == 7
 
 
-def test_state_dir_raises_until_the_checkpoint_layer_is_ported(tmp_path):
-    with pytest.raises(NotImplementedError, match="ROADMAP.md queue 1 item 5"):
-        tmt.TreeAlirMerger(tm.MergeConfig(), state_dir=str(tmp_path), device="cpu")
+def test_persisted_tree_resumes_without_resolving(tmp_path):
+    _, models, masks = rotated_world(n=8, seed=19)
+    d1 = str(tmp_path / "tree")
+    m1 = tmt.TreeAlirMerger(tm.MergeConfig(max_iters=6), workers=range(8), state_dir=d1,
+                            device="cpu")
+    for w in range(8):
+        m1.add(w, models[w], masks[w], fold=False)
+    ref = m1.fold()
+    assert m1.stats["solved"] == 7
+
+    m2 = tmt.TreeAlirMerger(tm.MergeConfig(max_iters=6), workers=range(8), state_dir=d1,
+                            device="cpu")
+    assert m2.stats["loaded"] == 15                    # 8 leaves + 7 nodes
+    resumed = m2.fold()
+    assert m2.stats["solved"] == 0                     # pure cache reuse
+    for k in ("emb", "valid", "mask", "transforms", "disps"):
+        assert torch.equal(getattr(resumed, k), getattr(ref, k)), k
+    assert torch.equal(m2.final().emb, ref.emb)
+    # resume=False ignores the state; another fan_in's nodes are never reused
+    assert tmt.TreeAlirMerger(tm.MergeConfig(), state_dir=d1, resume=False,
+                              device="cpu").stats["loaded"] == 0
+    assert tmt.TreeAlirMerger(tm.MergeConfig(fan_in=3), state_dir=d1,
+                              device="cpu").stats["loaded"] == 0
+
+
+def test_resume_after_partial_arrivals_then_continue(tmp_path):
+    """Kill the merge mid-arrival: a new merger reloads the persisted
+    leaves, accepts the remaining workers, and the finished fold is
+    bitwise the uninterrupted one."""
+    _, models, masks = rotated_world(n=8, seed=21)
+    uninterrupted = tm.get_merger("alir_tree", max_iters=6, device="cpu").merge(
+        tm.stack_models(models, masks))
+    d1 = str(tmp_path / "tree")
+    m1 = tmt.TreeAlirMerger(tm.MergeConfig(max_iters=6), workers=range(8), state_dir=d1,
+                            device="cpu")
+    for w in (3, 0, 6, 1):
+        m1.add(w, models[w], masks[w], fold=False)
+    del m1                                             # "preempted"
+
+    m2 = tmt.TreeAlirMerger(tm.MergeConfig(max_iters=6), workers=range(8), state_dir=d1,
+                            device="cpu")
+    assert m2.worker_ids == (0, 1, 3, 6)               # leaves reloaded
+    for w in (7, 2, 5, 4):
+        m2.add(w, models[w], masks[w], fold=False)
+    final = m2.fold()
+    assert torch.equal(final.emb, uninterrupted.emb)
+    assert torch.equal(final.transforms, uninterrupted.transforms)
+
+
+@pytest.mark.parametrize("writer", ("repro", "port"))
+def test_persisted_nodes_reload_across_packages(tmp_path, writer):
+    """A tree persisted by one package resumes in the other with no
+    re-solve: the reloaded root is the writer's root, bitwise."""
+    _, models, masks = rotated_world(n=6, seed=23)
+    d = str(tmp_path / "tree")
+    make = {"repro": lambda **kw: jmt.TreeAlirMerger(jm.MergeConfig(max_iters=6), **kw),
+            "port": lambda **kw: tmt.TreeAlirMerger(tm.MergeConfig(max_iters=6),
+                                                    device="cpu", **kw)}
+    reader = "port" if writer == "repro" else "repro"
+    m1 = make[writer](workers=range(6), state_dir=d)
+    for w in range(6):
+        m1.add(w, models[w], masks[w], fold=False)
+    ref = m1.fold()
+    m2 = make[reader](workers=range(6), state_dir=d)
+    assert m2.stats["loaded"] == 6 + 6 and m2.worker_ids == tuple(range(6))  # 3 + 2 + 1 nodes
+    resumed = m2.fold()
+    assert m2.stats["solved"] == 0
+    for k in ("emb", "valid", "mask", "transforms"):
+        np.testing.assert_array_equal(np.asarray(getattr(resumed, k)),
+                                      np.asarray(getattr(ref, k)), err_msg=k)
 
 
 def test_alir_tree_through_merge_and_apply_merges():
