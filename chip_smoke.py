@@ -8,6 +8,7 @@
     python3 chip_smoke.py --phases build,decode
     python3 chip_smoke.py --phases build,main,sync,merge
     python3 chip_smoke.py --phases build,main,serve,cli
+    python3 chip_smoke.py --phases build,elastic,contracts
 
 Phases:
 
@@ -96,7 +97,32 @@ Phases:
    the trained W and every step's losses bitwise equal to the ``hbm``
    phase's ``fused_hbm`` run (same seeds, same chunks): the whole training
    run is held against K4a.
-12. ``time`` — each kernel held against its plain version at its path's
+12. ``elastic`` — elastic training (``repro_torch.elastic``) at the main
+   width (V = 89,611, d = 500, B = 1024, K = 5; 1 epoch of 64 steps in chunks
+   of 16), cut to 4 workers trained one at a time, a checkpoint (358.4 MB a
+   worker) every 2 chunks into a temporary state directory: on ``fused``
+   (K2) the uninterrupted run twice bitwise; a kill and restart, and a kill
+   with work stealing, over 2 simulated hosts, each bitwise the
+   uninterrupted run with K2 launched once per step trained (replays
+   included) and K1 never; ``train_submodels_elastic`` resumed on the
+   finished directory (no launch, W bitwise); ``merge_finished`` with a
+   quorum of 3 bitwise the survivors' final fold. On ``rowgrad`` (K3,
+   ``random``) the uninterrupted run and a seeded kill-and-restart
+   schedule that replays a lost chunk, bitwise. For each engine worker 0's
+   first chunk is also trained on the CPU (the kernel's plain version) from
+   the same init: W′, C′ and the losses within K2's or K3's tolerances. Every case under the collective recorder (none);
+   save and load walls printed; whether an n = 1 worker is bitwise the
+   stacked run's slice printed (a finding, not a check).
+13. ``contracts`` — ``repro_torch.analysis.contracts`` on the card: every
+   engine × sampler over one chunk of 8 steps at the main width with n = 2
+   (no ``c10d::`` op, no NCCL kernel, the tables in place), the ``@zipf50k``
+   traffic against ``BENCH_wallclock.json``; in an NCCL group of world size
+   1 the mesh Gram's one all-gather (rejected by the certifier) and the
+   sync baselines' all-reduces (3 a step; 2 a sync + 1 an epoch). Each
+   engine with a kernel also trains one chunk of 8 steps (K4b: 1) at n = 2
+   on the card and on the CPU (its kernels' plain versions) from the same
+   init, ids and key: W′, C′ and the losses within K2's tolerances.
+14. ``time`` — each kernel held against its plain version at its path's
    shapes, then it and its plain version timed with CUDA events beside the
    least time the card could take: K1 (ids bitwise) and K2 (ids bitwise,
    W′, C′ and loss within tolerance, repeat bitwise) at the main path's
@@ -120,7 +146,7 @@ Phases:
    d = 512, B = 8,192, 64 blocks of 128) the planner's row traffic on the
    card (91,386 and 59,692 rows at ``hot_rows`` 0 and 2,048) and K5 and K6
    bitwise against, and timed beside, K4a.
-13. ``profile`` — the main path's, the ``random``/``rowgrad`` path's, the
+15. ``profile`` — the main path's, the ``random``/``rowgrad`` path's, the
    ``fused_hbm`` path's (K4a) and (after ``pipe``) the ``fused_pipe``
    path's training again under
    ``torch.profiler``, those of them that ran: device time per step by
@@ -129,7 +155,7 @@ Phases:
    ``profile_{main,random,hbm,pipe}*.json`` in the output directory); with
    ``decode``, 16
    full-ring decode steps too (``chiprun_out/profile_decode.json``).
-14. ``decode`` — the LLM decode path (``repro_torch.launch.decode_llm
+16. ``decode`` — the LLM decode path (``repro_torch.launch.decode_llm
    .serve``) on h2o-danube-1.8b at full width (24 layers, d = 2560, 32
    query heads over 8 KV heads, window 4096, float32; weights from seed
    0): batch 4, a prompt of 4,096 tokens, 64 new ones. Every SWA layer's
@@ -143,7 +169,8 @@ Phases:
    ``scaled_dot_product_attention`` (the library yardstick) timed on
    layer 0's cache. Independent of the SGNS phases.
 
-It prints a ``{"kernels": [...]}`` JSON line, then the card's name and power
+Each phase's wall is printed as it ends. It prints a ``{"kernels": [...]}``
+JSON line, then the card's name and power
 limit as ``nvidia-smi`` reports them, then ``{"ok": true, ...}`` last. Any
 failing phase raises and the script exits non-zero. Without a CUDA device,
 or outside a checkout of the repository, it exits non-zero and prints no
@@ -182,6 +209,12 @@ K2_LOSS_ATOL = 1e-4
 # losses of O(1) differ by a few ulps. K2's bounds, with room to spare.
 K3_GRAD_ATOL = 1e-5
 K3_LOSS_ATOL = 1e-4
+# A chunk trained on the card against the same chunk on the CPU (the
+# kernels' plain versions) from the word2vec init: the tables stay near
+# 1e-3, where K2's absolute bound alone would pass a lost update of a cold
+# row, so the difference must also stay under this share of the largest
+# update (reordered float32 sums differ by a few ulps of the values).
+CHUNK_REL = 1e-3
 # K4 against its plain version: K2's tolerances (K4b's plain loop is a
 # chain of batch-1 steps, its dot products reduced in another order than
 # the kernel's, each difference carried into the later pairs).
@@ -195,7 +228,7 @@ K7_ATOL = {"float32": 1e-5, "bfloat16": 3e-2}
 DECODE_LOGITS_TOL = 2e-3
 
 PHASES = ("build", "k1", "k2", "main", "sync", "merge", "serve", "cli", "random", "hbm",
-          "pipe", "time", "profile", "decode")
+          "pipe", "elastic", "contracts", "time", "profile", "decode")
 REPLACES = {
     "sample_negatives": "src/repro/kernels/sgns_fused.py:197",
     "sgns_fused_step": "src/repro/kernels/sgns_fused.py:105",
@@ -231,6 +264,9 @@ SYNC_CHECK_STEPS, SYNC_EVERY = 4, 8
 # sums run in other orders); the load at ServeConfig()'s defaults.
 SERVE_KNOCKOUT, SERVE_REC_ATOL = 0.2, 1e-5
 SERVE_CLIENTS, SERVE_CALLS, SERVE_IDS = 32, 32, 64
+# The elastic phase: the main width cut to 4 workers (a checkpoint moves
+# 358.4 MB a worker) in chunks of 16 steps, a checkpoint every 2 chunks.
+ELASTIC_WORKERS, ELASTIC_CHUNK, ELASTIC_CKPT_EVERY = 4, 16, 2
 # The cli phase: train_sgns at the main width on 60,000 sentences (306
 # steps a worker in its one epoch; 40,000 give 204), and the examples with
 # what each prints.
@@ -1205,6 +1241,508 @@ def phase_cli(device) -> dict:
     shutil.rmtree(out, ignore_errors=True)
     return {"train_wall_s": wall, "steps": steps, "launches": launches,
             "serve_s": serve_s, "example_walls": walls}
+
+
+# ---------------------------------------------------------------------------
+# The elastic path (4 workers at the main width) and the contract checker.
+# ---------------------------------------------------------------------------
+def _elastic_setup(strategy: str, engine: str, rate=None):
+    """``prepare_training`` at the main width for ELASTIC_WORKERS workers:
+    1 epoch of STEPS steps in chunks of ELASTIC_CHUNK."""
+    from repro_torch.core.driver import prepare_training
+
+    corpus, _ = world()
+    kw = train_kw(strategy, engine)
+    return prepare_training(corpus, VOCAB, strategy, ELASTIC_WORKERS, kw["cfg"], epochs=1,
+                            batch_size=BATCH, rate=rate, window=5, max_vocab=VOCAB,
+                            base_min_count=10, max_steps_per_epoch=STEPS,
+                            steps_per_chunk=ELASTIC_CHUNK, engine=engine,
+                            process_index=0, process_count=1)
+
+
+def _elastic_classes():
+    """A store that times every save (wall and bytes) and a runner that
+    counts the chunks it trains and times every load from the store (the
+    disk read and the copy to the card)."""
+    import torch
+    from repro_torch.elastic import ElasticRunner, WorkerStateStore
+
+    class TimedStore(WorkerStateStore):
+        def __init__(self, state_dir):
+            super().__init__(state_dir)
+            self.saves = []                  # (wall s, bytes)
+
+        def save(self, cursor, params):
+            t0 = time.perf_counter()
+            v = super().save(cursor, params)
+            self.saves.append((time.perf_counter() - t0,
+                               sum(t.numel() * t.element_size() for t in params.values())))
+            return v
+
+    class CountingRunner(ElasticRunner):
+        def __init__(self, *a, **k):
+            super().__init__(*a, **k)
+            self.chunks = 0
+            self.loads = []                  # wall s of each load from the store
+
+        def train_chunk(self, params, cursor, chunk):
+            self.chunks += 1
+            return super().train_chunk(params, cursor, chunk)
+
+        def load_worker(self, worker, *, resume=True):
+            stored = resume and self.store.cursor(worker) is not None
+            t0 = time.perf_counter()
+            out = super().load_worker(worker, resume=resume)
+            torch.cuda.synchronize(self.device)
+            if stored:
+                self.loads.append(time.perf_counter() - t0)
+            return out
+
+    return TimedStore, CountingRunner
+
+
+def _elastic_case(tag, label, device, setup, kernel, fn, *, keep_dir=None):
+    """Run ``fn(runner)`` on a fresh runner over a state directory under a
+    temporary root, with every launch count set to 0 just before, the
+    collectives recorded, and the directory deleted after (unless it is
+    ``keep_dir``). The kernel must have launched once per step trained
+    (chunks trained × chunk steps) and K1 never; no collective."""
+    import shutil
+    import tempfile
+
+    import torch
+    from repro_torch.analysis.contracts import CollectiveRecorder, certify_zero_collective
+    from repro_torch.kernels import sgns_fused
+
+    TimedStore, CountingRunner = _elastic_classes()
+    if keep_dir is not None:
+        shutil.rmtree(keep_dir, ignore_errors=True)
+    (ROOT / "build").mkdir(exist_ok=True)
+    state = keep_dir or tempfile.mkdtemp(prefix="elastic_", dir=ROOT / "build")
+    runner = CountingRunner(setup, TimedStore(state), ckpt_every=ELASTIC_CKPT_EVERY,
+                            device=device)
+    sgns_fused.reset_launch_counts()
+    with CollectiveRecorder(cuda=True) as rec:
+        t0 = time.perf_counter()
+        out = fn(runner)
+        torch.cuda.synchronize(device)
+        wall = time.perf_counter() - t0
+    launches = dict(sgns_fused.LAUNCHES)
+    certify_zero_collective(rec.counts, label=f"elastic {label}")
+    steps = runner.chunks * setup.sched.chunk_steps
+    saves = runner.store.saves
+    save_s = sorted(s for s, _ in saves)
+    log(f"[{tag}] {label}: {wall:.3f} s wall under the recorder; {runner.chunks} chunks "
+        f"trained ({steps} steps); {kernel} launches {launches[kernel]}, K1 "
+        f"{launches['sample_negatives']}; collectives {rec.counts} over "
+        f"{rec.device_kernels} device kernels; {len(saves)} saves of "
+        f"{saves[0][1] / 1e6 if saves else 0:.1f} MB each, wall s min "
+        f"{save_s[0] if saves else 0:.4f} median {save_s[len(save_s) // 2] if saves else 0:.4f}"
+        f" max {save_s[-1] if saves else 0:.4f}; {len(runner.loads)} loads, wall s "
+        + " ".join(f"{x:.4f}" for x in runner.loads))
+    if launches[kernel] != steps or launches["sample_negatives"]:
+        raise RuntimeError(f"{label}: expected {steps} launches of {kernel} and no K1, "
+                           f"got {launches}")
+    if rec.device_kernels == 0 and steps:
+        raise RuntimeError(f"{label}: the recorder saw no device kernel")
+    if keep_dir is None:
+        shutil.rmtree(state, ignore_errors=True)
+    return out, {"chunks": runner.chunks, "launches": launches[kernel], "runner": runner}
+
+
+def _card_vs_cpu(tag, label, card, cpu, init, launches, want, loss_atol) -> float:
+    """``card`` and ``cpu``: ``(params, losses)`` of one chunk trained from
+    ``init`` on the card and on the CPU (the plain versions). ``launches``:
+    the card run's kernel counts, which must hold ``want`` (each kernel's
+    launches). W′/C′ within K2_TABLE_ATOL and CHUNK_REL of the largest update,
+    the losses within ``loss_atol``; returns the largest difference."""
+    (pg, lg), (pc, lc) = card, cpu
+    moved = max(float((pc[k] - init[k].cpu()).abs().max()) for k in ("W", "C"))
+    err_t = max(float((pg[k].cpu() - pc[k]).abs().max()) for k in ("W", "C"))
+    err_l = float((lg.cpu() - lc).abs().max())
+    log(f"[{tag}] {label} on the card vs the CPU's plain versions, same init, ids and key: "
+        f"launches {({k: v for k, v in launches.items() if v})}; max |ΔW′, ΔC′| {err_t:.3e} (tol {K2_TABLE_ATOL:g} and "
+        f"{CHUNK_REL:g} x the largest update {moved:.3e}); max |Δloss| {err_l:.3e} "
+        f"(tol {loss_atol:g})")
+    if any(launches.get(k, 0) != v for k, v in want.items()):
+        raise RuntimeError(f"{label}: expected launches {want}, got {launches}")
+    if not (math.isfinite(moved) and moved > 0.0):
+        raise RuntimeError(f"{label}: the plain run left the tables at their init")
+    if not (err_t <= K2_TABLE_ATOL and err_t <= CHUNK_REL * moved and err_l <= loss_atol):
+        raise RuntimeError(f"{label} on the card disagrees with its plain version")
+    return max(err_t, err_l)
+
+
+def _elastic_vs_plain(tag, label, device, setup, kernel, loss_atol) -> float:
+    """Worker 0's first chunk trained twice from the same ``init_params``,
+    chunk, key and noise table: on the card, where the engine launches
+    ``kernel`` once a step at the elastic path's shapes (n = 1), and on the
+    CPU, where it runs the kernel's plain version. Launches here are not the
+    path's: the cases reset the counts before they run."""
+    import torch
+    from repro_torch.elastic import ElasticRunner, WorkerCursor
+    from repro_torch.kernels import sgns_fused
+
+    cursor = WorkerCursor.start(0)
+    out, init, launches = [], None, None
+    for dev in (device, torch.device("cpu")):
+        runner = ElasticRunner(setup, device=dev)
+        if init is None:
+            init = runner.init_params(0)
+        chunk = next(runner.chunk_iter(0, cursor))
+        sgns_fused.reset_launch_counts()
+        params = runner.train_chunk({k: v.to(dev, copy=True) for k, v in init.items()},
+                                    cursor, chunk)
+        out.append((params, runner.chunk_losses[(0, 0)][0]))
+        if launches is None:
+            torch.cuda.synchronize(device)
+            launches = dict(sgns_fused.LAUNCHES)
+    return _card_vs_cpu(tag, f"{label}: worker 0's first chunk", out[0], out[1], init,
+                        launches, {kernel: setup.sched.chunk_steps, "sample_negatives": 0},
+                        loss_atol)
+
+
+def _engine_vs_plain(label, eng, V: int, n: int, steps: int, device) -> dict:
+    """One chunk of ``steps`` steps of ``eng`` over ``n`` stacked (V, DIM)
+    workers, Zipf(1) ids and a noise table of frequency-sorted counts, on the
+    card and on the CPU (the plain versions) from the same init and key.
+    Returns {kernel: max difference} for the kernels the card run launched;
+    an engine without a kernel (``dense``, ``sparse``) is not compared."""
+    import numpy as np
+    import torch
+    from repro_torch import prng
+    from repro_torch.core.async_trainer import AsyncShardTrainer
+    from repro_torch.core.sgns import SGNSConfig
+    from repro_torch.data.pairs import stack_noise_tables
+    from repro_torch.kernels import sgns_fused
+
+    cfg = SGNSConfig(vocab_size=V, dim=DIM, negatives=5)
+    table = stack_noise_tables([np.arange(V, 0, -1, dtype=np.int64) ** 2] * n,
+                               kind=eng.table_kind)
+    p = 1.0 / np.arange(1, V + 1)
+    rng = np.random.default_rng(7)
+    centers, contexts = (rng.choice(V, size=(n, steps, BATCH), p=p / p.sum())
+                         .astype(np.int32) for _ in range(2))
+    out, init, launches = [], None, None
+    for dev in (device, torch.device("cpu")):
+        tr = AsyncShardTrainer(cfg=cfg, num_workers=n, total_steps=steps, engine=eng,
+                               device=dev)
+        if init is None:
+            init = tr.init(prng.PRNGKey(0))
+        tab = ({k: v.to(dev) for k, v in table.items()} if isinstance(table, dict)
+               else table.to(dev))
+        sgns_fused.reset_launch_counts()
+        out.append(tr.epoch({k: v.to(dev, copy=True) for k, v in init.items()},
+                            centers, contexts, tab, prng.PRNGKey(1)))
+        if launches is None:
+            torch.cuda.synchronize(device)
+            launches = dict(sgns_fused.LAUNCHES)
+            if not any(launches.values()):
+                log(f"[contracts] {label}: no kernel on its path, no plain comparison")
+                return {}
+    err = _card_vs_cpu("contracts", f"{label}, {steps} steps at n = {n}", out[0], out[1],
+                       init, launches, {k: v for k, v in launches.items() if v}, K2_LOSS_ATOL)
+    return {k: err for k, v in launches.items() if v}
+
+
+def _same_tables(a: dict, b: dict, workers) -> bool:
+    import numpy as np
+
+    return all(np.array_equal(a[w][k], b[w][k]) for w in workers for k in ("W", "C"))
+
+
+def _n1_vs_stacked(tag, device, setup_kw: dict, base: dict) -> None:
+    """Whether an n = 1 elastic worker is bitwise the stacked run's slice:
+    ``train_submodels`` of the same ELASTIC_WORKERS workers (one launch a
+    step for all of them), W compared worker by worker. A finding, not a
+    gate."""
+    import numpy as np
+    import torch
+    from repro_torch.core.driver import train_submodels
+
+    corpus, _ = world()
+    res = train_submodels(corpus, VOCAB, device=device, **setup_kw)
+    diffs = [float(np.abs(res.stacked.models[w].cpu().numpy() - base[w]["W"]).max())
+             for w in range(ELASTIC_WORKERS)]
+    same = all(d == 0.0 for d in diffs)
+    log(f"[{tag}] n = 1 elastic workers vs the stacked run of {ELASTIC_WORKERS} "
+        f"({setup_kw['engine']}): W bitwise {same}; max |ΔW| per worker "
+        + " ".join(f"{d:.3e}" for d in diffs))
+    del res
+    torch.cuda.empty_cache()
+
+
+def phase_elastic(device) -> dict:
+    """Elastic training at the main width (``examples/train_w2v_100m.py``'s
+    configuration: V = 89,611, d = 500, B = 1024, K = 5, window 5; 1 epoch of
+    64 steps in chunks of 16), cut to 4 workers (every checkpoint moves 2 ×
+    89,611 × 500 × 4 B = 358.4 MB a worker, so checkpoints every 2 chunks
+    write ~2.9 GB a run) with each state directory under a temporary root,
+    deleted after its case. ``fused`` (K2): the uninterrupted run twice,
+    bitwise; a kill of host 0 of 2 at tick 3 (after its checkpoint at chunk
+    2, so chunk 2 is lost and replayed) with a restart at tick 4, and the
+    same kill with ``steal_after=1`` and no restart, each bitwise the
+    uninterrupted run with K2 launched once per step trained (256 + 16 per
+    replayed chunk) and K1 never; ``train_submodels_elastic`` resumed on the
+    finished state directory (no K2 launch, W bitwise); ``merge_finished``
+    (``alir``, ``quorum=3``) over a run whose last worker never finishes
+    bitwise ``get_merger("alir").final()`` over the three survivors.
+    ``rowgrad`` (K3, ``random`` at rate 1/10): the uninterrupted run, then a
+    seeded kill-and-restart schedule (seed 3: a chunk of each of two workers
+    lost and replayed), bitwise. For both engines worker 0's first chunk is
+    held against the kernel's plain version (the same chunk on the CPU).
+    Every case runs under the collective recorder and shows none; the n = 1
+    runs are compared with the stacked run of the same 4 workers and the
+    answer printed."""
+    import numpy as np
+    import torch
+    from repro_torch.core.merge import get_merger
+    from repro_torch.elastic import (
+        FaultEvent, FaultSchedule, merge_finished, simulate_elastic,
+        train_submodels_elastic)
+    from repro_torch.kernels import sgns_fused
+
+    gpu = nvidia_smi_line()
+    t_phase = time.perf_counter()
+    setup = _elastic_setup("shuffle", "fused")
+    V, sched = setup.union_vocab.size, setup.sched
+    log(f"[elastic] {ELASTIC_WORKERS} workers x ({V}, {DIM}), {sched.steps_per_epoch} steps "
+        f"in {sched.num_chunks} chunks of {sched.chunk_steps}, checkpoints every "
+        f"{ELASTIC_CKPT_EVERY} chunks ({gpu})")
+    if sched.num_chunks != STEPS // ELASTIC_CHUNK:
+        raise RuntimeError(f"unexpected schedule {sched}")
+    base_steps = ELASTIC_WORKERS * sched.steps_per_epoch
+    K2 = "sgns_fused_step"
+
+    def case(label, fn, **kw):
+        return _elastic_case("elastic", label, device, setup, K2, fn, **kw)
+
+    base, info_a = case("uninterrupted", lambda r: r.run_all(),
+                        keep_dir=str(ROOT / "build" / "elastic_finished"))
+    runner_a = info_a["runner"]
+    losses = runner_a.epoch_losses()
+    moved = [float(np.abs(base[w]["W"] - runner_a.init_params(w)["W"].cpu().numpy()).max())
+             for w in range(ELASTIC_WORKERS)]
+    log(f"[elastic] epoch loss {losses}; max |W - W_init| per worker "
+        + " ".join(f"{m:.3e}" for m in moved))
+    if not (all(np.isfinite(base[w][k]).all() for w in base for k in "WC")
+            and np.isfinite(losses).all() and all(m > 0 for m in moved)):
+        raise RuntimeError("the elastic run's tables or losses are not finite, or W never moved")
+    if info_a["launches"] != base_steps:
+        raise RuntimeError(f"uninterrupted: {info_a['launches']} K2 launches, "
+                           f"expected {base_steps}")
+    again, _ = case("uninterrupted, again", lambda r: r.run_all())
+    same = _same_tables(base, again, range(ELASTIC_WORKERS))
+    log(f"[elastic] two uninterrupted runs bitwise equal: {same}")
+    if not same:
+        raise RuntimeError("two uninterrupted elastic runs differ")
+    del again
+    errs = {"fused": _elastic_vs_plain("elastic", "fused (K2)", device, setup, K2,
+                                       K2_LOSS_ATOL)}
+
+    for label, faults, steal in (
+            ("kill/restart", FaultSchedule((FaultEvent("kill", 0, 3),
+                                            FaultEvent("restart", 0, 4))), None),
+            ("kill/steal", FaultSchedule((FaultEvent("kill", 0, 3),)), 1)):
+        sim, info = case(label, lambda r, f=faults, s=steal:
+                         simulate_elastic(r, 2, f, steal_after=s))
+        replayed = info["chunks"] - ELASTIC_WORKERS * sched.num_chunks
+        same = not sim.unfinished and _same_tables(sim.params, base, range(ELASTIC_WORKERS))
+        log(f"[elastic] {label}: {sim.ticks} ticks, stolen {sim.stolen}, finished ticks "
+            f"{sim.finished_tick}, {replayed} chunks replayed; bitwise the uninterrupted "
+            f"run: {same}")
+        # host 0 owns workers 0 and 1 and loses chunk 2 of each to the kill
+        if not same or replayed != 2 or info["launches"] != base_steps + 2 * sched.chunk_steps:
+            raise RuntimeError(f"{label}: not the uninterrupted run, or not the expected "
+                               f"replay (replayed {replayed}, launches {info['launches']})")
+        if (steal is not None) != bool(sim.stolen):
+            raise RuntimeError(f"{label}: stolen {sim.stolen}")
+        del sim
+
+    # resume on the finished state directory: trains nothing
+    corpus, _ = world()
+    kw = train_kw("shuffle", "fused")
+    sgns_fused.reset_launch_counts()
+    t0 = time.perf_counter()
+    res = train_submodels_elastic(
+        corpus, VOCAB, "shuffle", ELASTIC_WORKERS, kw["cfg"],
+        state_dir=str(ROOT / "build" / "elastic_finished"), resume=True,
+        ckpt_every=ELASTIC_CKPT_EVERY, epochs=1, batch_size=BATCH, window=5,
+        max_vocab=VOCAB, base_min_count=10, max_steps_per_epoch=STEPS, engine="fused",
+        steps_per_chunk=ELASTIC_CHUNK, device=device)
+    wall = time.perf_counter() - t0
+    resumed = dict(sgns_fused.LAUNCHES)
+    same = all(np.array_equal(res.stacked.models[w].cpu().numpy(), base[w]["W"])
+               for w in range(ELASTIC_WORKERS))
+    log(f"[elastic] train_submodels_elastic on the finished state directory: {wall:.3f} s "
+        f"(train_s {res.timings['train_s']:.4f}: 4 loads), launches {resumed}; W bitwise "
+        f"the uninterrupted run: {same}")
+    if any(resumed.values()) or not same:
+        raise RuntimeError("resuming a finished state directory trained or changed something")
+    del res
+    import shutil
+    shutil.rmtree(ROOT / "build" / "elastic_finished", ignore_errors=True)
+
+    # merge from whatever finished: 4 hosts, the last killed for good
+    sim, info = case("quorum", lambda r: simulate_elastic(
+        r, ELASTIC_WORKERS, FaultSchedule((FaultEvent("kill", ELASTIC_WORKERS - 1, 1),))))
+    survivors = list(range(ELASTIC_WORKERS - 1))
+    if sim.finished != survivors or not _same_tables(sim.params, base, survivors):
+        raise RuntimeError(f"quorum: survivors {sim.finished}, or not the uninterrupted run")
+    t0 = time.perf_counter()
+    got = merge_finished(sim, setup.mask, merger="alir", quorum=3, device=device)
+    torch.cuda.synchronize(device)
+    merge_s = time.perf_counter() - t0
+    ref = get_merger("alir", device=device)
+    for w in survivors:
+        ref.add(w, sim.params[w]["W"], setup.mask[w], fold=False)
+    ref = ref.final()
+    same = got.worker_ids == tuple(survivors) and all(
+        torch.equal(getattr(got, f), getattr(ref, f)) for f in ("emb", "valid", "transforms"))
+    try:
+        merge_finished(sim, setup.mask, merger="alir", quorum=ELASTIC_WORKERS, device=device)
+        refused = False
+    except RuntimeError:
+        refused = True
+    log(f"[elastic] merge_finished(alir, quorum=3) over workers {sim.finished} "
+        f"(worker {ELASTIC_WORKERS - 1} unfinished): {merge_s:.3f} s; bitwise "
+        f"get_merger('alir').final() over the survivors: {same}; quorum={ELASTIC_WORKERS} "
+        f"refused: {refused}")
+    if not same or not refused:
+        raise RuntimeError("merge_finished is not the survivors' final fold")
+    del sim, got, ref
+    _n1_vs_stacked("elastic", device, {**train_kw("shuffle", "fused"),
+                                       "num_workers": ELASTIC_WORKERS,
+                                       "steps_per_chunk": ELASTIC_CHUNK}, base)
+    launches = {"fused": info_a["launches"]}
+    del base, runner_a, info_a
+    torch.cuda.empty_cache()
+
+    # rowgrad (K3) on the random strategy
+    setup = _elastic_setup("random", "rowgrad", rate=0.1)
+    sched = setup.sched
+    base, info = _elastic_case("elastic", "rowgrad uninterrupted", device, setup,
+                               "sgns_row_grads", lambda r: r.run_all())
+    launches["rowgrad"] = info["launches"]
+    errs["rowgrad"] = _elastic_vs_plain("elastic", "rowgrad (K3)", device, setup,
+                                        "sgns_row_grads", K3_LOSS_ATOL)
+    # seed 3 kills host 1 at tick 3, after its checkpoint at chunk 2, and
+    # restarts it at tick 5: chunk 2 of workers 2 and 3 is lost and replayed
+    faults = FaultSchedule.seeded(3, hosts=2, horizon=sched.num_chunks, kills=1, restarts=1)
+    sim, info = _elastic_case("elastic", "rowgrad seeded", device, setup, "sgns_row_grads",
+                              lambda r: simulate_elastic(r, 2, faults))
+    replayed = info["chunks"] - ELASTIC_WORKERS * sched.num_chunks
+    same = not sim.unfinished and _same_tables(sim.params, base, range(ELASTIC_WORKERS))
+    log(f"[elastic] rowgrad, union V {setup.union_vocab.size}: seeded schedule "
+        f"{[(e.kind, e.host, e.tick) for e in faults.events]}, {sim.ticks} ticks, "
+        f"{replayed} chunks replayed, {len(info['runner'].loads)} loads; bitwise the "
+        f"uninterrupted run: {same}")
+    if not same or {e.kind for e in faults.events} != {"kill", "restart"}:
+        raise RuntimeError("the seeded rowgrad run is not the uninterrupted one")
+    if replayed != 2 or not info["runner"].loads:
+        raise RuntimeError(f"the seeded rowgrad run replayed {replayed} chunks after "
+                           f"{len(info['runner'].loads)} loads, expected 2 after a load")
+    _n1_vs_stacked("elastic", device, {**train_kw("random", "rowgrad"),
+                                       "num_workers": ELASTIC_WORKERS,
+                                       "steps_per_chunk": ELASTIC_CHUNK, "rate": 0.1}, base)
+    log(f"[elastic] phase wall {time.perf_counter() - t_phase:.1f} s ({gpu})")
+    return {"launches": launches, "max_abs_err": errs}
+
+
+def phase_contracts(device) -> dict:
+    """The contract checker on the card: every engine × sampler certified
+    over one chunk of 8 steps at the main width with n = 2 (zero ``c10d::``
+    ops, zero NCCL kernels, the (V, d) tables in place), the ``@zipf50k``
+    planner traffic against the committed baseline; and, in an NCCL group
+    of world size 1, the recorder's non-vacuity: the mesh Gram's one
+    all-gather (rejected by the certifier), ``make_sync_epoch``'s three
+    all-reduces a step and ``make_periodic_sync_epoch``'s two a sync plus
+    one an epoch. Each engine's kernels are held against their plain
+    versions at n = 2 (:func:`_engine_vs_plain`)."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch import prng
+    from repro_torch.analysis.contracts import (
+        CollectiveRecorder, ContractViolation, certify_bench_traffic,
+        certify_engine_contracts, certify_zero_collective, engine_matrix)
+    from repro_torch.core.async_trainer import make_periodic_sync_epoch, make_sync_epoch
+    from repro_torch.core.merge import sharded_gram
+    from repro_torch.core.sgns import SGNSConfig
+    from repro_torch.sharding.merge import mesh_sharded_gram
+
+    gpu = nvidia_smi_line()
+    t_phase = time.perf_counter()
+    V, n = 89_611, 2
+    errs = {}
+    for eng in engine_matrix(V):
+        label = eng.describe() + (" sequential" if getattr(eng, "sequential", False) else "")
+        t0 = time.perf_counter()
+        rep = certify_engine_contracts(eng, vocab_size=V, dim=DIM, negatives=5, steps=8,
+                                       batch=BATCH, num_workers=n, device=device)
+        log(f"[contracts] {label}: zero collectives over {rep.device_kernels} device "
+            f"events (8 steps, n = {n}, V = {V}, d = {DIM}); tables in place "
+            f"({rep.in_place.tables_in_place}/2, largest table-shaped copy "
+            f"{rep.in_place.largest_copy}); {time.perf_counter() - t0:.2f} s")
+        if rep.device_kernels == 0:
+            raise RuntimeError(f"{label}: the recorder saw no device kernel")
+        # K4b's plain version is a per-pair loop (seconds a step on the CPU)
+        steps = 1 if getattr(eng, "sequential", False) else 8
+        for k, e in _engine_vs_plain(label, eng, V, n, steps, device).items():
+            errs[k] = max(errs.get(k, 0.0), e)
+        torch.cuda.empty_cache()
+    traffic = certify_bench_traffic(str(ROOT / "BENCH_wallclock.json"), device=device)
+    log("[contracts] @zipf50k planner traffic on the card == the committed baseline: "
+        + ", ".join(f"{r.engine} {r.predicted_rows}" for r in traffic))
+
+    rng = torch.Generator(device=device).manual_seed(0)
+    S, d = 4, DIM
+    A = F.pad(torch.randn((V, d), generator=rng, device=device), (0, 0, 0, (-V) % S))
+    cfg = SGNSConfig(vocab_size=V, dim=d, negatives=5)
+    table = {k: v[0] for k, v in zipf_alias_table(V, 1, device).items()}
+    ids = lambda *shape: torch.randint(0, V, shape, generator=rng, device=device,
+                                       dtype=torch.int32)
+    steps, outer, sync_every = 4, 2, 2
+
+    def tables():
+        return {"W": 0.01 * torch.randn((V, d), generator=rng, device=device),
+                "C": torch.zeros((V, d), device=device)}
+
+    seen = {}
+    with _nccl_world_of_one("contracts", device) as group:
+        with CollectiveRecorder(cuda=True) as rec:
+            g = mesh_sharded_gram(A, A, group, num_shards=S)
+        seen["gram"] = rec.counts
+        if not torch.equal(g, sharded_gram(A, A, S)):
+            raise RuntimeError("the mesh Gram is not sharded_gram")
+        try:
+            certify_zero_collective(rec.counts, label="merge-gram")
+            rejected = False
+        except ContractViolation:
+            rejected = True
+        with CollectiveRecorder(cuda=True) as rec:
+            make_sync_epoch(cfg, table, steps, group=group, engine="fused", device=device)(
+                tables(), ids(steps, BATCH), ids(steps, BATCH), prng.PRNGKey(1), 0)
+        seen["sync"] = rec.counts
+        with CollectiveRecorder(cuda=True) as rec:
+            make_periodic_sync_epoch(cfg, table, outer * sync_every, sync_every,
+                                     num_workers=n, group=group, engine="fused",
+                                     device=device)(
+                tables(), ids(outer, sync_every, BATCH), ids(outer, sync_every, BATCH),
+                prng.PRNGKey(2), 0)
+        seen["periodic"] = rec.counts
+    c10d = {k: {op: c for op, c in v.items() if op.startswith("c10d::")}
+            for k, v in seen.items()}
+    nccl = {k: {op: c for op, c in v.items() if not op.startswith("c10d::")}
+            for k, v in seen.items()}
+    log(f"[contracts] NCCL group of one: c10d ops {c10d}; NCCL kernels {nccl}; the Gram "
+        f"rejected by certify_zero_collective: {rejected} ({gpu})")
+    want = {"gram": {"c10d::_allgather_base_": 1},
+            "sync": {"c10d::allreduce_": 3 * steps},
+            "periodic": {"c10d::allreduce_": 2 * outer + 1}}
+    if c10d != want or not rejected:
+        raise RuntimeError(f"collective counts {c10d}, expected {want}")
+    log(f"[contracts] phase wall {time.perf_counter() - t_phase:.1f} s ({gpu})")
+    return {"max_abs_err": errs}
 
 
 def phase_random(device):
@@ -2277,50 +2815,57 @@ def main(argv=None) -> int:
 
     t_start = time.perf_counter()
     results: dict = {}
+    walls: dict = {}
+
+    def run(name, fn, *args, **kwargs):
+        # each phase's wall, printed as it ends
+        t0 = time.perf_counter()
+        out = fn(*args, **kwargs)
+        walls[name] = time.perf_counter() - t0
+        log(f"[env] phase {name}: {walls[name]:.1f} s")
+        torch.cuda.empty_cache()
+        return out
+
     if "build" in phases:
-        phase_build()
+        run("build", phase_build)
     if "k1" in phases:
-        results["k1"] = phase_k1(device)
+        results["k1"] = run("k1", phase_k1, device)
     if "k2" in phases:
-        results["k2"] = phase_k2(device)
-        torch.cuda.empty_cache()
+        results["k2"] = run("k2", phase_k2, device)
     if "main" in phases:
-        results["main"] = phase_main(device)
-        torch.cuda.empty_cache()
+        results["main"] = run("main", phase_main, device)
     if "sync" in phases:
-        results["sync"] = phase_sync(device, results["main"])
-        torch.cuda.empty_cache()
+        results["sync"] = run("sync", phase_sync, device, results["main"])
     if "merge" in phases:
-        results["merge"] = phase_merge(device, results["main"])
+        results["merge"] = run("merge", phase_merge, device, results["main"])
     if "serve" in phases:
-        results["serve"] = phase_serve(device, results["main"])
+        results["serve"] = run("serve", phase_serve, device, results["main"])
     if "main" in results:
         for k in ("stacked", "alir_pca"):          # the sub-models are merged and served
             results["main"].pop(k)
         torch.cuda.empty_cache()
-    if "cli" in phases:
-        results["cli"] = phase_cli(device)
-        torch.cuda.empty_cache()
-    if "random" in phases:
-        results["random"] = phase_random(device)
-        torch.cuda.empty_cache()
-    if "hbm" in phases:
-        results["hbm"] = phase_hbm(device)
-        torch.cuda.empty_cache()
+    for name, fn in (("cli", phase_cli), ("random", phase_random), ("hbm", phase_hbm)):
+        if name in phases:
+            results[name] = run(name, fn, device)
     if "pipe" in phases:
-        results["pipe"] = phase_pipe(device, results["hbm"])
-        torch.cuda.empty_cache()
+        results["pipe"] = run("pipe", phase_pipe, device, results["hbm"])
+    if "elastic" in phases:
+        results["elastic"] = run("elastic", phase_elastic, device)
+    if "contracts" in phases:
+        results["contracts"] = run("contracts", phase_contracts, device)
     if "time" in phases:
-        results["time"] = phase_time(device, results["main"], results["random"])
+        results["time"] = run("time", phase_time, device, results["main"], results["random"])
     if "profile" in phases:
+        t0 = time.perf_counter()
         for label in ("main", "random", "hbm"):
             if label in results:
                 phase_profile(device, label, results[label]["train_kw"])
         if "pipe" in results:
             phase_profile(device, "pipe", results["pipe"]["pipe"]["train_kw"])
+        log(f"[env] phase profile (training loops): {time.perf_counter() - t0:.1f} s")
     if "decode" in phases:
         torch.cuda.empty_cache()
-        results["decode"] = phase_decode(device, profile="profile" in phases)
+        results["decode"] = run("decode", phase_decode, device, profile="profile" in phases)
 
     if set(PHASES) - {"build", "profile"} <= set(phases):
         # launches: each kernel's count over its own path's training run
@@ -2373,7 +2918,21 @@ def main(argv=None) -> int:
         kernels[1]["launches_by_path"] = {
             "main": launches["sgns_fused_step"],
             "periodic": results["sync"]["periodic_launches"]["sgns_fused_step"],
-            "cli": results["cli"]["launches"]["sgns_fused_step"]}
+            "cli": results["cli"]["launches"]["sgns_fused_step"],
+            "elastic": results["elastic"]["launches"]["fused"]}
+        # K3 also runs on the elastic path (rowgrad, 4 workers one at a time)
+        kernels[2]["launches_by_path"] = {
+            "random": launches["sgns_row_grads"],
+            "elastic": results["elastic"]["launches"]["rowgrad"]}
+        # against the plain version on this slice's paths: the elastic path's
+        # first chunk (n = 1) and each engine's chunk in contracts (n = 2)
+        by_path = {"sgns_fused_step": results["elastic"]["max_abs_err"]["fused"],
+                   "sgns_row_grads": results["elastic"]["max_abs_err"]["rowgrad"]}
+        for k in kernels:
+            k["max_abs_err_by_path"] = {
+                **({"elastic": by_path[k["name"]]} if k["name"] in by_path else {}),
+                **({"contracts": results["contracts"]["max_abs_err"][k["name"]]}
+                   if k["name"] in results["contracts"]["max_abs_err"] else {})}
         print(json.dumps({"kernels": kernels}), flush=True)
     log(f"[env] phases {','.join(phases)} done in {time.perf_counter() - t_start:.1f} s")
     print(gpu, flush=True)

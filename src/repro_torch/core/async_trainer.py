@@ -24,6 +24,9 @@ share one table. The reference runs them over a ``worker`` mesh with
 ``torch.distributed`` process group (``all_reduce``), and the periodic
 sync's devices are also a leading axis of ``n`` stacked copies in one
 process. Without a group they make no collective call.
+
+:func:`assert_no_collectives` and :func:`count_collective_ops` check that
+claim on whatever a region dispatches (``repro_torch.analysis.contracts``).
 """
 
 from __future__ import annotations
@@ -286,6 +289,25 @@ def make_periodic_sync_epoch(cfg: SGNSConfig, neg_table, total_steps: int,
         return params, losses
 
     return epoch_fn
+
+
+def count_collective_ops(fn, *args, **kwargs) -> dict[str, int]:
+    """Collectives by name that ``fn(*args, **kwargs)`` dispatches
+    (``c10d::`` ops, NCCL kernels on the card); delegates to
+    :func:`repro_torch.analysis.contracts.count_collective_ops`."""
+    from repro_torch.analysis import contracts
+
+    return contracts.count_collective_ops(fn, *args, **kwargs)
+
+
+def assert_no_collectives(fn_or_counts, label: str = "") -> dict[str, int]:
+    """Raise (a :class:`~repro_torch.analysis.contracts.ContractViolation`,
+    an ``AssertionError``) if a callable, or counts already recorded, made
+    any collective; delegates to
+    :func:`repro_torch.analysis.contracts.certify_zero_collective`."""
+    from repro_torch.analysis import contracts
+
+    return contracts.certify_zero_collective(fn_or_counts, label)
 
 
 def _tensor(a) -> torch.Tensor:

@@ -20,8 +20,15 @@ names and defaults but for these:
 * ``--vmem-budget-mb`` defaults to 0; the port has no shared-memory
   estimate yet (``ROADMAP.md`` queue 1 item 7), so a nonzero budget raises
   ``NotImplementedError`` and no ``vmem:`` line is printed.
-* ``--elastic-state`` raises ``NotImplementedError`` (item 6), and
-  ``--processes`` > 1 raises as the driver does (item 9).
+* ``--processes`` > 1 raises as the driver does (item 9).
+
+``--elastic-state DIR`` trains the sub-models through the elastic runner
+(:func:`repro_torch.elastic.train_submodels_elastic`, one worker at a time
+on the resolved device) with ``(params, cursor)`` checkpoints in ``DIR``
+every ``--ckpt-every`` chunks; re-running the command resumes each worker
+from its last checkpoint (``--no-resume`` starts afresh), and on a finished
+state directory trains nothing. Either package's CLI resumes the other's
+state directory.
 
 ``--publish DIR`` folds the sub-models through the incremental ALiR
 merger and publishes versioned artifacts, in the JAX package's format, to
@@ -36,7 +43,7 @@ import argparse
 import numpy as np
 
 from repro_torch.checkpoint import save_checkpoint
-from repro_torch.core.driver import run_pipeline, train_sync_baseline
+from repro_torch.core.driver import apply_merges, run_pipeline, train_sync_baseline
 from repro_torch.core.engine import get_engine, port_engine_spec
 from repro_torch.core.sgns import SGNSConfig
 from repro_torch.data.corpus import SemanticCorpusModel
@@ -92,11 +99,12 @@ def build_parser() -> argparse.ArgumentParser:
                          "yet, so only 0 (the default) is accepted")
     ap.add_argument("--elastic-state", default=None, metavar="DIR",
                     help="preemption-tolerant training with per-worker "
-                         "checkpoints in DIR (not ported yet: raises)")
+                         "checkpoints in DIR (resumes from them)")
     ap.add_argument("--ckpt-every", type=int, default=1,
                     help="elastic checkpoint cadence in chunks (default 1)")
     ap.add_argument("--no-resume", action="store_true",
-                    help="with --elastic-state: ignore existing checkpoints")
+                    help="with --elastic-state: ignore existing "
+                         "checkpoints and train from scratch")
     ap.add_argument("--save", default=None, help="checkpoint path (.npz)")
     ap.add_argument("--publish", default=None, metavar="DIR",
                     help="incrementally ALiR-fold the sub-models and "
@@ -116,9 +124,6 @@ def main(argv=None):
     """Run the CLI; returns the :class:`~repro_torch.core.driver.PipelineResult`
     for callers that drive it in-process."""
     args = build_parser().parse_args(argv)
-    if args.elastic_state:
-        raise NotImplementedError(
-            "--elastic-state needs the port of elastic/ (ROADMAP.md queue 1 item 6)")
     if args.vmem_budget_mb:
         raise NotImplementedError(
             "--vmem-budget-mb needs the port's shared-memory and register "
@@ -140,15 +145,27 @@ def main(argv=None):
     cfg = SGNSConfig(vocab_size=0, dim=args.dim, window=args.window,
                      negatives=args.negatives)
 
-    res = run_pipeline(
-        corpus, args.vocab, strategy=args.strategy,
-        num_workers=args.workers, cfg=cfg, epochs=args.epochs,
-        batch_size=args.batch, rate=args.rate,
-        window=args.window, max_vocab=None, base_min_count=20,
-        merge_methods=tuple(args.merge),
-        merge_fan_in=args.merge_fan_in, merge_shard=args.merge_shard,
-        engine=engine, device=device,
-        process_index=args.process_index, process_count=args.processes)
+    if args.elastic_state:
+        from repro_torch.elastic import train_submodels_elastic
+
+        res = train_submodels_elastic(
+            corpus, args.vocab, args.strategy, args.workers, cfg,
+            state_dir=args.elastic_state, resume=not args.no_resume,
+            ckpt_every=args.ckpt_every, epochs=args.epochs,
+            batch_size=args.batch, rate=args.rate, window=args.window,
+            max_vocab=None, base_min_count=20, engine=engine, device=device)
+        res = apply_merges(res, tuple(args.merge), out_dim=cfg.dim,
+                           fan_in=args.merge_fan_in, shard=args.merge_shard)
+    else:
+        res = run_pipeline(
+            corpus, args.vocab, strategy=args.strategy,
+            num_workers=args.workers, cfg=cfg, epochs=args.epochs,
+            batch_size=args.batch, rate=args.rate,
+            window=args.window, max_vocab=None, base_min_count=20,
+            merge_methods=tuple(args.merge),
+            merge_fan_in=args.merge_fan_in, merge_shard=args.merge_shard,
+            engine=engine, device=device,
+            process_index=args.process_index, process_count=args.processes)
     print(f"strategy={args.strategy} workers={args.workers} "
           f"engine={engine.describe()} "
           f"train={res.timings['train_s']:.1f}s "

@@ -11,6 +11,7 @@ import pytest
 import torch
 
 from repro_torch import prng
+from repro_torch.analysis.contracts import engine_matrix
 from repro_torch.core.distributions import build_alias_table
 from repro_torch.kernels import sgns_fused as K
 
@@ -836,3 +837,60 @@ def test_server_hot_reload_and_pinned_store_on_the_card(device, tmp_path):
     assert not pinned.refresh() and pinned.version == 1
     out = asyncio.run(srv.embed_rows(np.arange(1000)))
     np.testing.assert_array_equal(out["vectors"], final.emb.cpu().numpy())
+
+
+# Elastic training on the card: a kill and a resume land on the
+# uninterrupted elastic run's bits (K2 on shuffle, K3 on random), each
+# kernel launched once per step trained; and every engine × sampler makes
+# no collective over a chunk (no c10d:: op, no NCCL kernel) with its
+# tables updated in place.
+def _small_elastic_setup(engine, strategy):
+    from repro_torch.core.driver import prepare_training
+    from repro_torch.core.sgns import SGNSConfig
+    from repro_torch.data.corpus import SemanticCorpusModel
+
+    corpus = SemanticCorpusModel.create(vocab_size=3000, seed=0).generate(4000, seed=1)
+    return prepare_training(corpus, 3000, strategy, 4,
+                            SGNSConfig(vocab_size=0, dim=48, negatives=5), epochs=2,
+                            batch_size=128, rate=0.5, max_steps_per_epoch=8,
+                            steps_per_chunk=2, subsample_t=None, engine=engine)
+
+
+@pytest.mark.parametrize("engine,strategy,kernel", [("fused", "shuffle", "sgns_fused_step"),
+                                                    ("rowgrad", "random", "sgns_row_grads")])
+def test_elastic_kill_resume_is_bitwise_on_the_card(device, tmp_path, engine, strategy,
+                                                    kernel):
+    from repro_torch.elastic import (ElasticRunner, FaultEvent, FaultSchedule,
+                                     WorkerStateStore, simulate_elastic)
+
+    setup = _small_elastic_setup(engine, strategy)
+    total = setup.sched.total_steps
+    K.reset_launch_counts()
+    base = ElasticRunner(setup, WorkerStateStore(str(tmp_path / "base")),
+                         device=device).run_all()
+    assert K.LAUNCHES[kernel] == 4 * total and K.LAUNCHES["sample_negatives"] == 0
+    for name, faults, steal in (
+            ("restart", FaultSchedule((FaultEvent("kill", 0, 3),
+                                       FaultEvent("restart", 0, 5))), None),
+            ("steal", FaultSchedule((FaultEvent("kill", 1, 2),)), 1)):
+        r = ElasticRunner(setup, WorkerStateStore(str(tmp_path / name)), ckpt_every=3,
+                          device=device)
+        K.reset_launch_counts()
+        sim = simulate_elastic(r, 2, faults, steal_after=steal)
+        assert sim.unfinished == [] and bool(sim.stolen) == (steal is not None)
+        assert K.LAUNCHES[kernel] >= 4 * total
+        for w in range(4):
+            for k in ("W", "C"):
+                np.testing.assert_array_equal(sim.params[w][k], base[w][k],
+                                              err_msg=f"{name} worker {w} {k}")
+
+
+@pytest.mark.parametrize("engine", engine_matrix(5000),
+                         ids=lambda e: e.describe() + ("-seq" if getattr(e, "sequential",
+                                                                          False) else ""))
+def test_every_engine_is_collective_free_and_in_place_on_the_card(device, engine):
+    from repro_torch.analysis.contracts import certify_engine_contracts
+
+    rep = certify_engine_contracts(engine, vocab_size=5000, dim=48, negatives=5, steps=2,
+                                   batch=256, num_workers=2, device=device)
+    assert rep.device_kernels > 0 and rep.in_place.tables_in_place == 2

@@ -49,7 +49,11 @@ def test_port_has_the_slice_modules():
               "repro_torch.serve.server", "repro_torch.serve.tcp", "repro_torch.serve.publish",
               "repro_torch.launch.train_sgns", "repro_torch.launch.serve",
               "repro_torch.examples", "repro_torch.examples.quickstart",
-              "repro_torch.examples.train_w2v_100m", "repro_torch.examples.serve_decode"):
+              "repro_torch.examples.train_w2v_100m", "repro_torch.examples.serve_decode",
+              "repro_torch.elastic", "repro_torch.elastic.cursor", "repro_torch.elastic.store",
+              "repro_torch.elastic.faults", "repro_torch.elastic.runner",
+              "repro_torch.analysis.contracts", "repro_torch.analysis.lint_rules",
+              "repro_torch.analysis.__main__", "repro_torch.core", "repro_torch.core.async_trainer"):
         assert m in mods
 
 

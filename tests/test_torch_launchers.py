@@ -8,6 +8,13 @@
   1e-4 after Procrustes (``test_torch_slice.py``'s merge tolerance), the
   saved merged tables within the same bound, the manifests' fields equal;
 * each package's serve CLI on the other package's artifact;
+* ``train_sgns --elastic-state`` of both packages on the same arguments
+  (the same published ids bitwise, tables by the rule above, the worker
+  states within 1e-5); a second run of the port's command trains nothing
+  and saves the same table bitwise; a state directory the reference's CLI
+  left mid-run (its last checkpoint of one worker lost to a kill between
+  the table and the manifest write) is finished by the port's CLI within
+  1e-5 of the reference's own finish;
 * the parsers: the port's flags are the reference's plus ``--device``,
   with the port's defaults for ``--engine`` (``fused``) and
   ``--vmem-budget-mb`` (0); the flags waiting on later items raise;
@@ -17,6 +24,8 @@
 import argparse
 import contextlib
 import io
+import json
+import os
 
 import numpy as np
 import pytest
@@ -27,6 +36,8 @@ from repro.checkpoint import load_table as jload_table
 from repro.launch import serve as jserve
 from repro.launch import train_sgns as jtrain
 from repro_torch.checkpoint import load_checkpoint, load_table
+from repro_torch.checkpoint.io import load_worker_state
+from repro_torch.core.async_trainer import AsyncShardTrainer
 from repro_torch.core.engine import REFERENCE_ENGINE, get_engine, port_engine_spec
 from repro_torch.launch import serve as tserve
 from repro_torch.launch import train_sgns as ttrain
@@ -54,6 +65,30 @@ def trained(tmp_path_factory):
         text = _run(main, ARGS + ["--publish", art, "--save", ckpt] + extra)
         out[pkg] = {"art": art, "ckpt": ckpt, "out": text}
     return out
+
+
+@pytest.fixture(scope="module")
+def elastic_trained(tmp_path_factory):
+    """Both CLIs trained with --elastic-state, published and saved once."""
+    root = tmp_path_factory.mktemp("elastic_cli")
+    out = {}
+    for pkg, main, extra in (("port", ttrain.main, ["--device", "cpu"]),
+                             ("repro", jtrain.main, [])):
+        d = {k: str(root / pkg / k) for k in ("state", "art", "merged.npz")}
+        d["out"] = _run(main, ARGS + ["--elastic-state", d["state"], "--publish", d["art"],
+                                      "--save", d["merged.npz"]] + extra)
+        out[pkg] = d
+    return out
+
+
+def _worker_epochs(monkeypatch) -> list:
+    """Count the port trainer's per-worker chunks (the elastic path's only
+    training call)."""
+    calls = []
+    real = AsyncShardTrainer.worker_epoch
+    monkeypatch.setattr(AsyncShardTrainer, "worker_epoch",
+                        lambda self, *a, **k: calls.append(1) or real(self, *a, **k))
+    return calls
 
 
 def _procrustes_err(A, B):
@@ -87,6 +122,76 @@ def test_train_sgns_publishes_what_the_reference_publishes(trained):
         np.testing.assert_array_equal(saved_t[k], saved_j[k])
     np.testing.assert_allclose(saved_t["embedding"], saved_j["embedding"], rtol=0,
                                atol=MERGE_ATOL)
+
+
+def test_train_sgns_elastic_publishes_what_the_reference_publishes(elastic_trained):
+    port, ref = elastic_trained["port"], elastic_trained["repro"]
+    for text in (port["out"], ref["out"]):
+        assert "published 2 incremental table version(s)" in text
+    assert "engine=sparse:cdf" in port["out"]
+    for v in (1, 2):
+        t, j = load_table(port["art"], v), jload_table(ref["art"], v)
+        for k in ("word_ids", "worker_ids", "mask", "valid"):
+            np.testing.assert_array_equal(getattr(t, k), getattr(j, k), err_msg=k)
+        assert _procrustes_err(t.emb, j.emb) < MERGE_ATOL, v
+        np.testing.assert_allclose(t.models, j.models, rtol=0, atol=1e-5)
+    saved_t, meta_t = load_checkpoint(port["merged.npz"])
+    saved_j, meta_j = jload_checkpoint(ref["merged.npz"])
+    assert meta_t == meta_j
+    np.testing.assert_array_equal(saved_t["word_ids"], saved_j["word_ids"])
+    np.testing.assert_allclose(saved_t["embedding"], saved_j["embedding"], rtol=0,
+                               atol=MERGE_ATOL)
+    for w in range(2):
+        (pt, ct, vt), (pj, cj, vj) = (load_worker_state(port["state"], w),
+                                      load_worker_state(ref["state"], w))
+        assert ct == cj and vt == vj
+        for k in ("W", "C"):
+            np.testing.assert_allclose(pt[k], pj[k], rtol=0, atol=1e-5)
+
+
+def test_train_sgns_elastic_rerun_trains_nothing(elastic_trained, tmp_path, monkeypatch):
+    port = elastic_trained["port"]
+    manifests = {w: json.load(open(os.path.join(port["state"], f"worker_{w:04d}",
+                                                "MANIFEST.json"))) for w in range(2)}
+    calls = _worker_epochs(monkeypatch)
+    again = str(tmp_path / "merged.npz")
+    text = _run(ttrain.main, ARGS + ["--elastic-state", port["state"], "--save", again,
+                                     "--device", "cpu"])
+    assert calls == [] and "losses=['nan']" in text
+    for w in range(2):
+        assert json.load(open(os.path.join(port["state"], f"worker_{w:04d}",
+                                           "MANIFEST.json"))) == manifests[w]
+    first, _ = load_checkpoint(port["merged.npz"])
+    second, _ = load_checkpoint(again)
+    for k in ("embedding", "valid", "word_ids"):
+        np.testing.assert_array_equal(first[k], second[k])
+
+
+def test_port_cli_finishes_a_state_dir_the_reference_cli_left(tmp_path, monkeypatch):
+    """The reference's CLI trains 2 epochs; worker 1's final checkpoint is
+    then lost as a kill between the table and the manifest rename loses
+    it (the table file stays, an orphan). The port's CLI resumes the
+    directory, trains only that worker's last epoch and lands within 1e-5
+    of the reference's final tables; worker 0 is not touched."""
+    state = str(tmp_path / "state")
+    argv = ARGS + ["--epochs", "2", "--elastic-state", state]
+    _run(jtrain.main, argv)
+    want = {w: load_worker_state(state, w) for w in range(2)}
+    mpath = os.path.join(state, "worker_0001", "MANIFEST.json")
+    manifest = json.load(open(mpath))
+    manifest["versions"].pop()
+    manifest["latest"] = manifest["versions"][-1]["version"]
+    json.dump(manifest, open(mpath, "w"))
+    assert load_worker_state(state, 1)[1]["epoch"] == 1
+    calls = _worker_epochs(monkeypatch)
+    _run(ttrain.main, argv + ["--device", "cpu"])
+    assert len(calls) == 1                         # one chunk: worker 1's epoch 1
+    got = {w: load_worker_state(state, w) for w in range(2)}
+    assert got[0][2] == want[0][2] and got[1][2] == want[1][2] + 1
+    for k in ("W", "C"):
+        np.testing.assert_array_equal(got[0][0][k], want[0][0][k])
+        np.testing.assert_allclose(got[1][0][k], want[1][0][k], rtol=0, atol=1e-5)
+    assert got[1][1] == want[1][1]
 
 
 @pytest.mark.parametrize("serve_pkg,art_pkg", [("port", "repro"), ("repro", "port")])
@@ -152,7 +257,6 @@ def test_parsers_are_the_reference_ones_plus_device(name, monkeypatch):
 
 
 @pytest.mark.parametrize("flags,exc,match", [
-    (["--elastic-state", "somewhere"], NotImplementedError, "queue 1 item 6"),
     (["--vmem-budget-mb", "16"], NotImplementedError, "queue 1 item 7"),
     (["--processes", "2"], ValueError, "item 9"),
 ])
