@@ -9,6 +9,8 @@
     python3 chip_smoke.py --phases build,main,sync,merge
     python3 chip_smoke.py --phases build,main,serve,cli
     python3 chip_smoke.py --phases build,elastic,contracts
+    python3 chip_smoke.py --phases build,main,multiproc
+    python3 chip_smoke.py --phases build,dryrun,budget
 
 Phases:
 
@@ -29,6 +31,13 @@ Phases:
    read just after training; K2 must have launched once per step and K1
    never (K2 draws the negatives inside its launch), and every sub-model's
    W must have left its init.
+4b. ``multiproc`` — two processes on the card train ``main``'s configuration
+   (``train_submodels(process_index=r, process_count=2)``, 5 workers each,
+   a gloo group through a file under ``build/``: NCCL refuses two ranks on
+   one device): each rank's block of W and chunk losses, the gathered
+   sub-models and the epoch losses bitwise the ``main`` run's (SHA-256 of the
+   bytes); zero collectives in training, the merge phase's two
+   ``all_gather``s counted; K2 once a step in each rank.
 5. ``sync`` — the synchronous baselines at the main configuration. The
    paper's comparison: ``train_sync_baseline`` (one shared 89,611 × 500
    table, batches of n·B = 10,240 pairs, 64 steps, ``engine="fused"``:
@@ -122,6 +131,21 @@ Phases:
    engine with a kernel also trains one chunk of 8 steps (K4b: 1) at n = 2
    on the card and on the CPU (its kernels' plain versions) from the same
    init, ids and key: W′, C′ and the losses within K2's tolerances.
+13b. ``dryrun`` — ``repro_torch.launch.dryrun_sgns`` through its entry point
+   at the paper's width (``configs/sgns_wiki.py``: V = 300,000, d = 500, K =
+   5, B = 1024, one worker, 16 steps of Zipf(1) ids; ``--vmem-budget-mb`` the
+   opt-in 227 KiB): the ten cases, zero collectives on every async case,
+   each case's launches and ``c10d::`` ops as expected (``sync`` 3 a step,
+   ``local_sgd_k`` 2 a sync and 1 an epoch, ``merge_alir_iter`` 1
+   all-gather), device µs a step and roofline rows; then K2, K3, K4a, K5, K6
+   over 4 steps on the card and on the CPU from one init at this width
+   (K2's tolerances and ``CHUNK_REL``), and K1 bitwise its plain version.
+13c. ``budget`` — one step of each engine with a kernel (and K7 at the
+   decode shape), then ``cudaFuncGetAttributes`` of every instantiation they
+   launched equal to ``analysis/vmem.py``'s static and dynamic shared memory;
+   registers and local memory (spills) of all 80 instantiations printed; the
+   ``stamps`` variant of K2's and K4a's launch at the main path's shapes,
+   its ``%globaltimer`` marks held to ``analysis/dma_model.check_timeline``.
 14. ``time`` — each kernel held against its plain version at its path's
    shapes, then it and its plain version timed with CUDA events beside the
    least time the card could take: K1 (ids bitwise) and K2 (ids bitwise,
@@ -227,8 +251,9 @@ CHUNK_REL = 1e-3
 K7_ATOL = {"float32": 1e-5, "bfloat16": 3e-2}
 DECODE_LOGITS_TOL = 2e-3
 
-PHASES = ("build", "k1", "k2", "main", "sync", "merge", "serve", "cli", "random", "hbm",
-          "pipe", "elastic", "contracts", "time", "profile", "decode")
+PHASES = ("build", "k1", "k2", "main", "multiproc", "sync", "merge", "serve", "cli", "random",
+          "hbm", "pipe", "elastic", "contracts", "dryrun", "budget", "time", "profile",
+          "decode")
 REPLACES = {
     "sample_negatives": "src/repro/kernels/sgns_fused.py:197",
     "sgns_fused_step": "src/repro/kernels/sgns_fused.py:105",
@@ -270,6 +295,11 @@ ELASTIC_WORKERS, ELASTIC_CHUNK, ELASTIC_CKPT_EVERY = 4, 16, 2
 # The cli phase: train_sgns at the main width on 60,000 sentences (306
 # steps a worker in its one epoch; 40,000 give 204), and the examples with
 # what each prints.
+# The dryrun phase: the paper's width (configs/sgns_wiki.py), steps a case,
+# and the shared-memory budget (the H100's opt-in 227 KiB a CTA, in MiB).
+DRYRUN_V, DRYRUN_STEPS, DEFAULT_BUDGET_MB = 300_000, 16, 232_448 / 2 ** 20
+# The multiproc phase: ranks on the one card, and each rank's time limit.
+MULTIPROC_WORLD, MULTIPROC_TIMEOUT_S = 2, 300
 CLI_SENTENCES = 60_000
 EXAMPLES = (
     ("quickstart", [], ("trained 4 async sub-models", "alir_pca   similarity")),
@@ -544,7 +574,8 @@ def phase_main(device):
             "V": res.union_vocab.size, "n": NUM_WORKERS, "dim": DIM, "B": BATCH,
             "K": kw["cfg"].negatives, "lr": kw["cfg"].lr, "train_kw": kw,
             "train_s": res.timings["train_s"], "stacked": res.stacked,
-            "alir_pca": emb, "scores": scores, "vocab": res.union_vocab}
+            "alir_pca": emb, "scores": scores, "vocab": res.union_vocab,
+            "chunk_losses": res.chunk_losses, "losses": res.losses}
 
 
 @contextmanager
@@ -630,7 +661,7 @@ def phase_sync(device, main: dict) -> dict:
     from repro_torch.core.async_trainer import make_periodic_sync_epoch, make_sync_epoch
     from repro_torch.core.driver import train_sync_baseline
     from repro_torch.core.engine import get_engine
-    from repro_torch.core.sgns import SGNSConfig, init_params, linear_lr
+    from repro_torch.core.sgns import SGNSConfig, init_params, linear_lr, worker_mean
     from repro_torch.kernels import sgns_fused as K
 
     corpus, _ = world()
@@ -755,7 +786,7 @@ def phase_sync(device, main: dict) -> dict:
                                   ctx[o, j].reshape(n, BATCH).contiguous(), tab,
                                   seeds[i].expand(n, 2).contiguous(),
                                   float(linear_lr(i, total, cfg_v)), negatives=5)
-                hand[o, j] = loss.mean(dim=1).mean()
+                hand[o, j] = worker_mean(loss).mean()
             means = {k: t.mean(dim=0) for k, t in stacked.items()}
             for k, t in stacked.items():
                 t.copy_(means[k].expand_as(t))
@@ -1402,7 +1433,8 @@ def _elastic_vs_plain(tag, label, device, setup, kernel, loss_atol) -> float:
                         loss_atol)
 
 
-def _engine_vs_plain(label, eng, V: int, n: int, steps: int, device) -> dict:
+def _engine_vs_plain(label, eng, V: int, n: int, steps: int, device,
+                     tag: str = "contracts") -> dict:
     """One chunk of ``steps`` steps of ``eng`` over ``n`` stacked (V, DIM)
     workers, Zipf(1) ids and a noise table of frequency-sorted counts, on the
     card and on the CPU (the plain versions) from the same init and key.
@@ -1438,9 +1470,9 @@ def _engine_vs_plain(label, eng, V: int, n: int, steps: int, device) -> dict:
             torch.cuda.synchronize(device)
             launches = dict(sgns_fused.LAUNCHES)
             if not any(launches.values()):
-                log(f"[contracts] {label}: no kernel on its path, no plain comparison")
+                log(f"[{tag}] {label}: no kernel on its path, no plain comparison")
                 return {}
-    err = _card_vs_cpu("contracts", f"{label}, {steps} steps at n = {n}", out[0], out[1],
+    err = _card_vs_cpu(tag, f"{label}, {steps} steps at n = {n}, V = {V}", out[0], out[1],
                        init, launches, {k: v for k, v in launches.items() if v}, K2_LOSS_ATOL)
     return {k: err for k, v in launches.items() if v}
 
@@ -2141,7 +2173,9 @@ def _time_ms(fn, device, reps: int, warmup: int = 3) -> float:
 
 def _unique_rows(ids: "torch.Tensor") -> int:
     """Distinct rows per worker of ``ids`` ``(n, ...)``, summed over workers."""
-    return sum(int(ids[w].unique().numel()) for w in range(ids.shape[0]))
+    from repro_torch.launch.roofline import unique_rows
+
+    return unique_rows(ids)
 
 
 def phase_time(device, main: dict, rand: dict) -> dict:
@@ -2431,14 +2465,10 @@ def _pipe_steps(kw: dict):
 
 def _step_bytes(centers, contexts, ids, d: int) -> int:
     """The least bytes one step of K2's function moves, whatever its
-    schedule (K2, K4, K5, K6): each distinct row of each table read once
-    and written once, the ids and the loss, the draw's table entries and
-    seeds."""
-    import torch
+    schedule (K2, K4, K5, K6): ``repro_torch.launch.roofline.step_bytes``."""
+    from repro_torch.launch.roofline import step_bytes
 
-    n, B, K = ids.shape
-    rows = _unique_rows(centers) + _unique_rows(torch.cat([contexts, ids.view(n, -1)], 1))
-    return 2 * rows * d * 4 + n * B * (4 + 4 + 4) + n * B * K * 8 + n * 8
+    return step_bytes(centers, contexts, ids, d)
 
 
 def _check_and_time_pipe(label, k4a, inputs, blk, kw, nbytes, flops) -> dict:
@@ -2652,6 +2682,290 @@ def _check_k3(tag, w, c_pos, c_neg) -> float:
 
 
 
+# ---------------------------------------------------------------------------
+# The paper's workload at 300k x 500 (dryrun_sgns), multi-process training,
+# and the on-chip budget and phase order held to the card.
+# ---------------------------------------------------------------------------
+def phase_dryrun(device) -> dict:
+    """``repro_torch.launch.dryrun_sgns`` through its entry point at the
+    paper's width (``configs/sgns_wiki.py``: V = 300,000, d = 500, K = 5, B =
+    1024; one worker, DRYRUN_STEPS steps of Zipf(1) ids): the ten cases, zero
+    collectives on every async case (the script asserts it), each case's
+    kernel launches and collectives as expected; then each kernel on these
+    paths held against its plain version at this width (K1 bitwise; K2, K3,
+    K4a, K5, K6 over one chunk on the card and on the CPU from the same init,
+    :func:`_engine_vs_plain`)."""
+    import torch
+    from repro_torch.core.engine import get_engine
+    from repro_torch.launch import dryrun_sgns
+
+    gpu = nvidia_smi_line()
+    S = DRYRUN_STEPS
+    out = ROOT / "chiprun_out" / "dryrun_sgns.json"
+    out.parent.mkdir(exist_ok=True)
+    out.unlink(missing_ok=True)
+    rows = {r["case"]: r for r in dryrun_sgns.main(
+        ["--cases", ",".join(dryrun_sgns.CASES), "--steps", str(S), "--json", str(out),
+         "--vmem-budget-mb", str(DEFAULT_BUDGET_MB)])}
+    k64 = max(S // 64, 1) * 64
+    want = {"async": {}, "async_alias": {}, "async_pallas": {"sgns_row_grads": S},
+            "async_fused": {"sgns_fused_step": S}, "async_fused_hbm": {"sgns_fused_hbm_step": S},
+            "async_fused_pipe": {"sgns_fused_pipe_step": S, "sample_negatives": S},
+            "async_fused_tiered": {"sgns_fused_tiered_step": S, "sample_negatives": S},
+            "sync": {"sample_negatives": S}, "local_sgd_8": {"sgns_fused_step": S},
+            "local_sgd_64": {"sgns_fused_step": k64}, "merge_alir_iter": {}}
+    colls = {"sync": {"c10d::allreduce_": 3 * S},
+             "local_sgd_8": {"c10d::allreduce_": 2 * (S // 8) + 1},
+             "local_sgd_64": {"c10d::allreduce_": 2 * (k64 // 64) + 1},
+             "merge_alir_iter": {"c10d::_allgather_base_": 1}}
+    for case, r in rows.items():
+        c10d = {k: v for k, v in r["collective_ops"].items() if k.startswith("c10d::")}
+        log(f"[dryrun] {case}: {r['device_us_per_step']:.1f} us/step on the device, bound "
+            f"{r['bound_s'] / r['measured_s']:.3f} of it ({r['dominant']}); launches "
+            f"{r['launches']}; collectives {r['collective_ops']}, "
+            f"{r['collective_bytes'] / 1e9:.4f} GB counted; wall {r['wall_s']:.2f} s ({gpu})")
+        if r["launches"] != want[case]:
+            raise RuntimeError(f"{case}: launches {r['launches']}, expected {want[case]}")
+        if c10d != colls.get(case, {}):
+            raise RuntimeError(f"{case}: collectives {c10d}, expected {colls.get(case, {})}")
+    errs = {}
+    for spec in ("rowgrad", "fused", "fused_hbm", "fused_pipe", "fused_tiered"):
+        for k, e in _engine_vs_plain(spec, get_engine(spec), DRYRUN_V, 1, 4, device,
+                                     tag="dryrun").items():
+            errs[k] = max(errs.get(k, 0.0), e)
+        torch.cuda.empty_cache()
+    errs["sample_negatives"] = _check_k1("dryrun", seeds_for(1, 0, device),
+                                         zipf_alias_table(DRYRUN_V, 1, device), (BATCH, 5))
+    launches = {}
+    for r in rows.values():
+        for k, v in r["launches"].items():
+            launches[k] = launches.get(k, 0) + v
+    return {"rows": rows, "launches": launches, "max_abs_err": errs}
+
+
+def multiproc_rank(rank: int, size: int, store: str) -> int:
+    """One rank of :func:`phase_multiproc` (``--multiproc-rank``): train the
+    main configuration's block of workers in a group of ``size`` ranks on
+    this card (gloo over host copies: NCCL refuses two ranks on one device),
+    under the collective recorder; then the merge phase's gathers under it
+    again. Prints one JSON line: hashes of its block's W and chunk losses and
+    of the gathered W, the counts, its launches and walls."""
+    import hashlib
+
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+    from repro_torch.analysis.contracts import CollectiveRecorder
+    from repro_torch.core.driver import gather_submodels, train_submodels
+    from repro_torch.kernels import sgns_fused
+    from repro_torch.launch.mesh import make_worker_group
+
+    device = torch.device("cuda", 0)
+    group = make_worker_group(size, rank, device=device, store=dist.FileStore(store, size))
+    corpus, _ = world()
+    sgns_fused.reset_launch_counts()
+    with CollectiveRecorder(cuda=True) as rec:
+        res = train_submodels(corpus, VOCAB, device=device, process_index=rank,
+                              process_count=size, group=group, **train_kw("shuffle", "fused"))
+    train_counts, launches = rec.counts, dict(sgns_fused.LAUNCHES)
+    sha = lambda a: hashlib.sha256(np.ascontiguousarray(a).tobytes()).hexdigest()
+    block = {"w": sha(res.stacked.models.cpu().numpy()),
+             "losses": sha(np.concatenate(res.chunk_losses, axis=1))}
+    start = res.plan.start
+    with CollectiveRecorder(cuda=True) as rec:
+        res = gather_submodels(res)
+    out = {"rank": rank, "start": start,
+           "backend": dist.get_backend(group), "train_counts": train_counts,
+           "gather_counts": rec.counts, "launches": launches, "block": block,
+           "gathered_w": sha(res.stacked.models.cpu().numpy()),
+           "losses": [float(x) for x in res.losses], "train_s": res.timings["train_s"],
+           "gather_s": res.timings["gather_s"]}
+    dist.destroy_process_group()
+    print("MULTIPROC " + json.dumps(out), flush=True)
+    return 0
+
+
+def phase_multiproc(device, main: dict) -> dict:
+    """Two processes on this card train the main configuration (10 workers
+    × 89,611 × 500, 64 steps of K2), each its block of 5 workers, in a gloo
+    group (rendezvous through a file under ``build/``): each block's W and
+    chunk losses bitwise the ``main`` phase's one-process run's, the
+    gathered sub-models and epoch losses too; zero collectives in training,
+    and the merge phase's gathers counted (one ``all_gather`` for W, one for
+    the chunk losses)."""
+    import hashlib
+    import os
+
+    import numpy as np
+
+    size = MULTIPROC_WORLD
+    sha = lambda a: hashlib.sha256(np.ascontiguousarray(a).tobytes()).hexdigest()
+    W = main["stacked"].models.cpu().numpy()
+    L = np.concatenate(main["chunk_losses"], axis=1)
+    store = ROOT / "build" / "multiproc_store"
+    store.parent.mkdir(exist_ok=True)
+    store.unlink(missing_ok=True)
+    env = {**os.environ, "PYTHONPATH": str(ROOT / "src")}
+    t0 = time.perf_counter()
+    procs = [subprocess.Popen([sys.executable, str(ROOT / "chip_smoke.py"), "--multiproc-rank",
+                               str(r), "--multiproc-store", str(store)],
+                              stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
+                              env=env) for r in range(size)]
+    outs = []
+    try:
+        for p in procs:
+            outs.append(p.communicate(timeout=MULTIPROC_TIMEOUT_S)[0])
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+        store.unlink(missing_ok=True)
+    wall = time.perf_counter() - t0
+    ranks = []
+    for r, (p, text) in enumerate(zip(procs, outs)):
+        line = next((ln for ln in text.splitlines() if ln.startswith("MULTIPROC ")), None)
+        if p.returncode != 0 or line is None:
+            raise RuntimeError(f"rank {r} failed ({p.returncode}):\n{text[-4000:]}")
+        ranks.append(json.loads(line[len("MULTIPROC "):]))
+    for info in ranks:
+        lo = info["start"]
+        hi = lo + NUM_WORKERS // size
+        same = {"block W": info["block"]["w"] == sha(W[lo:hi]),
+                "block chunk losses": info["block"]["losses"] == sha(L[lo:hi]),
+                "gathered W": info["gathered_w"] == sha(W),
+                "epoch losses": info["losses"] == [float(x) for x in main["losses"]]}
+        gathers = {k: v for k, v in info["gather_counts"].items() if k.startswith("c10d::")}
+        log(f"[multiproc] rank {info['rank']} of {size} ({info['backend']}), workers "
+            f"[{lo}, {hi}): train {info['train_s']:.3f} s, launches "
+            f"{ {k: v for k, v in info['launches'].items() if v} }, collectives in training "
+            f"{info['train_counts']}; gather {info['gather_s']:.3f} s, {gathers}; bitwise the "
+            f"one-process run: {same}")
+        if not all(same.values()):
+            raise RuntimeError(f"rank {info['rank']} is not bitwise the one-process run")
+        if info["train_counts"]:
+            raise RuntimeError(f"training made collectives: {info['train_counts']}")
+        if gathers != {"c10d::allgather_": 2}:
+            raise RuntimeError(f"the merge phase's gathers {gathers}, expected 2 all_gathers")
+        if info["launches"].get("sgns_fused_step") != main["steps"]:
+            raise RuntimeError(f"rank {info['rank']}: K2 launches {info['launches']}")
+    log(f"[multiproc] {size} processes on one card: {wall:.1f} s in all "
+        f"({nvidia_smi_line()})")
+    return {"ranks": ranks, "wall_s": wall,
+            "launches": {"sgns_fused_step": sum(i["launches"]["sgns_fused_step"]
+                                                for i in ranks)}}
+
+
+def phase_budget(device) -> dict:
+    """The on-chip budget held to the card: one step of each engine with a
+    kernel (K2, K3, K4a, K4b + K1, K5, K6) and one K7 call at the dryrun's
+    width; ``cudaFuncGetAttributes`` of each instantiation they launched
+    against :mod:`repro_torch.analysis.vmem`'s estimate (static and dynamic
+    shared memory must be equal), the registers and spills of every
+    instantiation of every library printed; then the ``stamps`` variant of
+    K2's and K4a's launch (``analysis/block_step_variants.py``) at the main
+    path's shapes, its ``%globaltimer`` marks held to
+    ``analysis/dma_model.check_timeline``."""
+    import ctypes
+
+    import numpy as np
+    import torch
+    from repro_torch import prng
+    from repro_torch.analysis import block_step_variants as BV
+    from repro_torch.analysis import dma_model, vmem
+    from repro_torch.core.async_trainer import AsyncShardTrainer
+    from repro_torch.core.engine import get_engine
+    from repro_torch.core.sgns import SGNSConfig
+    from repro_torch.data.pairs import stack_noise_tables
+    from repro_torch.kernels import build, sgns_fused
+    from repro_torch.kernels.sgns_block_step import _sms, run_block_step
+    from repro_torch.kernels.swa_decode import swa_decode
+
+    gpu = nvidia_smi_line()
+    V, d, K, B = 5_000, DIM, 5, BATCH
+    cfg = SGNSConfig(vocab_size=V, dim=d, negatives=K)
+    rows, mismatched = [], []
+    engines = [get_engine(s) for s in ("rowgrad", "fused", "fused_hbm", "fused_pipe",
+                                       "fused_tiered")] + [
+        get_engine("fused_hbm", sequential=True)]
+    rng = np.random.default_rng(0)
+    for eng in engines:
+        tr = AsyncShardTrainer(cfg=cfg, num_workers=1, total_steps=2, engine=eng,
+                               device=device)
+        params = tr.init(prng.PRNGKey(0))
+        table = tr.device_table(stack_noise_tables([np.arange(V, 0, -1)], kind=eng.table_kind))
+        c, x = (rng.integers(0, V, (1, 1, B), dtype=np.int32) for _ in range(2))
+        tr.epoch(params, c, x, table, prng.PRNGKey(1))
+        torch.cuda.synchronize(device)
+        est = vmem.check_vmem_budget(eng, vocab_size=V, dim=d, negatives=K, batch=B)
+        rows += vmem.card_check(est)
+    est = vmem.estimate_swa_decode(batch=4, window=4096, heads=32, kv_heads=8, head_dim=80)
+    g = torch.Generator(device=device).manual_seed(0)
+    swa_decode(torch.randn((4, 32, 80), generator=g, device=device),
+               torch.randn((4, 4096, 8, 80), generator=g, device=device),
+               torch.randn((4, 4096, 8, 80), generator=g, device=device))
+    torch.cuda.synchronize(device)
+    rows += vmem.card_check(est)
+    for r in rows:
+        log(f"[budget] {r['kernel']:40s} shared static {r['static']} (card {r['card_static']}), "
+            f"dynamic {r['dynamic']} (card {r['card_dynamic']}); registers {r['regs']} "
+            f"(bound {r['max_regs']}), spills {r['spill_bytes']} B: "
+            f"{'match' if r['match'] else 'MISMATCH'}")
+        if not r["match"]:
+            mismatched.append(r["kernel"])
+    spills = {}
+    for lib in build.SOURCES:
+        for a in build.kernel_attributes(lib):
+            spills[a.name] = (a.regs, a.local_bytes)
+            if a.local_bytes:
+                log(f"[budget] spills: {lib} {a.name}: {a.regs} registers, {a.local_bytes} B "
+                    f"of local memory a thread")
+    log(f"[budget] {len(spills)} instantiations in {len(build.SOURCES)} libraries; "
+        f"{sum(1 for _, s in spills.values() if s)} spill ({gpu})")
+    if mismatched:
+        raise RuntimeError(f"the vmem estimate disagrees with the card for {mismatched}")
+
+    # the card's timeline against the launch's phase order
+    paths = BV.build_variants(["stamps"], build.build_dir().parent / "block_step_variants")
+    n, Vm = NUM_WORKERS, 89_611
+    table = zipf_alias_table(Vm, n, device)
+    cen = sgns_fused.sample_negatives_plain(seeds_for(n, 1, device), table["prob"],
+                                            table["alias"], (B,))
+    ctx = sgns_fused.sample_negatives_plain(seeds_for(n, 2, device), table["prob"],
+                                            table["alias"], (B,))
+    timeline = {}
+    try:
+        for label, blk in (("K2", B), ("K4a", 256)):
+            lib, sym, counter = BV.LIBS[label]
+            BV._use(lib, paths[("stamps", lib)])
+            params = {"W": 0.1 * torch.randn((n, Vm, d), generator=g, device=device),
+                      "C": 0.1 * torch.randn((n, Vm, d), generator=g, device=device)}
+            run_block_step(lib, sym, counter, params, cen, ctx, table, seeds_for(n, 3, device),
+                           0.025, blk, K)
+            torch.cuda.synchronize(device)
+            stamps = np.zeros((1024, 64), dtype=np.uint64)
+            err = build._libs[lib].stamps_read(ctypes.c_void_p(stamps.ctypes.data))
+            if err:
+                raise RuntimeError(f"stamps_read failed with {err}")
+            geo = dma_model.block_geometry(n, d, B, K, blk, _sms(device))
+            bad = dma_model.check_timeline(stamps[:geo.groups * geo.group_ctas], geo, label)
+            t = stamps[:geo.groups * geo.group_ctas].astype(np.int64)
+            t0 = t[:, 0][t[:, 0] > 0].min()
+            log(f"[budget] {label} stamps: {geo.groups} groups x {geo.group_ctas} CTAs, "
+                f"{geo.nblocks} blocks, {geo.sorters} sorters; last draw written "
+                f"{(t[:, 5].max() - t0) / 1e3:.1f} us, first C-list keys loaded "
+                f"{(t[:geo.sorters:2, 1].min() - t0) / 1e3:.1f} us from the launch's first "
+                f"mark; model violations: {[str(v) for v in bad] or 'none'}")
+            timeline[label] = len(bad)
+            del params
+            if bad:
+                raise RuntimeError(f"{label}'s timeline breaks the launch's phase order")
+    finally:
+        for lib in ("sgns_fused_step", "sgns_fused_hbm"):
+            BV._use(lib, build.library_path(lib))
+    return {"rows": rows, "spills": spills, "timeline": timeline}
+
+
 PROFILE_GROUPS = {
     "main": (("K2", ("block_step_kernel",)),
              ("sorts (none since the launch sorts)", ("sort",)),
@@ -2784,6 +3098,9 @@ def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--phases", default=",".join(PHASES),
                     help=f"comma-separated subset of {','.join(PHASES)}")
+    # one rank of the multiproc phase (the phase starts these itself)
+    ap.add_argument("--multiproc-rank", type=int, default=None, help=argparse.SUPPRESS)
+    ap.add_argument("--multiproc-store", default=None, help=argparse.SUPPRESS)
     args = ap.parse_args(argv)
     phases = [p for p in args.phases.split(",") if p]
     unknown = set(phases) - set(PHASES)
@@ -2795,8 +3112,8 @@ def main(argv=None) -> int:
         ap.error("the profile phase needs the main, random or decode phase")
     if "pipe" in phases and "hbm" not in phases:
         ap.error("the pipe phase needs the hbm phase")
-    if {"sync", "merge", "serve"} & set(phases) and "main" not in phases:
-        ap.error("the sync, merge and serve phases need the main phase")
+    if {"sync", "merge", "serve", "multiproc"} & set(phases) and "main" not in phases:
+        ap.error("the multiproc, sync, merge and serve phases need the main phase")
 
     import torch
 
@@ -2808,6 +3125,8 @@ def main(argv=None) -> int:
               f"(no src/repro_torch)", file=sys.stderr)
         return 2
     sys.path.insert(0, str(ROOT / "src"))
+    if args.multiproc_rank is not None:
+        return multiproc_rank(args.multiproc_rank, MULTIPROC_WORLD, args.multiproc_store)
     device = torch.device("cuda", 0)
     gpu = nvidia_smi_line()
     log(f"[env] torch {torch.__version__} cuda {torch.version.cuda} "
@@ -2834,6 +3153,8 @@ def main(argv=None) -> int:
         results["k2"] = run("k2", phase_k2, device)
     if "main" in phases:
         results["main"] = run("main", phase_main, device)
+    if "multiproc" in phases:
+        results["multiproc"] = run("multiproc", phase_multiproc, device, results["main"])
     if "sync" in phases:
         results["sync"] = run("sync", phase_sync, device, results["main"])
     if "merge" in phases:
@@ -2853,6 +3174,10 @@ def main(argv=None) -> int:
         results["elastic"] = run("elastic", phase_elastic, device)
     if "contracts" in phases:
         results["contracts"] = run("contracts", phase_contracts, device)
+    if "dryrun" in phases:
+        results["dryrun"] = run("dryrun", phase_dryrun, device)
+    if "budget" in phases:
+        results["budget"] = run("budget", phase_budget, device)
     if "time" in phases:
         results["time"] = run("time", phase_time, device, results["main"], results["random"])
     if "profile" in phases:
@@ -2912,27 +3237,43 @@ def main(argv=None) -> int:
                     kernels[-1][k] = t[k]
         # K1 and K2 also run on this slice's paths: the sync baseline's draw
         # (K1 a step) and the periodic sync's local steps (K2 a step)
+        dry = results["dryrun"]
         kernels[0]["launches_by_path"] = {
             "pipe": launches["sample_negatives"],
-            "sync": results["sync"]["launches"]["sample_negatives"]}
+            "sync": results["sync"]["launches"]["sample_negatives"],
+            "dryrun": dry["launches"].get("sample_negatives", 0)}
         kernels[1]["launches_by_path"] = {
             "main": launches["sgns_fused_step"],
             "periodic": results["sync"]["periodic_launches"]["sgns_fused_step"],
             "cli": results["cli"]["launches"]["sgns_fused_step"],
-            "elastic": results["elastic"]["launches"]["fused"]}
+            "elastic": results["elastic"]["launches"]["fused"],
+            "dryrun": dry["launches"].get("sgns_fused_step", 0),
+            "multiproc": results["multiproc"]["launches"]["sgns_fused_step"]}
         # K3 also runs on the elastic path (rowgrad, 4 workers one at a time)
         kernels[2]["launches_by_path"] = {
             "random": launches["sgns_row_grads"],
-            "elastic": results["elastic"]["launches"]["rowgrad"]}
+            "elastic": results["elastic"]["launches"]["rowgrad"],
+            "dryrun": dry["launches"].get("sgns_row_grads", 0)}
+        for k in kernels[3:]:      # K4a, K5, K6 at the paper's width
+            if k["name"] in dry["launches"]:
+                k["launches_by_path"] = {"dryrun": dry["launches"][k["name"]]}
         # against the plain version on this slice's paths: the elastic path's
-        # first chunk (n = 1) and each engine's chunk in contracts (n = 2)
+        # first chunk (n = 1), each engine's chunk in contracts (n = 2) and at
+        # the paper's width in dryrun (n = 1)
         by_path = {"sgns_fused_step": results["elastic"]["max_abs_err"]["fused"],
                    "sgns_row_grads": results["elastic"]["max_abs_err"]["rowgrad"]}
         for k in kernels:
             k["max_abs_err_by_path"] = {
                 **({"elastic": by_path[k["name"]]} if k["name"] in by_path else {}),
                 **({"contracts": results["contracts"]["max_abs_err"][k["name"]]}
-                   if k["name"] in results["contracts"]["max_abs_err"] else {})}
+                   if k["name"] in results["contracts"]["max_abs_err"] else {}),
+                **({"dryrun": dry["max_abs_err"][k["name"]]}
+                   if k["name"] in dry["max_abs_err"] else {})}
+            # registers, spills and shared memory a CTA as the card reports them
+            lib = Path(k["source"]).stem
+            k["budget"] = [{key: r[key] for key in ("kernel", "regs", "spill_bytes",
+                                                    "card_static", "card_dynamic", "match")}
+                           for r in results["budget"]["rows"] if r["lib"] == lib]
         print(json.dumps({"kernels": kernels}), flush=True)
     log(f"[env] phases {','.join(phases)} done in {time.perf_counter() - t_start:.1f} s")
     print(gpu, flush=True)

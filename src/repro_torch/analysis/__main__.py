@@ -1,18 +1,24 @@
 """Run the port's static-analysis passes.
 
 ``python -m repro_torch.analysis [PASS ...] [--device cpu]`` runs, in
-order (both by default):
+order (all four by default, as the reference's runner):
 
-1. **contracts** — zero collectives over one chunk and the ``(V, d)``
+1. **dma_model** — the launches' phase order (K2/K4a and K5/K6) over the
+   bounded space of workers, blocks and group sizes, the apply items of
+   real ids, and the block planner's hazards against an oracle
+   (:mod:`repro_torch.analysis.dma_model`); CPU only.
+2. **contracts** — zero collectives over one chunk and the ``(V, d)``
    tables updated in place, for every registered engine × sampler, on the
    GPU unless ``--device cpu``; and the ``@zipf50k`` planner traffic
    against the committed ``BENCH_wallclock.json``.
-2. **lint** — the repo-specific AST rules RL001–RL004 over
+3. **vmem** — every engine's shared memory a CTA at the paper's shape
+   (300k × 500, K = 5, B = 1024) within the H100's opt-in 227 KiB, with its
+   kernels resident as their launches need
+   (:mod:`repro_torch.analysis.vmem`); CPU only.
+4. **lint** — the repo-specific AST rules RL001–RL004 over
    ``src/repro_torch``.
 
-The reference's two other passes, ``dma_model`` and ``vmem``, are not
-ported yet: asking for either exits non-zero and says so. Exit status is
-nonzero if any pass fails.
+Exit status is nonzero if any pass fails.
 """
 
 from __future__ import annotations
@@ -21,8 +27,7 @@ import argparse
 import sys
 import time
 
-PASSES = ("contracts", "lint")
-NOT_PORTED = ("dma_model", "vmem")
+PASSES = ("dma_model", "contracts", "vmem", "lint")
 
 
 def _run_contracts(args) -> bool:
@@ -32,6 +37,18 @@ def _run_contracts(args) -> bool:
     if args.device:
         argv += ["--device", args.device]
     return contracts.main(argv) == 0
+
+
+def _run_dma_model(args) -> bool:
+    from repro_torch.analysis import dma_model
+
+    return dma_model.main([]) == 0
+
+
+def _run_vmem(args) -> bool:
+    from repro_torch.analysis import vmem
+
+    return vmem.main([]) == 0
 
 
 def _run_lint(args) -> bool:
@@ -51,16 +68,12 @@ def main(argv=None) -> int:
                     help="bench baseline for the traffic cross-check")
     args = ap.parse_args(argv)
     names = [p.replace("-", "_") for p in args.passes]
-    waiting = [p for p in names if p in NOT_PORTED]
-    if waiting:
-        print(f"{', '.join(waiting)}: not ported yet (ROADMAP.md queue 1 item 7); "
-              f"the port runs {', '.join(PASSES)}", file=sys.stderr)
-        return 2
     unknown = [p for p in names if p not in PASSES]
     if unknown:
         ap.error(f"unknown passes {unknown}; choose from {', '.join(PASSES)}")
 
-    runners = {"contracts": _run_contracts, "lint": _run_lint}
+    runners = {"dma_model": _run_dma_model, "contracts": _run_contracts,
+               "vmem": _run_vmem, "lint": _run_lint}
     failed = []
     for name in names:
         print(f"== {name} ==")

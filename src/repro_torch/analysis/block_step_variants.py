@@ -35,9 +35,11 @@ centers, contexts and noise table): K2 with one block, K4a with blocks of
 * ``stamps`` — the kernel with ``%globaltimer`` stamps written by thread 0
   of each CTA (the same bits): inside each sort task (after its keys are
   loaded and drawn, its radix passes, its rows and its items: the draw and
-  sort's end) and, for each block, after the
+  sort's end), in each drawing CTA when its draw is written (before its
+  release), and, for each block, after the
   pairs, after the barrier and after the applies, and after the barrier
-  that ends the block. For the first group (K2: worker 0's only block) it
+  that ends the block (``analysis/dma_model.check_timeline`` holds these
+  marks to the launch's phase order). For the first group (K2: worker 0's only block) it
   prints when each step of the first block ended, in µs from the launch's
   first stamp; and, averaged over the groups' first CTAs, the pairs and
   the applies phases summed over the blocks, each up to the barrier that
@@ -156,6 +158,11 @@ VARIANTS = {
             "  __syncthreads();\n  stamp(3);\n  int* spos = order == ids",
         "a.n_items + slot);\n  __syncthreads();\n}":
             "a.n_items + slot);\n  __syncthreads();\n  stamp(4);\n}",
+        # a drawing CTA's draw written, before its release on `drawn`
+        "    __threadfence();\n    asm volatile(\"red.release.gpu.global.add.s32 [%0], 1;\" : "
+        ": \"l\"(a.drawn + w)":
+            "    stamp(5);\n    __threadfence();\n    asm volatile(\"red.release.gpu.global.add."
+            "s32 [%0], 1;\" : : \"l\"(a.drawn + w)",
         "  __syncthreads();\n  unsigned phase = 0;\n":
             "  __syncthreads();\n  stamp(0);\n  unsigned phase = 0;\n",
         # block b: 8 + 4 b pairs done, 9 + 4 b past the barrier, 10 + 4 b
@@ -175,8 +182,8 @@ VARIANTS = {
     },
 }
 INEXACT = ("no-pairs", "no-applies")   # the variants that change the results
-STAMP_NAMES = {1: "keys drawn", 2: "sort passes", 3: "sort rows out", 4: "draw+sort end",
-               8: "pairs(0)", 9: "barrier", 10: "applies(0)"}
+STAMP_NAMES = {5: "draw written", 1: "keys drawn", 2: "sort passes", 3: "sort rows out",
+               4: "draw+sort end", 8: "pairs(0)", 9: "barrier", 10: "applies(0)"}
 LIBS = {"K2": ("sgns_fused_step", "sgns_fused_step_launch", "sgns_fused_step"),
         "K4a": ("sgns_fused_hbm", "sgns_hbm_chain_launch", "sgns_fused_hbm_step")}
 

@@ -86,15 +86,17 @@ class CollectiveRecorder:
 
     ``cuda`` — also record device activity (default: when a GPU is
     present). After the block, :attr:`counts` holds the collectives by
-    name and :attr:`device_kernels` the number of device events (kernels
+    name, :attr:`device_kernels` the number of device events (kernels
     and copies) seen in all, so a caller can tell that device activity was
-    recorded. The raw events are read directly: building the profiler's
-    Python event tree would cost seconds a run."""
+    recorded, and :attr:`device_busy_us` the union of their intervals. The
+    raw events are read directly: building the profiler's Python event tree
+    would cost seconds a run."""
 
     def __init__(self, cuda: bool | None = None):
         self.cuda = torch.cuda.is_available() if cuda is None else bool(cuda)
         self.counts: dict[str, int] = {}
         self.device_kernels = 0
+        self.device_busy_us = 0.0
         self._prof = None
 
     def __enter__(self) -> "CollectiveRecorder":
@@ -111,8 +113,18 @@ class CollectiveRecorder:
         self._prof.__exit__(*exc)
         events = self._prof.profiler.kineto_results.events()
         self.counts = collective_counts(events)
-        self.device_kernels = sum(_on_device(ev) and not ev.is_user_annotation()
-                                  for ev in events)
+        spans = sorted((ev.start_ns(), ev.end_ns()) for ev in events
+                       if _on_device(ev) and not ev.is_user_annotation())
+        self.device_kernels = len(spans)
+        busy, end = 0, None
+        for s, f in spans:
+            if end is None or s > end:
+                busy += f - s
+                end = f
+            elif f > end:
+                busy += f - end
+                end = f
+        self.device_busy_us = busy / 1e3
 
 
 def count_collective_ops(fn, *args, cuda: bool | None = None, **kwargs) -> dict[str, int]:

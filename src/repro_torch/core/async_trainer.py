@@ -88,6 +88,11 @@ class AsyncShardTrainer:
     ``"sparse:alias"``, ``"dense"``) that owns the per-step compute.
     ``device`` — where the tables live; ``None`` is the GPU (raising
     without one), ``"cpu"`` runs the kernels' plain versions.
+    ``plan`` — a :class:`repro_torch.data.pipeline.HostShardPlan` over
+    ``num_workers``: this process trains only its block of workers
+    ``[plan.start, plan.stop)``, so the stacked tables are ``(plan.num_local,
+    V, d)``; each worker's init and step keys are still split off the
+    global keys by its global id, so its draws do not depend on the split.
     """
 
     cfg: SGNSConfig
@@ -95,24 +100,62 @@ class AsyncShardTrainer:
     total_steps: int
     engine: object = "fused"
     device: object = None
+    plan: object = None
 
     def __post_init__(self):
         self.engine = get_engine(self.engine)
-        self.engine.validate(vocab_size=self.cfg.vocab_size)
+        self.engine.validate(vocab_size=self.cfg.vocab_size, dim=self.cfg.dim,
+                             negatives=self.cfg.negatives)
         self.device = resolve_device(self.device)
+        if self.plan is not None and self.plan.num_workers != self.num_workers:
+            raise ValueError(f"plan covers {self.plan.num_workers} workers, the trainer "
+                             f"{self.num_workers}")
         self._epoch = None
 
+    @property
+    def workers(self) -> range:
+        """The global ids of the workers this trainer stacks."""
+        return range(self.num_workers) if self.plan is None else self.plan.workers
+
     def init(self, key) -> dict:
-        """Stacked ``{"W", "C"}`` ``(n, V, d)``: worker i's tables are
-        ``init_params(split(key, n)[i])``."""
-        keys = prng.split(key, self.num_workers)
+        """Stacked ``{"W", "C"}`` ``(n_local, V, d)``: worker i's tables are
+        ``init_params(split(key, n)[i])`` for each of :attr:`workers`."""
+        keys = prng.split(key, self.num_workers)[self.workers.start:self.workers.stop]
         V, d = self.cfg.vocab_size, self.cfg.dim
-        W = torch.empty((self.num_workers, V, d), dtype=torch.float32,
-                        device=self.device)
+        W = torch.empty((len(keys), V, d), dtype=torch.float32, device=self.device)
         for i, k in enumerate(keys):
             W[i] = sgns.init_params(k, self.cfg, device=self.device)["W"]
         C = torch.zeros_like(W)
         return {"W": W, "C": C}
+
+    def device_chunk(self, centers, contexts):
+        """This process's ``(plan.num_local, S, B)`` chunk blocks on the
+        trainer's device (:func:`repro_torch.launch.mesh.assemble_worker_array`:
+        each process keeps its own block; nothing is exchanged)."""
+        if self.plan is None:
+            return _tensor(centers).to(self.device), _tensor(contexts).to(self.device)
+        from repro_torch.launch.mesh import assemble_worker_array
+
+        return (assemble_worker_array(self.plan, centers, self.device),
+                assemble_worker_array(self.plan, contexts, self.device))
+
+    def device_table(self, neg_table):
+        """This process's rows of the stacked noise tables (``(n, V)`` leaves,
+        all workers' or already the plan's ``(num_local, V)``) on the
+        trainer's device."""
+        def local(a):
+            a = _tensor(a)
+            if self.plan is not None and a.shape[0] == self.num_workers:
+                a = a[self.plan.start:self.plan.stop]
+            if self.plan is None:
+                return a.to(self.device)
+            from repro_torch.launch.mesh import assemble_worker_array
+
+            return assemble_worker_array(self.plan, a, self.device)
+
+        if isinstance(neg_table, dict):
+            return {k: local(v) for k, v in neg_table.items()}
+        return local(neg_table)
 
     def _epoch_fn(self):
         if self._epoch is None:
@@ -124,9 +167,10 @@ class AsyncShardTrainer:
         """params: (n,V,d) dict, updated in place; centers/contexts:
         (n,S,B) int32 tensors or arrays; neg_table: (n,V) CDFs or
         {'prob','alias'} of (n,V), as ``engine.table_kind`` says, on the
-        trainer's device; key: the chunk's (2,) key.
-        Returns ``(params, losses (n, S))``."""
-        keys = prng.split(key, self.num_workers)
+        trainer's device; key: the chunk's (2,) key. Under a ``plan``, n is
+        ``plan.num_local`` and worker i takes ``split(key, num_workers)[
+        plan.start + i]``. Returns ``(params, losses (n, S))``."""
+        keys = prng.split(key, self.num_workers)[self.workers.start:self.workers.stop]
         return self._epoch_fn()(params, _tensor(centers), _tensor(contexts),
                                 neg_table, keys, int(step0))
 
@@ -242,7 +286,7 @@ def make_periodic_sync_epoch(cfg: SGNSConfig, neg_table, total_steps: int,
     axis (``all_reduce`` and a division by the world size across ranks,
     as ``pmean``); the losses are that mean over workers too."""
     engine = get_engine(engine)
-    engine.validate(vocab_size=cfg.vocab_size)
+    engine.validate(vocab_size=cfg.vocab_size, dim=cfg.dim, negatives=cfg.negatives)
     device = resolve_device(device)
     n = int(num_workers)
     if n < 1 or sync_every < 1:

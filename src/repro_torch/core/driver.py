@@ -27,6 +27,7 @@ from dataclasses import dataclass, field
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from repro_torch import prng
 from repro_torch.core.sgns import SGNSConfig
@@ -233,6 +234,9 @@ class PipelineResult:
     timings: dict = field(default_factory=dict)
     losses: list = field(default_factory=list)       # per-epoch mean loss
     chunk_losses: list = field(default_factory=list)  # per-chunk (n, S) arrays
+    plan: HostShardPlan | None = None                # whose workers `stacked` holds
+    group: object = None                             # the merge phase's process group
+    presence: np.ndarray | None = None               # every worker's (n, V) presence mask
 
 
 def train_submodels(
@@ -257,19 +261,38 @@ def train_submodels(
     process_index: int | None = None,
     process_count: int | None = None,
     device=None,
+    group=None,
 ) -> PipelineResult:
     """Divide and train the n sub-models on ``device`` (the GPU unless
-    ``device="cpu"``). Single process: ``process_count > 1`` raises.
+    ``device="cpu"``).
 
     ``engine`` is a spec string (``"rowgrad:cdf"``, ``"sparse:alias"``)
     or an engine instance carrying its dials (``get_engine("fused_hbm",
     block_pairs=128)``); the noise tables are built in its layout and
     moved to ``device``. The port defaults to ``fused``, its main-path
-    engine (the reference defaults to ``sparse``)."""
-    if (process_count or 1) > 1:
-        raise ValueError("the port trains in one process; process_count > 1 "
-                         "is not supported")
+    engine (the reference defaults to ``sparse``).
+
+    ``process_index`` / ``process_count`` (default: the rank and world
+    size of the ``torch.distributed`` default group) select multi-process
+    training: every process divides the corpus alike, then extracts and
+    trains only its :class:`HostShardPlan` block of workers, with **no
+    collective**; the result holds that block (``plan`` says which), and
+    :func:`gather_submodels` (called by :func:`apply_merges`) gathers the
+    blocks over ``group`` (default: the default group) in the merge phase.
+    Each worker's keys are split by its global id, so its tables and chunk
+    losses are bitwise those of the one-process run."""
     device = resolve_device(device)
+    plan = HostShardPlan.for_runtime(num_workers, process_index=process_index,
+                                     process_count=process_count)
+    if plan.process_count > 1:
+        if group is None:
+            if not dist.is_initialized():
+                raise ValueError(
+                    "multi-process training (process_count > 1) needs the process group "
+                    "its merge phase gathers over: repro_torch.launch.mesh."
+                    "make_worker_group")
+            group = dist.group.WORLD
+        plan.validate_for_mesh(group)
     setup = prepare_training(
         corpus, raw_vocab_size, strategy, num_workers, cfg,
         epochs=epochs, batch_size=batch_size, rate=rate, window=window,
@@ -278,14 +301,13 @@ def train_submodels(
         max_steps_per_epoch=max_steps_per_epoch, engine=engine,
         steps_per_chunk=steps_per_chunk,
         sentences_per_block=sentences_per_block,
-        process_index=process_index, process_count=process_count)
+        process_index=plan.process_index, process_count=plan.process_count)
     cfg, engine, sched = setup.cfg, setup.engine, setup.sched
-    neg_table = {k: v.to(device) for k, v in setup.neg_table.items()} \
-        if isinstance(setup.neg_table, dict) else setup.neg_table.to(device)
-
     trainer = AsyncShardTrainer(cfg=cfg, num_workers=num_workers,
                                 total_steps=sched.total_steps, engine=engine,
-                                device=device)
+                                device=device, plan=plan)
+    # this process's rows of the noise tables
+    neg_table = trainer.device_table(setup.neg_table)
     t_init0 = time.perf_counter()
     params = trainer.init(prng.PRNGKey(cfg.seed))
     if device.type == "cuda":
@@ -312,6 +334,7 @@ def train_submodels(
             t_wait = time.perf_counter()
             for k, (centers, contexts) in enumerate(chunk_it):
                 wait_s += time.perf_counter() - t_wait
+                centers, contexts = trainer.device_chunk(centers, contexts)
                 params, cl = trainer.epoch(params, centers, contexts, neg_table,
                                            prng.fold_in(ep_key, k),
                                            step0=sched.step0(epoch, k))
@@ -323,14 +346,48 @@ def train_submodels(
             torch.cuda.synchronize(device)
     t_train = time.perf_counter() - t_train0
 
-    stacked = StackedModels(models=params["W"],
-                            mask=torch.from_numpy(setup.mask).to(device))
+    stacked = StackedModels(
+        models=params["W"],
+        mask=torch.from_numpy(setup.mask[plan.start:plan.stop]).to(device))
     return PipelineResult(
         strategy=strategy, num_workers=num_workers, union_vocab=setup.union_vocab,
         stacked=stacked, timings={"vocab_s": setup.vocab_s, "train_s": t_train,
                                   "init_s": t_init, "chunk_wait_s": wait_s,
                                   "steps_per_epoch": sched.steps_per_epoch},
-        losses=losses, chunk_losses=chunk_losses)
+        losses=losses, chunk_losses=chunk_losses, plan=plan, group=group,
+        presence=setup.mask)
+
+
+def gather_submodels(res: PipelineResult) -> PipelineResult:
+    """The merge phase's gathers of a multi-process run: every rank's block
+    of sub-models (``W``), and of chunk losses, all-gathered over
+    ``res.group`` in rank order (:func:`repro_torch.sharding.merge
+    .gather_worker_blocks`, one ``all_gather`` each), so that every rank
+    holds all n sub-models, the presence mask, every worker's chunk losses
+    and the epoch losses of the one-process run, bitwise. A one-process
+    result is returned as it is."""
+    from repro_torch.sharding.merge import gather_worker_blocks
+
+    plan = res.plan
+    if plan is None or plan.process_count == 1:
+        return res
+    t0 = time.perf_counter()
+    device = res.stacked.models.device
+    models = gather_worker_blocks(res.stacked.models, res.group)
+    widths = [c.shape[1] for c in res.chunk_losses]
+    local = torch.from_numpy(np.concatenate(res.chunk_losses, axis=1)).to(device)
+    every = gather_worker_blocks(local, res.group)
+    chunks = list(torch.split(every, widths, dim=1))
+    per_epoch = len(chunks) // max(len(res.losses), 1)
+    losses = [_mean_loss(chunks[e * per_epoch:(e + 1) * per_epoch])
+              for e in range(len(res.losses))]
+    mask = torch.from_numpy(res.presence).to(device)
+    res.stacked = StackedModels(models=models, mask=mask)
+    res.chunk_losses = [c.cpu().numpy() for c in chunks]
+    res.losses = losses
+    res.plan = HostShardPlan(0, 1, res.num_workers)
+    res.timings["gather_s"] = time.perf_counter() - t0
+    return res
 
 
 def run_pipeline(
@@ -359,7 +416,9 @@ def apply_merges(res: PipelineResult, merge_methods, out_dim: int, *,
     """Fold the stacked sub-models with each requested method on their
     device, recording wall-clock per method in ``res.timings``.
     ``fan_in`` sizes the ``alir_tree`` reduction tree; ``shard`` the ALiR
-    Gram accumulation."""
+    Gram accumulation. A multi-process result is gathered first
+    (:func:`gather_submodels`); every rank then merges all n sub-models."""
+    res = gather_submodels(res)
     device = res.stacked.models.device
     for method in merge_methods:
         t0 = time.perf_counter()

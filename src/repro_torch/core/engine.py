@@ -103,8 +103,17 @@ class UpdateEngine:
         step_idx) -> (params, mean_loss (n,))``."""
         raise NotImplementedError
 
-    def validate(self, *, vocab_size: int | None = None) -> None:
-        """Check dials that only make sense against a model shape."""
+    def validate(self, *, vocab_size: int | None = None, dim: int | None = None,
+                 negatives: int | None = None) -> None:
+        """Check dials that only make sense against a model shape; with
+        ``dim`` and ``negatives``, also that a CTA of each of the step's
+        kernels fits the card's shared memory
+        (:func:`repro_torch.analysis.vmem.check_vmem_budget`)."""
+        if dim is not None and negatives is not None:
+            from repro_torch.analysis.vmem import check_vmem_budget
+
+            check_vmem_budget(self, vocab_size=vocab_size or 1, dim=dim,
+                              negatives=negatives, batch=None)
 
     def describe(self) -> str:
         return f"{self.name}:{self.sampler}"
@@ -121,7 +130,7 @@ class DenseEngine(UpdateEngine):
             negs = self.sample(neg_table, seeds, (centers.shape[1], cfg.negatives))
             lr = sgns.linear_lr(step_idx, total_steps, cfg)
             loss = sgns.train_step_dense_(params, centers, contexts, negs, lr)
-            return params, loss.mean(dim=1)
+            return params, sgns.worker_mean(loss)
 
         return step
 
@@ -146,7 +155,7 @@ class SparseEngine(UpdateEngine):
             lr = sgns.linear_lr(step_idx, total_steps, cfg)
             loss = sgns.train_step_sparse_(params, centers, contexts, negs, lr,
                                            row_grads=row_grads)
-            return params, loss.mean(dim=1)
+            return params, sgns.worker_mean(loss)
 
         return step
 
@@ -194,7 +203,7 @@ class FusedEngine(UpdateEngine):
             params, loss, _ = sgns_fused_step(
                 params, centers, contexts, neg_table, seeds, float(lr),
                 negatives=cfg.negatives)
-            return params, loss.mean(dim=1)
+            return params, sgns.worker_mean(loss)
 
         return step
 
@@ -230,7 +239,7 @@ class FusedHBMEngine(FusedEngine):
                 params, centers, contexts, neg_table, seeds, float(lr),
                 negatives=cfg.negatives, block_pairs=self.block_pairs,
                 sequential=self.sequential)
-            return params, loss.mean(dim=1)
+            return params, sgns.worker_mean(loss)
 
         return step
 
@@ -274,7 +283,7 @@ class FusedPipeEngine(FusedHBMEngine):
             params, loss, _ = fn(params, centers, contexts, neg_table, seeds, float(lr),
                                  negatives=cfg.negatives, block_pairs=self.block_pairs,
                                  **dials)
-            return params, loss.mean(dim=1)
+            return params, sgns.worker_mean(loss)
 
         return step
 
@@ -300,9 +309,10 @@ class FusedTieredEngine(FusedPipeEngine):
         if self.hot_rows < 0:
             raise ValueError(f"{self.name} needs hot_rows >= 0, got {self.hot_rows}")
 
-    def validate(self, *, vocab_size: int | None = None) -> None:
+    def validate(self, *, vocab_size: int | None = None, dim: int | None = None,
+                 negatives: int | None = None) -> None:
         """Reject a hot tier larger than the table it is a prefix of."""
-        super().validate(vocab_size=vocab_size)
+        super().validate(vocab_size=vocab_size, dim=dim, negatives=negatives)
         if vocab_size and self.hot_rows > vocab_size:
             raise ValueError(
                 f"{self.name} hot_rows={self.hot_rows} exceeds vocab_size={vocab_size}; "

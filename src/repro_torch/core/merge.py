@@ -167,14 +167,22 @@ def sharded_gram(A: torch.Tensor, B: torch.Tensor, num_shards: int = 1) -> torch
 # ALiR
 # ---------------------------------------------------------------------------
 def _alir_iteration(Y: torch.Tensor, models: torch.Tensor, mask: torch.Tensor,
-                    gram_shards: int = 1):
+                    gram_shards: int = 1, group=None):
     """One ALiR round over all n models at once. Returns (Y_new,
-    displacement, W (n,d,d))."""
+    displacement, W (n,d,d)). With a process ``group``, the Grams go
+    through :func:`repro_torch.sharding.merge.mesh_sharded_gram` (one
+    ``all_gather``; bitwise the local ``sharded_gram`` at the same
+    ``gram_shards``)."""
     maskf = mask.to(Y.dtype)[..., None]                 # (n, V, 1)
     A = models * maskf
     Byy = Y[None] * maskf
-    U, _, Vt = torch.linalg.svd(sharded_gram(A, Byy, gram_shards),
-                                full_matrices=False)
+    if group is None:
+        gram = sharded_gram(A, Byy, gram_shards)
+    else:
+        from repro_torch.sharding.merge import mesh_sharded_gram
+
+        gram = mesh_sharded_gram(A, Byy, group, num_shards=gram_shards)
+    U, _, Vt = torch.linalg.svd(gram, full_matrices=False)
     W = U @ Vt                                          # (n, d, d)
     aligned_present = models @ W                        # valid on present rows
     aligned_full = torch.where(maskf > 0, aligned_present, Y[None])

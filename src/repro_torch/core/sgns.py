@@ -233,6 +233,26 @@ def train_step_dense_(params: dict, centers: torch.Tensor,
     return loss.detach().view(n, B)
 
 
+def worker_mean(loss: torch.Tensor) -> torch.Tensor:
+    """Each worker's mean over its ``B`` pair losses, ``(n, B) -> (n,)``, in
+    one fixed order whatever ``n``: a pairwise tree of elementwise adds
+    (zero-padded to a power of two), then a division by ``B``. A reduction
+    such as ``loss.mean(dim=1)`` on the card splits each row over more or
+    fewer threads as ``n`` changes, so a worker's loss would depend on how
+    many workers share the launch; this does not, so a worker's chunk
+    losses are bitwise the same when its process trains a block of the
+    workers (multi-process training) or one alone (elastic)."""
+    B = loss.shape[1]
+    x = loss
+    width = 1 << max(B - 1, 0).bit_length()
+    if width != B:
+        x = F.pad(x, (0, width - B))
+    while x.shape[1] > 1:
+        h = x.shape[1] // 2
+        x = x[:, :h] + x[:, h:]
+    return x[:, 0] / B
+
+
 def linear_lr(step: int, total_steps: int, cfg: SGNSConfig) -> np.float32:
     """word2vec's linearly decaying alpha, in float32 with the
     reference's expression: ``max(lr·(1 − clip(step/total, 0, 1)), lr_min)``."""

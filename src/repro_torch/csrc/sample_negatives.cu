@@ -20,6 +20,7 @@
 // stores.
 
 #include "counter_prng.cuh"
+#include "func_attrs.cuh"
 
 namespace {
 
@@ -55,3 +56,8 @@ extern "C" int sample_negatives_launch(const void* seeds, const void* prob,
       static_cast<const int*>(alias), static_cast<int*>(out), V, per_worker);
   return static_cast<int>(cudaGetLastError());
 }
+
+static const KernelEntry kKernels[] = {
+    KERNEL_ENTRY("sample_negatives_kernel", sample_negatives_kernel),
+};
+KERNEL_ATTRS_EXPORT(kKernels)

@@ -65,6 +65,7 @@
 
 #include <cooperative_groups.h>
 
+#include "func_attrs.cuh"
 #include "sgns_block_step.cuh"
 
 namespace {
@@ -468,3 +469,18 @@ extern "C" int sgns_hbm_sequential_launch(void* W, void* C, const void* centers,
 #undef SEQ_ARGS
   return static_cast<int>(err);
 }
+
+static const KernelEntry kKernels[] = {
+    KERNEL_ENTRY("block_step_kernel<true,true>", sgns::block_step_kernel<true, true>),
+    KERNEL_ENTRY("block_step_kernel<false,true>", sgns::block_step_kernel<false, true>),
+    KERNEL_ENTRY("sgns_sequential_kernel<5,1>", sgns_sequential_kernel<5, 1>),
+    KERNEL_ENTRY("sgns_sequential_kernel<5,2>", sgns_sequential_kernel<5, 2>),
+    KERNEL_ENTRY("sgns_sequential_kernel<5,4>", sgns_sequential_kernel<5, 4>),
+    KERNEL_ENTRY("sgns_sequential_kernel<8,1>", sgns_sequential_kernel<8, 1>),
+    KERNEL_ENTRY("sgns_sequential_kernel<8,2>", sgns_sequential_kernel<8, 2>),
+    KERNEL_ENTRY("sgns_sequential_kernel<8,4>", sgns_sequential_kernel<8, 4>),
+    KERNEL_ENTRY("sgns_sequential_kernel<16,1>", sgns_sequential_kernel<16, 1>),
+    KERNEL_ENTRY("sgns_sequential_kernel<16,2>", sgns_sequential_kernel<16, 2>),
+    KERNEL_ENTRY("sgns_sequential_kernel<16,4>", sgns_sequential_kernel<16, 4>),
+};
+KERNEL_ATTRS_EXPORT(kKernels)

@@ -7,6 +7,7 @@
 // described in `sgns_pipe.cuh`, which it shares with K6
 // (`sgns_fused_tiered.cu`).
 
+#include "func_attrs.cuh"
 #include "sgns_pipe.cuh"
 
 // W, C (n, V, d) float32, updated in place; loss (n, B); centers, contexts
@@ -25,3 +26,9 @@ extern "C" int sgns_pipe_launch(void* W, void* C, void* loss, const void* center
                                    c_perm, coef, dW, wrows, arrive, n, V, d, B, K, blk, kH,
                                    neg_lr, vec4, stream);
 }
+
+static const KernelEntry kKernels[] = {
+    KERNEL_ENTRY("pipe_chain_kernel<4,false>", sgns::pipe_chain_kernel<4, false>),
+    KERNEL_ENTRY("pipe_chain_kernel<1,false>", sgns::pipe_chain_kernel<1, false>),
+};
+KERNEL_ATTRS_EXPORT(kKernels)

@@ -25,6 +25,7 @@
 // addends fed by bulk copies; hot rows split over columns) are described in
 // `sgns_block_step.cuh`.
 
+#include "func_attrs.cuh"
 #include "sgns_block_step.cuh"
 
 // The arguments are `sgns::block_step_entry`'s; blk must be >= B.
@@ -42,3 +43,9 @@ extern "C" int sgns_fused_step_launch(
                                        d, B, K, blk, group_ctas, groups, sorters, neg_lr, vec4,
                                        stream);
 }
+
+static const KernelEntry kKernels[] = {
+    KERNEL_ENTRY("block_step_kernel<true,false>", sgns::block_step_kernel<true, false>),
+    KERNEL_ENTRY("block_step_kernel<false,false>", sgns::block_step_kernel<false, false>),
+};
+KERNEL_ATTRS_EXPORT(kKernels)

@@ -11,6 +11,7 @@
 // so the rows stay where they are and the L2 is asked to keep the hot ones.
 // Design, bits and bound: `sgns_pipe.cuh`.
 
+#include "func_attrs.cuh"
 #include "sgns_pipe.cuh"
 
 // K5's arguments (`sgns_fused_pipe.cu`) with 1 <= kH <= V.
@@ -25,3 +26,9 @@ extern "C" int sgns_tiered_launch(void* W, void* C, void* loss, const void* cent
                                   c_perm, coef, dW, wrows, arrive, n, V, d, B, K, blk, kH,
                                   neg_lr, vec4, stream);
 }
+
+static const KernelEntry kKernels[] = {
+    KERNEL_ENTRY("pipe_chain_kernel<4,true>", sgns::pipe_chain_kernel<4, true>),
+    KERNEL_ENTRY("pipe_chain_kernel<1,true>", sgns::pipe_chain_kernel<1, true>),
+};
+KERNEL_ATTRS_EXPORT(kKernels)

@@ -60,6 +60,7 @@
 // too long for kStages stages of one pair (K + 2 rows of d floats each) are
 // read in place by the first design's schedule (`row_grads_in_place_kernel`).
 
+#include "func_attrs.cuh"
 #include "sgns_step.cuh"
 #include "sm90_async.cuh"
 
@@ -351,3 +352,15 @@ extern "C" int sgns_row_grads_launch(const void* w, const void* c_pos, const voi
   if (vec4) return K <= 8 ? run<4, 8>(a, sms, s) : run<4, 16>(a, sms, s);
   return K <= 8 ? run<1, 8>(a, sms, s) : run<1, 16>(a, sms, s);
 }
+
+static const KernelEntry kKernels[] = {
+    KERNEL_ENTRY("row_grads_ring_kernel<4,8>", row_grads_ring_kernel<4, 8>),
+    KERNEL_ENTRY("row_grads_ring_kernel<4,16>", row_grads_ring_kernel<4, 16>),
+    KERNEL_ENTRY("row_grads_ring_kernel<1,8>", row_grads_ring_kernel<1, 8>),
+    KERNEL_ENTRY("row_grads_ring_kernel<1,16>", row_grads_ring_kernel<1, 16>),
+    KERNEL_ENTRY("row_grads_in_place_kernel<4,8>", row_grads_in_place_kernel<4, 8>),
+    KERNEL_ENTRY("row_grads_in_place_kernel<4,16>", row_grads_in_place_kernel<4, 16>),
+    KERNEL_ENTRY("row_grads_in_place_kernel<1,8>", row_grads_in_place_kernel<1, 8>),
+    KERNEL_ENTRY("row_grads_in_place_kernel<1,16>", row_grads_in_place_kernel<1, 16>),
+};
+KERNEL_ATTRS_EXPORT(kKernels)

@@ -54,6 +54,7 @@
 
 #include <cstdint>
 
+#include "func_attrs.cuh"
 #include "sm90_async.cuh"
 
 namespace {
@@ -518,3 +519,62 @@ extern "C" int swa_decode_launch(const void* q, const void* k, const void* v, vo
   return launch_nc<float>(plan, q, k, v, out, m_part, l_part, acc_part, B, W, H, Hkv, D, scale,
                           s);
 }
+
+// every instantiation `launch_nc` reaches
+static const KernelEntry kKernels[] = {
+    KERNEL_ENTRY("swa_partial_kernel<float,2,1,false>", swa_partial_kernel<float, 2, 1, false>),
+    KERNEL_ENTRY("swa_partial_kernel<float,2,2,true>", swa_partial_kernel<float, 2, 2, true>),
+    KERNEL_ENTRY("swa_partial_kernel<float,2,2,false>", swa_partial_kernel<float, 2, 2, false>),
+    KERNEL_ENTRY("swa_partial_kernel<float,2,4,true>", swa_partial_kernel<float, 2, 4, true>),
+    KERNEL_ENTRY("swa_partial_kernel<float,2,4,false>", swa_partial_kernel<float, 2, 4, false>),
+    KERNEL_ENTRY("swa_partial_kernel<float,2,8,true>", swa_partial_kernel<float, 2, 8, true>),
+    KERNEL_ENTRY("swa_partial_kernel<float,2,8,false>", swa_partial_kernel<float, 2, 8, false>),
+    KERNEL_ENTRY("swa_partial_kernel<float,3,1,false>", swa_partial_kernel<float, 3, 1, false>),
+    KERNEL_ENTRY("swa_partial_kernel<float,3,2,true>", swa_partial_kernel<float, 3, 2, true>),
+    KERNEL_ENTRY("swa_partial_kernel<float,3,2,false>", swa_partial_kernel<float, 3, 2, false>),
+    KERNEL_ENTRY("swa_partial_kernel<float,3,4,true>", swa_partial_kernel<float, 3, 4, true>),
+    KERNEL_ENTRY("swa_partial_kernel<float,3,4,false>", swa_partial_kernel<float, 3, 4, false>),
+    KERNEL_ENTRY("swa_partial_kernel<float,3,8,true>", swa_partial_kernel<float, 3, 8, true>),
+    KERNEL_ENTRY("swa_partial_kernel<float,3,8,false>", swa_partial_kernel<float, 3, 8, false>),
+    KERNEL_ENTRY("swa_partial_kernel<float,4,1,false>", swa_partial_kernel<float, 4, 1, false>),
+    KERNEL_ENTRY("swa_partial_kernel<float,4,2,true>", swa_partial_kernel<float, 4, 2, true>),
+    KERNEL_ENTRY("swa_partial_kernel<float,4,2,false>", swa_partial_kernel<float, 4, 2, false>),
+    KERNEL_ENTRY("swa_partial_kernel<float,4,4,true>", swa_partial_kernel<float, 4, 4, true>),
+    KERNEL_ENTRY("swa_partial_kernel<float,4,4,false>", swa_partial_kernel<float, 4, 4, false>),
+    KERNEL_ENTRY("swa_partial_kernel<float,4,8,true>", swa_partial_kernel<float, 4, 8, true>),
+    KERNEL_ENTRY("swa_partial_kernel<float,4,8,false>", swa_partial_kernel<float, 4, 8, false>),
+    KERNEL_ENTRY("swa_partial_kernel<float,8,1,false>", swa_partial_kernel<float, 8, 1, false>),
+    KERNEL_ENTRY("swa_partial_kernel<float,8,2,true>", swa_partial_kernel<float, 8, 2, true>),
+    KERNEL_ENTRY("swa_partial_kernel<float,8,2,false>", swa_partial_kernel<float, 8, 2, false>),
+    KERNEL_ENTRY("swa_partial_kernel<float,8,4,true>", swa_partial_kernel<float, 8, 4, true>),
+    KERNEL_ENTRY("swa_partial_kernel<float,8,4,false>", swa_partial_kernel<float, 8, 4, false>),
+    KERNEL_ENTRY("swa_combine_kernel<float>", swa_combine_kernel<float>),
+    KERNEL_ENTRY("swa_partial_kernel<bf16,2,1,false>", swa_partial_kernel<__nv_bfloat16, 2, 1, false>),
+    KERNEL_ENTRY("swa_partial_kernel<bf16,2,2,true>", swa_partial_kernel<__nv_bfloat16, 2, 2, true>),
+    KERNEL_ENTRY("swa_partial_kernel<bf16,2,2,false>", swa_partial_kernel<__nv_bfloat16, 2, 2, false>),
+    KERNEL_ENTRY("swa_partial_kernel<bf16,2,4,true>", swa_partial_kernel<__nv_bfloat16, 2, 4, true>),
+    KERNEL_ENTRY("swa_partial_kernel<bf16,2,4,false>", swa_partial_kernel<__nv_bfloat16, 2, 4, false>),
+    KERNEL_ENTRY("swa_partial_kernel<bf16,2,8,true>", swa_partial_kernel<__nv_bfloat16, 2, 8, true>),
+    KERNEL_ENTRY("swa_partial_kernel<bf16,2,8,false>", swa_partial_kernel<__nv_bfloat16, 2, 8, false>),
+    KERNEL_ENTRY("swa_partial_kernel<bf16,3,1,false>", swa_partial_kernel<__nv_bfloat16, 3, 1, false>),
+    KERNEL_ENTRY("swa_partial_kernel<bf16,3,2,true>", swa_partial_kernel<__nv_bfloat16, 3, 2, true>),
+    KERNEL_ENTRY("swa_partial_kernel<bf16,3,2,false>", swa_partial_kernel<__nv_bfloat16, 3, 2, false>),
+    KERNEL_ENTRY("swa_partial_kernel<bf16,3,4,true>", swa_partial_kernel<__nv_bfloat16, 3, 4, true>),
+    KERNEL_ENTRY("swa_partial_kernel<bf16,3,4,false>", swa_partial_kernel<__nv_bfloat16, 3, 4, false>),
+    KERNEL_ENTRY("swa_partial_kernel<bf16,3,8,true>", swa_partial_kernel<__nv_bfloat16, 3, 8, true>),
+    KERNEL_ENTRY("swa_partial_kernel<bf16,3,8,false>", swa_partial_kernel<__nv_bfloat16, 3, 8, false>),
+    KERNEL_ENTRY("swa_partial_kernel<bf16,4,1,false>", swa_partial_kernel<__nv_bfloat16, 4, 1, false>),
+    KERNEL_ENTRY("swa_partial_kernel<bf16,4,2,true>", swa_partial_kernel<__nv_bfloat16, 4, 2, true>),
+    KERNEL_ENTRY("swa_partial_kernel<bf16,4,2,false>", swa_partial_kernel<__nv_bfloat16, 4, 2, false>),
+    KERNEL_ENTRY("swa_partial_kernel<bf16,4,4,true>", swa_partial_kernel<__nv_bfloat16, 4, 4, true>),
+    KERNEL_ENTRY("swa_partial_kernel<bf16,4,4,false>", swa_partial_kernel<__nv_bfloat16, 4, 4, false>),
+    KERNEL_ENTRY("swa_partial_kernel<bf16,4,8,true>", swa_partial_kernel<__nv_bfloat16, 4, 8, true>),
+    KERNEL_ENTRY("swa_partial_kernel<bf16,4,8,false>", swa_partial_kernel<__nv_bfloat16, 4, 8, false>),
+    KERNEL_ENTRY("swa_partial_kernel<bf16,8,1,false>", swa_partial_kernel<__nv_bfloat16, 8, 1, false>),
+    KERNEL_ENTRY("swa_partial_kernel<bf16,8,2,true>", swa_partial_kernel<__nv_bfloat16, 8, 2, true>),
+    KERNEL_ENTRY("swa_partial_kernel<bf16,8,2,false>", swa_partial_kernel<__nv_bfloat16, 8, 2, false>),
+    KERNEL_ENTRY("swa_partial_kernel<bf16,8,4,true>", swa_partial_kernel<__nv_bfloat16, 8, 4, true>),
+    KERNEL_ENTRY("swa_partial_kernel<bf16,8,4,false>", swa_partial_kernel<__nv_bfloat16, 8, 4, false>),
+    KERNEL_ENTRY("swa_combine_kernel<bf16>", swa_combine_kernel<__nv_bfloat16>),
+};
+KERNEL_ATTRS_EXPORT(kKernels)

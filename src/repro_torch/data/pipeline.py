@@ -245,8 +245,9 @@ class PairChunkStream:
 class HostShardPlan:
     """Which workers' chunk streams this process extracts: the
     contiguous block ``[p·W//P, (p+1)·W//P)``. A pure value, so any
-    ``process_count`` can be planned in one process; the port's trainer
-    runs one process (``process_count == 1``)."""
+    ``process_count`` can be planned in one process; a multi-process run
+    trains each process's block on its own device
+    (:func:`repro_torch.core.driver.train_submodels`)."""
 
     process_index: int
     process_count: int
@@ -281,10 +282,14 @@ class HostShardPlan:
     @classmethod
     def for_runtime(cls, num_workers: int, process_index: int | None = None,
                     process_count: int | None = None) -> "HostShardPlan":
-        """Plan for this process; unpinned fields default to a single
-        process (the port has no multi-process runtime)."""
-        return cls(process_index=process_index or 0,
-                   process_count=process_count or 1,
+        """Plan for this process; unpinned fields default to the rank and
+        world size of the ``torch.distributed`` default group (one process
+        when none is initialised)."""
+        from repro_torch.launch.mesh import world
+
+        rank, size = world()
+        return cls(process_index=rank if process_index is None else process_index,
+                   process_count=size if process_count is None else process_count,
                    num_workers=num_workers)
 
     @classmethod
@@ -316,6 +321,24 @@ class HostShardPlan:
             self.local_streams(streams), batch_size=batch_size,
             steps_per_chunk=steps_per_chunk,
             sentences_per_block=sentences_per_block)
+
+    def validate_for_mesh(self, mesh=None) -> None:
+        """Check that the plan can train on ``mesh``: a process group (or
+        its world size; default ``process_count``) of exactly
+        ``process_count`` ranks, and even per-process blocks (every rank
+        gathers equal-shaped blocks in the merge phase)."""
+        import torch.distributed as dist
+
+        size = (self.process_count if mesh is None else
+                mesh if isinstance(mesh, int) else dist.get_world_size(mesh))
+        if self.num_workers % self.process_count != 0:
+            raise ValueError(
+                f"num_workers={self.num_workers} must divide evenly over "
+                f"{self.process_count} processes for per-process blocks (got uneven blocks)")
+        if self.num_workers % size != 0 or size != self.process_count:
+            raise ValueError(
+                f"num_workers={self.num_workers} over a world of {size} ranks: the plan "
+                f"has {self.process_count} processes")
 
     def describe(self) -> str:
         """One-line plan summary."""

@@ -21,13 +21,14 @@ import tempfile
 import time
 
 from repro_torch.checkpoint import save_checkpoint
-from repro_torch.core.driver import train_submodels
+from repro_torch.core.driver import gather_submodels, train_submodels
 from repro_torch.core.engine import get_engine, port_engine_spec
 from repro_torch.core.merge import merge as merge_models
 from repro_torch.core.sgns import SGNSConfig
 from repro_torch.data.corpus import SemanticCorpusModel
 from repro_torch.device import resolve_device
 from repro_torch.eval.benchmarks import BenchmarkSuite, evaluate_all
+from repro_torch.launch.mesh import multihost_train_kwargs
 
 
 def main(argv=None):
@@ -51,10 +52,11 @@ def main(argv=None):
     ap.add_argument("--prefetch", type=int, default=2,
                     help="chunk prefetch depth (host/device overlap)")
     ap.add_argument("--processes", type=int, default=None,
-                    help="ingestion host count; the port trains in one "
-                         "process (> 1 raises)")
+                    help="training processes (default: the torch.distributed "
+                         "world size); each trains only its block of workers, "
+                         "the merge gathers them (see launch/train_sgns.py)")
     ap.add_argument("--process-index", type=int, default=None,
-                    help="this host's index")
+                    help="this process's index (default: RANK)")
     ap.add_argument("--save", default=os.path.join(tempfile.gettempdir(),
                                                    "w2v_100m.npz"))
     ap.add_argument("--device", default=None,
@@ -66,6 +68,8 @@ def main(argv=None):
                                    ("ring_depth", args.ring_depth))
                  if v is not None}
     engine = get_engine(port_engine_spec(args.engine), **overrides)
+    processes, train_kw = multihost_train_kwargs(
+        args.workers, args.processes, process_index=args.process_index, device=device)
 
     print(f"model: 2 × {args.vocab} × {args.dim} = "
           f"{2*args.vocab*args.dim/1e6:.0f}M parameters")
@@ -83,8 +87,8 @@ def main(argv=None):
         max_vocab=args.vocab, base_min_count=10,
         max_steps_per_epoch=args.steps, engine=engine,
         steps_per_chunk=args.steps_per_chunk, prefetch=args.prefetch,
-        process_index=args.process_index, process_count=args.processes,
-        device=device)
+        process_count=processes, device=device, **train_kw)
+    res = gather_submodels(res)     # the merge phase: every rank holds all n
     print(f"async training: {res.timings['train_s']:.1f}s total "
           f"({res.timings['train_s']/args.workers:.1f}s/worker projected "
           f"parallel), losses {['%.3f' % l for l in res.losses]}")
@@ -100,9 +104,10 @@ def main(argv=None):
     print(f"merged model: sim ρ={scores['similarity']:.3f} "
           f"analogy={scores['analogy']:.3f} "
           f"purity={scores['categorization']:.3f}")
-    save_checkpoint(args.save, {"embedding": emb,
-                                "word_ids": res.union_vocab.word_ids})
-    print(f"checkpoint → {args.save}")
+    if train_kw.get("process_index", 0) == 0:
+        save_checkpoint(args.save, {"embedding": emb,
+                                    "word_ids": res.union_vocab.word_ids})
+        print(f"checkpoint → {args.save}")
 
 
 if __name__ == "__main__":

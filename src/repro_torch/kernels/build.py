@@ -7,6 +7,8 @@ header, so a build takes seconds. Libraries land in
 ``$REPRO_TORCH_BUILD_DIR``), named by a hash of their sources and flags,
 so a changed source is rebuilt and an unchanged one is reused.
 :func:`build_all` starts one ``nvcc`` per source, all at once.
+:func:`kernel_attributes` reads what the CUDA runtime reports for each
+kernel instantiation a library launches (``csrc/func_attrs.cuh``).
 """
 
 from __future__ import annotations
@@ -19,6 +21,7 @@ import subprocess
 import threading
 import time
 from pathlib import Path
+from typing import NamedTuple
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 SOURCES = {
@@ -31,7 +34,7 @@ SOURCES = {
     "swa_decode": "swa_decode.cu",
 }
 HEADERS = ("counter_prng.cuh", "sgns_step.cuh", "sgns_pipe.cuh", "sgns_block_step.cuh",
-           "sm90_async.cuh")
+           "sm90_async.cuh", "func_attrs.cuh")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC")
 
@@ -129,3 +132,33 @@ def load(name: str) -> ctypes.CDLL:
             lib = ctypes.CDLL(str(library_path(name)))
             _libs[name] = lib
         return lib
+
+
+class KernelAttrs(NamedTuple):
+    """``cudaFuncGetAttributes`` of one kernel instantiation."""
+
+    name: str            # as ``repro_torch.analysis.vmem`` names it
+    regs: int            # registers a thread
+    static_smem: int     # bytes of static shared memory a CTA
+    dynamic_smem: int    # the dynamic shared memory it may take, as last set
+    local_bytes: int     # local memory a thread: its stack frame and ptxas' spills
+
+
+def kernel_attributes(name: str) -> list[KernelAttrs]:
+    """Every kernel instantiation library ``name`` launches, as the runtime
+    of the current device reports it (``kernel_attrs``, exported by every
+    source). Needs a CUDA device; ``dynamic_smem`` is what the last launch
+    set (48 KB before any launch set it)."""
+    fn = load(name).kernel_attrs
+    fn.argtypes = [ctypes.c_int, ctypes.c_void_p, ctypes.POINTER(ctypes.c_char_p)]
+    fn.restype = ctypes.c_int
+    out = (ctypes.c_int * 4)()
+    label = ctypes.c_char_p()
+    attrs = []
+    for which in range(fn(-1, None, None)):
+        err = fn(which, ctypes.cast(out, ctypes.c_void_p), ctypes.byref(label))
+        if err:
+            raise RuntimeError(f"cudaFuncGetAttributes failed for {name} entry {which}: "
+                               f"error {err}")
+        attrs.append(KernelAttrs(label.value.decode(), *out))
+    return attrs

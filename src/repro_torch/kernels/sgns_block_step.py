@@ -158,6 +158,35 @@ def _align(x: int, a: int = 256) -> int:
     return -(-x // a) * a
 
 
+def sort_need(N: int) -> int:
+    """Bytes a sort task of ``N`` entries takes (csrc's ``sort_need``): its
+    rows, three int arrays and the digit counters. A task whose need exceeds
+    ``SMEM_BYTES`` sorts in its slice of global scratch (``sort_mem``)."""
+    return 16 * N + 16 * WARPS * 32 * 4
+
+
+def sort_task_bytes(blk: int, K: int) -> int:
+    """Each sort task's slice of ``sort_mem``: a block's C list, aligned."""
+    return _align(sort_need(blk * (K + 1)))
+
+
+def launch_scratch(n: int, d: int, B: int, K: int, geo: Geometry) -> dict:
+    """The device scratch one launch takes, ``{name: (dtype, shape)}``, in
+    the order :func:`run_block_step` lays it out in one buffer."""
+    blk, nblocks = geo.blk, geo.nblocks
+    Lc = B * (K + 1)
+    item_cap = blk * (K + 1) * -(-d // NARROW)
+    return {
+        "coef": (torch.float32, (n, blk, K + 1)), "dW": (torch.float32, (n, blk, d)),
+        "wrows": (torch.float32, (n, blk, d)), "w_rows": (torch.int32, (n, B)),
+        "w_perm": (torch.int64, (n, B)), "c_rows": (torch.int32, (n, Lc)),
+        "c_perm": (torch.int64, (n, Lc)), "items": (torch.int32, (n, nblocks, 2, item_cap, 4)),
+        "n_items": (torch.int32, (n, nblocks, 2)),
+        "counters": (torch.int32, (geo.groups + n * (nblocks + 1),)),
+        "sort_mem": (torch.uint8, (n, 2 * nblocks, sort_task_bytes(blk, K))),
+    }
+
+
 def run_block_step(lib: str, symbol: str, counter: str, params: dict, centers: torch.Tensor,
                    contexts: torch.Tensor, table: dict, seeds: torch.Tensor, lr: float,
                    blk: int, K: int, *, scratch: bool = False):
@@ -180,18 +209,9 @@ def run_block_step(lib: str, symbol: str, counter: str, params: dict, centers: t
     vec4 = d % 4 == 0 and W.data_ptr() % 16 == 0 and C.data_ptr() % 16 == 0
     geo = geometry(n, d, B, K, blk, _sms(device), vec4)
     blk, nblocks = geo.blk, geo.nblocks
-    Lc = B * (K + 1)
     item_cap = blk * (K + 1) * -(-d // NARROW)
-    sort_bytes = _align(16 * blk * (K + 1) + 16 * WARPS * 32 * 4)   # csrc's sort_need
-    parts = {   # name: (dtype, shape)
-        "coef": (torch.float32, (n, blk, K + 1)), "dW": (torch.float32, (n, blk, d)),
-        "wrows": (torch.float32, (n, blk, d)), "w_rows": (torch.int32, (n, B)),
-        "w_perm": (torch.int64, (n, B)), "c_rows": (torch.int32, (n, Lc)),
-        "c_perm": (torch.int64, (n, Lc)), "items": (torch.int32, (n, nblocks, 2, item_cap, 4)),
-        "n_items": (torch.int32, (n, nblocks, 2)),
-        "counters": (torch.int32, (geo.groups + n * (nblocks + 1),)),
-        "sort_mem": (torch.uint8, (n, 2 * nblocks, sort_bytes)),
-    }
+    sort_bytes = sort_task_bytes(blk, K)
+    parts = launch_scratch(n, d, B, K, geo)
     offsets, total = {}, 0
     for name, (dt, shape) in parts.items():
         offsets[name] = total

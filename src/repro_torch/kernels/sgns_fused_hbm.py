@@ -33,6 +33,7 @@ and K4b takes K1's. The loss is the log-sigmoid form of
 from __future__ import annotations
 
 import functools
+from typing import NamedTuple
 
 import numpy as np
 import torch
@@ -45,7 +46,31 @@ from repro_torch.kernels.sgns_fused import (
 
 
 #: K4b's cluster of 8 CTAs holds at most 4 columns a thread, 128 threads a CTA.
-MAX_SEQUENTIAL_DIM = 8 * 128 * 4
+SEQ_CLUSTER, SEQ_MAX_THREADS, SEQ_CHUNK = 8, 128, 256   # kSeqCluster, kSeqMaxThreads, kSeqChunk
+MAX_SEQUENTIAL_DIM = SEQ_CLUSTER * SEQ_MAX_THREADS * 4
+
+
+class SequentialShape(NamedTuple):
+    """K4b's launch at one shape, as ``sgns_hbm_sequential_launch`` picks it."""
+
+    km: int              # KM: the negatives the instantiation holds (5, 8 or 16)
+    cpt: int             # CPT: columns a thread (1, 2 or 4)
+    threads: int         # threads a CTA
+    static_smem: int     # a CTA's partial-sum slots and the chunk's dot products
+    dynamic_smem: int    # a chunk's staged ids and row comparisons (``Staged::bytes``)
+
+
+def sequential_shape(d: int, B: int, K: int) -> SequentialShape:
+    """K4b's instantiation and shared memory a CTA for ``(d, B, K)``."""
+    km = 5 if K <= 5 else 8 if K <= 8 else 16
+    per_cta = -(-d // SEQ_CLUSTER)
+    threads = min(-(-per_cta // 32) * 32, SEQ_MAX_THREADS)
+    cols = -(-per_cta // threads)
+    cpt = 1 if cols == 1 else 2 if cols == 2 else 4
+    warps = SEQ_MAX_THREADS // 32
+    static = 4 * (2 * SEQ_CLUSTER * warps + SEQ_CHUNK) * (km + 1)
+    dynamic = (min(B, SEQ_CHUNK) + 2) * ((km + 3) * 4 + 2 * (km + 1))
+    return SequentialShape(km, cpt, threads, static, dynamic)
 
 
 def pick_block_pairs(B: int, block_pairs: int) -> int:

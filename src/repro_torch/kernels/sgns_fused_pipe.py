@@ -47,6 +47,58 @@ from repro_torch.kernels.sgns_fused import (
 from repro_torch.kernels.sgns_fused_hbm import block_sorts, pick_block_pairs
 
 NUM_SLOTS = 2   # the reference's default ring depth (the planner's look-behind)
+# The launch's shape (``csrc/sgns_pipe.cuh``): warps a CTA, a warp's stage,
+# addend chunks staged ahead, sorted positions an apply item, CTAs a group.
+CHAIN_WARPS, CHAIN_STAGE_BYTES, CHAIN_AHEAD, CHAIN_WINDOW, CHAIN_MIN_GROUP = 8, 14336, 8, 16, 8
+
+
+def chain_smem(d: int, K: int, vec: int) -> int:
+    """Dynamic shared memory a CTA of K5/K6 takes (``launch_chain``): a
+    warp's stage holds as many column steps of a pair's K + 2 rows as
+    ``CHAIN_STAGE_BYTES`` allows (at least one, at most the whole row), or
+    2 ``CHAIN_AHEAD`` addend chunks, whichever is larger."""
+    step_floats = (K + 2) * 32 * vec
+    steps = -(-d // (32 * vec))
+    stage_steps = max(1, min(steps, CHAIN_STAGE_BYTES // 4 // step_floats))
+    stage_floats = max(stage_steps * step_floats, 2 * CHAIN_AHEAD * 32 * vec)
+    return CHAIN_WARPS * stage_floats * 4
+
+
+def chain_geometry(n: int, d: int, B: int, K: int, blk: int, capacity: int,
+                   vec: int = 4) -> tuple[int, int]:
+    """``(group_ctas, groups)`` of K5/K6's launch on a card holding
+    ``capacity`` of its CTAs at once (``launch_chain``)."""
+    blk = max(1, min(int(blk), B))
+    chunks = -(-d // (32 * vec))
+    items = (-(-blk * (K + 1) // CHAIN_WINDOW) + -(-blk // CHAIN_WINDOW)) * chunks
+    cap = -(-max(blk, items) // CHAIN_WARPS)
+    per = max(capacity // n, CHAIN_MIN_GROUP)
+    per = min(per, cap, capacity)
+    return per, min(n, capacity // per)
+
+
+def chain_items(rows: np.ndarray, d: int, vec: int = 4, s0: int = 0) -> np.ndarray:
+    """K5/K6's apply items of one block's sorted list ``rows``, in the
+    format of :func:`~repro_torch.kernels.sgns_block_step.apply_items`:
+    ``(m, 4)`` rows of (first position + ``s0``, positions, first column,
+    columns). Window ``i`` of ``CHAIN_WINDOW`` positions takes every run
+    whose head lies in it, each whole, in chunks of 32 ``vec`` columns; a
+    window with no head takes none (``apply_item``)."""
+    rows = np.asarray(rows)
+    N = len(rows)
+    head = np.ones(N, dtype=bool)
+    head[1:] = rows[1:] != rows[:-1]
+    starts = np.flatnonzero(head)
+    ends = np.append(starts[1:], N)
+    span = 32 * vec
+    items = []
+    for w0 in range(0, N, CHAIN_WINDOW):
+        mine = (starts >= w0) & (starts < w0 + CHAIN_WINDOW)
+        if not mine.any():
+            continue
+        first, last = int(starts[mine][0]), int(ends[mine][-1])
+        items += [(s0 + first, last - first, c * span, span) for c in range(-(-d // span))]
+    return np.array(items, dtype=np.int64).reshape(-1, 4)
 
 
 # ---------------------------------------------------------------------------

@@ -25,6 +25,8 @@ plain version's precondition: the kernel cuts the window its own way.
 from __future__ import annotations
 
 import functools
+import math
+from typing import NamedTuple
 
 import torch
 
@@ -35,6 +37,48 @@ from repro_torch.kernels.sgns_fused import (
 __all__ = ["swa_decode", "swa_decode_plain"]
 
 _DTYPES = (torch.float32, torch.bfloat16)
+# The launch's constants (``csrc/swa_decode.cu``).
+CONSUMER_WARPS, MAX_STAGES, STAGE_BYTES, RING_BYTES, RING_OFFSET = 8, 4, 40 * 1024, 200 * 1024, 128
+
+
+class SwaShape(NamedTuple):
+    """K7's instantiation and ring at one shape, as ``make_plan`` picks them."""
+
+    nc: int              # columns a lane (the kernel's NC)
+    qp: int              # query heads a warp, padded (QP)
+    multi: bool          # a warp serves more than one KV head (MULTI)
+    rows: int            # window rows a tile
+    stages: int
+    smem: int            # dynamic shared memory of the partial kernel
+
+
+def swa_shape(W: int, H: int, Hkv: int, D: int, elem: int) -> SwaShape:
+    """The partial kernel's instantiation and shared memory for a window of
+    ``W`` rows of ``Hkv`` heads of width ``D`` (``elem`` bytes an element);
+    raises ``ValueError`` for a shape the kernel does not take."""
+    need = -(-D // 32)
+    nc = 2 if need <= 2 else need if need <= 4 else 8
+    rep = H // Hkv
+    qw = -(-Hkv // CONSUMER_WARPS) * rep if Hkv >= CONSUMER_WARPS else rep
+    qp = 1
+    while qp < qw:
+        qp *= 2
+    if need > 8 or qp > 8 or qp * nc > 32:
+        raise ValueError(f"a group of {rep} query heads of width {D} exceeds the kernel's "
+                         f"registers")
+    row_bytes = Hkv * D * elem
+    align = 16 // math.gcd(row_bytes % 16, 16)
+    wph = 1 if Hkv >= CONSUMER_WARPS else CONSUMER_WARPS // Hkv
+    group = (32 // qp) * wph
+    rows = STAGE_BYTES // 2 // row_bytes
+    rows = rows // group * group if rows >= group else rows
+    rows = max(rows // align * align, align)
+    rows = min(rows, W)
+    stages = min(RING_BYTES // (2 * rows * row_bytes), MAX_STAGES)
+    if W % align or stages < 2:
+        raise ValueError(f"the kernel does not take a window of {W} rows of {Hkv}·{D}")
+    return SwaShape(nc, qp, qp > 1 and Hkv > CONSUMER_WARPS, rows, stages,
+                    RING_OFFSET + stages * 2 * rows * row_bytes)
 
 
 @functools.lru_cache(maxsize=64)

@@ -17,10 +17,18 @@ names and defaults but for these:
   (``pallas``, ``pallas_fused``, ...), with an optional ``:cdf``/``:alias``
   sampler suffix. ``--baseline`` trains the synchronized baseline with the
   same engine.
-* ``--vmem-budget-mb`` defaults to 0; the port has no shared-memory
-  estimate yet (``ROADMAP.md`` queue 1 item 7), so a nonzero budget raises
-  ``NotImplementedError`` and no ``vmem:`` line is printed.
-* ``--processes`` > 1 raises as the driver does (item 9).
+* ``--vmem-budget-mb`` is a budget of shared memory a CTA
+  (:mod:`repro_torch.analysis.vmem`), by default the H100's opt-in 227 KiB
+  (0.2216796875 MiB) where the reference's is a TPU core's 16 MiB of VMEM;
+  0 reports without enforcing. The ``vmem:`` line is printed either way.
+* ``--processes P --process-index I`` trains this process's block of
+  workers only (:func:`repro_torch.launch.mesh.multihost_train_kwargs`): run
+  P copies of the command under ``torchrun`` (``RANK``/``WORLD_SIZE``/
+  ``MASTER_ADDR``/``MASTER_PORT``), or with ``REPRO_TORCH_INIT_METHOD=
+  file:///path/store`` and an index each. Training makes no collective;
+  the merge phase gathers the sub-models to every rank, and rank 0 alone
+  prints the baseline, publishes and saves. NCCL with a card a rank, gloo
+  over host copies with several ranks on one card or on the CPU.
 
 ``--elastic-state DIR`` trains the sub-models through the elastic runner
 (:func:`repro_torch.elastic.train_submodels_elastic`, one worker at a time
@@ -42,13 +50,17 @@ import argparse
 
 import numpy as np
 
+from repro_torch.analysis.vmem import (
+    DEFAULT_VMEM_BUDGET_BYTES, check_vmem_budget, estimate_vmem)
 from repro_torch.checkpoint import save_checkpoint
 from repro_torch.core.driver import apply_merges, run_pipeline, train_sync_baseline
 from repro_torch.core.engine import get_engine, port_engine_spec
 from repro_torch.core.sgns import SGNSConfig
 from repro_torch.data.corpus import SemanticCorpusModel
+from repro_torch.data.pipeline import HostShardPlan
 from repro_torch.device import resolve_device
 from repro_torch.eval.benchmarks import BenchmarkSuite, evaluate_all
+from repro_torch.launch.mesh import multihost_train_kwargs
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -90,13 +102,17 @@ def build_parser() -> argparse.ArgumentParser:
     ap.add_argument("--ring-depth", type=int, default=None,
                     help="fused_pipe/_tiered: row-buffer ring slots (default 2)")
     ap.add_argument("--processes", type=int, default=None,
-                    help="ingestion host count; the port trains in one "
-                         "process (> 1 raises)")
+                    help="training processes (default: the torch.distributed "
+                         "world size, 1 without a group); each extracts and "
+                         "trains only its HostShardPlan block of workers")
     ap.add_argument("--process-index", type=int, default=None,
-                    help="this host's index")
-    ap.add_argument("--vmem-budget-mb", type=float, default=0.0,
-                    help="on-chip memory budget check; the port has none "
-                         "yet, so only 0 (the default) is accepted")
+                    help="this process's index (default: RANK)")
+    ap.add_argument("--vmem-budget-mb", type=float,
+                    default=DEFAULT_VMEM_BUDGET_BYTES / 2 ** 20,
+                    help="reject engine configs whose shared memory a CTA "
+                         "(repro_torch.analysis.vmem) exceeds this budget "
+                         "before training starts (0 = report only; default "
+                         "the H100's opt-in 227 KiB)")
     ap.add_argument("--elastic-state", default=None, metavar="DIR",
                     help="preemption-tolerant training with per-worker "
                          "checkpoints in DIR (resumes from them)")
@@ -124,13 +140,6 @@ def main(argv=None):
     """Run the CLI; returns the :class:`~repro_torch.core.driver.PipelineResult`
     for callers that drive it in-process."""
     args = build_parser().parse_args(argv)
-    if args.vmem_budget_mb:
-        raise NotImplementedError(
-            "--vmem-budget-mb needs the port's shared-memory and register "
-            "budget (ROADMAP.md queue 1 item 7); pass 0")
-    if (args.processes or 1) > 1:
-        raise ValueError("the port trains in one process; --processes > 1 waits "
-                         "on multi-host (ROADMAP.md queue 1 item 9)")
     device = resolve_device(args.device)
     # engine-dial overrides only when set: passing hot_rows/ring_depth
     # to an engine without those fields is a clear TypeError
@@ -138,6 +147,20 @@ def main(argv=None):
                                    ("ring_depth", args.ring_depth))
                  if v is not None}
     engine = get_engine(port_engine_spec(args.engine), **overrides)
+    # fail fast on a config whose kernels would not fit the card, before
+    # any corpus generation or training happens
+    shape = dict(vocab_size=args.vocab, dim=args.dim, negatives=args.negatives,
+                 batch=args.batch, workers=-(-args.workers // (args.processes or 1)))
+    est = (check_vmem_budget(engine, budget_bytes=int(args.vmem_budget_mb * 2 ** 20),
+                             **shape)
+           if args.vmem_budget_mb else estimate_vmem(engine, **shape))
+    print(f"vmem: {est.summary()}")
+    processes, train_kw = (1, {}) if args.elastic_state else multihost_train_kwargs(
+        args.workers, args.processes, process_index=args.process_index, device=device)
+    lead = train_kw.get("process_index", 0) == 0
+    if processes > 1:
+        plan = HostShardPlan(train_kw["process_index"], processes, args.workers)
+        print(f"ingestion: {plan.describe()}")
 
     gen = SemanticCorpusModel.create(vocab_size=args.vocab, seed=0)
     corpus = gen.generate(num_sentences=args.sentences, seed=1)
@@ -164,8 +187,7 @@ def main(argv=None):
             window=args.window, max_vocab=None, base_min_count=20,
             merge_methods=tuple(args.merge),
             merge_fan_in=args.merge_fan_in, merge_shard=args.merge_shard,
-            engine=engine, device=device,
-            process_index=args.process_index, process_count=args.processes)
+            engine=engine, device=device, process_count=processes, **train_kw)
     print(f"strategy={args.strategy} workers={args.workers} "
           f"engine={engine.describe()} "
           f"train={res.timings['train_s']:.1f}s "
@@ -180,6 +202,8 @@ def main(argv=None):
               f"({scores['categorization_oov']}) "
               f"merge={res.timings.get('merge_%s_s' % m, 0):.2f}s")
 
+    if not lead:        # rank 0 alone reports the baseline, publishes and saves
+        return res
     if args.baseline:
         params, vocab, info = train_sync_baseline(
             corpus, args.vocab, cfg, epochs=args.epochs,

@@ -699,7 +699,7 @@ def _sync_world(device, V=3000, d=48, B=96, outer=3, every=2):
 @pytest.mark.parametrize("n", (1, 3))
 def test_periodic_sync_is_the_hand_loop_on_the_card(device, n):
     from repro_torch.core.async_trainer import make_periodic_sync_epoch
-    from repro_torch.core.sgns import SGNSConfig, linear_lr
+    from repro_torch.core.sgns import SGNSConfig, linear_lr, worker_mean
 
     params, table, cen, ctx = _sync_world(device)
     outer, every, B = cen.shape
@@ -723,7 +723,7 @@ def test_periodic_sync_is_the_hand_loop_on_the_card(device, n):
                                   ctx[o, j].reshape(n, -1).contiguous(), tab,
                                   seeds[i].expand(n, 2).contiguous(),
                                   float(linear_lr(1 + i, 12, cfg)), negatives=5)
-                hand[o, j] = loss.mean(dim=1).mean()
+                hand[o, j] = worker_mean(loss).mean()
             means = {k: t.mean(dim=0) for k, t in stacked.items()}
             for k, t in stacked.items():
                 t.copy_(means[k].expand_as(t))
@@ -894,3 +894,40 @@ def test_every_engine_is_collective_free_and_in_place_on_the_card(device, engine
     rep = certify_engine_contracts(engine, vocab_size=5000, dim=48, negatives=5, steps=2,
                                    batch=256, num_workers=2, device=device)
     assert rep.device_kernels > 0 and rep.in_place.tables_in_place == 2
+
+
+@pytest.mark.parametrize("d", (48, 50, 500))
+@pytest.mark.parametrize("spec", ("rowgrad", "fused", "fused_hbm", "fused_pipe", "fused_tiered",
+                                  "fused_hbm:sequential"))
+def test_vmem_estimate_is_what_the_card_reports(device, spec, d):
+    """One step of the engine at d = 48, 50 (the 4-byte paths) and 500, then
+    ``cudaFuncGetAttributes`` of every instantiation it launched: static and
+    dynamic shared memory equal to ``analysis/vmem.py``'s estimate."""
+    from repro_torch.analysis import vmem
+    from repro_torch.core.async_trainer import AsyncShardTrainer
+    from repro_torch.core.engine import get_engine
+    from repro_torch.core.sgns import SGNSConfig
+    from repro_torch.data.pairs import stack_noise_tables
+
+    eng = (get_engine("fused_hbm", sequential=True) if spec == "fused_hbm:sequential"
+           else get_engine(spec))
+    V, B = 2000, 512
+    tr = AsyncShardTrainer(cfg=SGNSConfig(vocab_size=V, dim=d, negatives=5), num_workers=1,
+                           total_steps=2, engine=eng, device=device)
+    params = tr.init(prng.PRNGKey(0))
+    table = tr.device_table(stack_noise_tables([np.arange(V, 0, -1)], kind=eng.table_kind))
+    rng = np.random.default_rng(d)
+    c, x = (rng.integers(0, V, (1, 1, B), dtype=np.int32) for _ in range(2))
+    tr.epoch(params, c, x, table, prng.PRNGKey(1))
+    torch.cuda.synchronize(device)
+    rows = vmem.card_check(vmem.check_vmem_budget(eng, vocab_size=V, dim=d, negatives=5,
+                                                  batch=B))
+    assert rows and all(r["match"] for r in rows), rows
+
+
+def test_multiproc_ranks_on_one_card_choose_gloo(device):
+    from repro_torch.launch.mesh import worker_backend
+
+    assert worker_backend(device, 1) == "nccl"
+    assert worker_backend(device, torch.cuda.device_count() + 1) == "gloo"
+    assert worker_backend("cpu", 2) == "gloo"

@@ -17,7 +17,9 @@
   1e-5 of the reference's own finish;
 * the parsers: the port's flags are the reference's plus ``--device``,
   with the port's defaults for ``--engine`` (``fused``) and
-  ``--vmem-budget-mb`` (0); the flags waiting on later items raise;
+  ``--vmem-budget-mb`` (the H100's opt-in 227 KiB of shared memory a CTA,
+  in MiB); a budget below the engine's footprint raises, as the
+  reference's does, and ``--processes 2`` without a rendezvous raises;
 * the engine names of either package, mapped to the port's.
 """
 
@@ -35,6 +37,7 @@ from repro.checkpoint import load_manifest as jload_manifest
 from repro.checkpoint import load_table as jload_table
 from repro.launch import serve as jserve
 from repro.launch import train_sgns as jtrain
+from repro_torch.analysis.vmem import DEFAULT_VMEM_BUDGET_BYTES, VmemBudgetError
 from repro_torch.checkpoint import load_checkpoint, load_table
 from repro_torch.checkpoint.io import load_worker_state
 from repro_torch.core.async_trainer import AsyncShardTrainer
@@ -101,7 +104,8 @@ def test_train_sgns_publishes_what_the_reference_publishes(trained):
     for text in (port["out"], ref["out"]):
         assert "published 2 incremental table version(s)" in text
         assert "sim=" in text and "saved merged embedding" in text
-    assert "engine=sparse:cdf" in port["out"] and "vmem:" not in port["out"]
+    assert "engine=sparse:cdf" in port["out"] and "vmem: sparse:cdf" in port["out"]
+    assert "vmem: sparse:cdf" in ref["out"]
     m_t, m_j = jload_manifest(port["art"]), jload_manifest(ref["art"])
     assert m_t["latest"] == m_j["latest"] == 2
     for e_t, e_j in zip(m_t["versions"], m_j["versions"]):
@@ -249,7 +253,8 @@ def test_parsers_are_the_reference_ones_plus_device(name, monkeypatch):
     if name == "train_sgns":
         assert changed == {("--engine",), ("--vmem-budget-mb",)}
         assert ours[("--engine",)][1] == "fused" and ref[("--engine",)][1] == "sparse"
-        assert ours[("--vmem-budget-mb",)][1] == 0.0
+        assert ours[("--vmem-budget-mb",)][1] == DEFAULT_VMEM_BUDGET_BYTES / 2 ** 20
+        assert ref[("--vmem-budget-mb",)][1] == 16.0
         for k in changed:
             assert ours[k][0] == ref[k][0] and ours[k][2:] == ref[k][2:]
     else:
@@ -257,12 +262,23 @@ def test_parsers_are_the_reference_ones_plus_device(name, monkeypatch):
 
 
 @pytest.mark.parametrize("flags,exc,match", [
-    (["--vmem-budget-mb", "16"], NotImplementedError, "queue 1 item 7"),
-    (["--processes", "2"], ValueError, "item 9"),
+    (["--engine", "fused", "--vmem-budget-mb", "0.05"], VmemBudgetError, "budget exceeded"),
+    (["--processes", "2", "--process-index", "0"], ValueError, "MASTER_ADDR"),
 ])
-def test_flags_waiting_on_later_items_raise(flags, exc, match):
+def test_flags_waiting_on_later_items_raise(flags, exc, match, monkeypatch):
+    """The flags the port once refused now work; what still raises is what
+    the reference refuses too (a budget below the engine's shared memory a
+    CTA: the reference's budget check) or a run that cannot form its
+    process group (no ``MASTER_ADDR`` and no ``REPRO_TORCH_INIT_METHOD``)."""
+    monkeypatch.delenv("MASTER_ADDR", raising=False)
+    monkeypatch.delenv("REPRO_TORCH_INIT_METHOD", raising=False)
     with pytest.raises(exc, match=match):
         ttrain.main(ARGS + ["--device", "cpu"] + flags)
+    from repro.analysis.vmem import VmemBudgetError as JVmemBudgetError
+
+    if exc is VmemBudgetError:
+        with pytest.raises(JVmemBudgetError):
+            jtrain.main(ARGS[:1] + ["pallas_fused"] + ARGS[2:] + ["--vmem-budget-mb", "0.05"])
 
 
 def test_engine_names_of_either_package():

@@ -12,11 +12,13 @@ seeds in ``core/``, ``kernels/`` and ``elastic/``; RL004 any
 ``torch.distributed`` collective in the train path and ``elastic/``); the
 pragma suppresses, the scopes limit, ``core/async_trainer.py`` and
 ``sharding/merge.py`` stay exempt; the real tree is clean; and the runner
-exits 0 on it, refusing the two passes not ported yet.
+exits 0 on it, and runs the ``dma_model`` and ``vmem`` passes.
 """
 
 import contextlib
 import io
+
+import pytest
 
 from repro_torch.analysis import __main__ as runner
 from repro_torch.core.engine import SparseEngine
@@ -164,8 +166,16 @@ class CopyingStep(SparseEngine):
 
 
 def test_analysis_runner_refuses_the_passes_not_ported_yet():
-    for name in ("dma_model", "vmem", "dma-model"):
-        rc, text = _main([name])
-        assert rc != 0 and "ROADMAP.md queue 1 item 7" in text
+    """The two passes the runner once refused now run (the name kept from
+    when they were refused): ``dma_model`` and ``vmem`` certify the port,
+    and an unknown pass still exits non-zero."""
+    rc, text = _main(["dma_model", "vmem"])
+    assert rc == 0, text
+    assert "dma_model: " in text and "launch schedules" in text and "OK" in text
+    assert text.count("vmem: ") >= 7 and "REJECTED" not in text
+    rc, text = _main(["dma-model"])
+    assert rc == 0 and "== dma_model: OK" in text
     rc, text = _main(["lint"])
     assert rc == 0 and "== contracts" not in text
+    with pytest.raises(SystemExit):
+        _main(["nope"])
