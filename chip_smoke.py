@@ -11,6 +11,7 @@
     python3 chip_smoke.py --phases build,elastic,contracts
     python3 chip_smoke.py --phases build,main,multiproc
     python3 chip_smoke.py --phases build,dryrun,budget
+    python3 chip_smoke.py --phases build,lm_train
 
 Phases:
 
@@ -192,6 +193,25 @@ Phases:
    reference's decode tolerance; and K7, its plain version and
    ``scaled_dot_product_attention`` (the library yardstick) timed on
    layer 0's cache. Independent of the SGNS phases.
+17. ``lm_train`` — the LM training path (``repro_torch.launch.train.train``)
+   on smollm-360m at full width (32 layers, d = 960, 15 query heads over 5
+   KV heads, head_dim 64, d_ff 2,560, vocabulary 49,152, tied embeddings,
+   float32, TF32 off, AdamW, per-layer remat), 16 steps of 8 × 1,024
+   tokens (``train_4k``'s 256 × 4,096 cut) with a checkpoint every 8: every
+   loss finite and the mean of the last 4 below the mean of the first 4,
+   none of the eight kernels launched, the step-16 checkpoint reloaded
+   bitwise the live parameters and optimizer state; a second run from the
+   same seed with the same losses bitwise (else the first op whose output
+   differs between two runs of one step is named and the losses held at
+   rtol 1e-6); then 4 steps timed and 3 under torch.profiler: s a step,
+   tokens/s, peak device memory, the model FLOPs a step (6·N·tokens plus
+   attention; and with remat's second forward) and their share of the
+   float32 peak, the loop's idle share. Then one step's loss and gradients
+   on the card against the CPU from one converted init at 1 × 128 tokens
+   (loss rtol 1e-5, each gradient within ``CHUNK_REL`` of its largest
+   |g|); and ``repro_torch.examples.async_embeddings_for_llm`` in-process
+   with its expected lines, K2 once a step of its SGNS pretraining and no
+   other kernel. Independent of the other phases.
 
 Each phase's wall is printed as it ends. It prints a ``{"kernels": [...]}``
 JSON line, then the card's name and power
@@ -253,7 +273,7 @@ DECODE_LOGITS_TOL = 2e-3
 
 PHASES = ("build", "k1", "k2", "main", "multiproc", "sync", "merge", "serve", "cli", "random",
           "hbm", "pipe", "elastic", "contracts", "dryrun", "budget", "time", "profile",
-          "decode")
+          "decode", "lm_train")
 REPLACES = {
     "sample_negatives": "src/repro/kernels/sgns_fused.py:197",
     "sgns_fused_step": "src/repro/kernels/sgns_fused.py:105",
@@ -300,6 +320,14 @@ ELASTIC_WORKERS, ELASTIC_CHUNK, ELASTIC_CKPT_EVERY = 4, 16, 2
 DRYRUN_V, DRYRUN_STEPS, DEFAULT_BUDGET_MB = 300_000, 16, 232_448 / 2 ** 20
 # The multiproc phase: ranks on the one card, and each rank's time limit.
 MULTIPROC_WORLD, MULTIPROC_TIMEOUT_S = 2, 300
+# The lm_train phase: smollm-360m at full width, train_4k's 256 × 4,096 cut to
+# 8 × 1,024 tokens a step; the card against the CPU at 1 × 128; the loop's
+# steps timed and profiled after the runs; the example's expected lines.
+LM_TRAIN = dict(arch="smollm-360m", steps=16, batch=8, seq=1024, lr=3e-4, ckpt_every=8)
+LM_CHECK_BATCH, LM_CHECK_SEQ, LM_LOSS_RTOL, LM_REPEAT_RTOL = 1, 128, 1e-5, 1e-6
+LM_TIMED_STEPS, LM_PROFILED_STEPS = 4, 3
+LM_EXAMPLE_LINES = ("async embedding pretrain:", "vocab covered by the merged model",
+                    "LM loss, last")
 CLI_SENTENCES = 60_000
 EXAMPLES = (
     ("quickstart", [], ("trained 4 async sub-models", "alir_pca   similarity")),
@@ -1272,6 +1300,220 @@ def phase_cli(device) -> dict:
     shutil.rmtree(out, ignore_errors=True)
     return {"train_wall_s": wall, "steps": steps, "launches": launches,
             "serve_s": serve_s, "example_walls": walls}
+
+
+# ---------------------------------------------------------------------------
+# The LM training path (smollm-360m at full width) and the example that
+# feeds it the paper's embeddings.
+# ---------------------------------------------------------------------------
+def _lm_grads(cfg, init, toks, device):
+    """One forward and backward of ``cfg`` from ``init`` (the reference's
+    tree) on ``toks``: (loss, {path: gradient} in the reference's layout)."""
+    import torch
+    from repro_torch import convert
+    from repro_torch.tree import tree_paths
+
+    model = convert.from_jax_model_params(cfg, init, device=device)
+    model.requires_grad_(True)
+    t = torch.from_numpy(toks).to(device)
+    names, params = zip(*model.named_parameters())
+    loss = model.loss_fn({"tokens": t, "labels": t})
+    grads = torch.autograd.grad(loss, params)
+    return float(loss.detach()), tree_paths(convert.to_jax_opt_state(
+        model.param_tree(dict(zip(names, grads)))))
+
+
+def _lm_divergence(cfg, init, toks, device) -> str:
+    """Run one forward and backward twice from ``init`` and name the first
+    module whose output, or else the first gradient, differs between the
+    two: the op on the path that is not deterministic on the card."""
+    import torch
+    from repro_torch import convert
+
+    runs = []
+    for _ in range(2):
+        model = convert.from_jax_model_params(cfg, init, device=device)
+        outs = []
+        for name, mod in model.named_modules():
+            mod.register_forward_hook(
+                lambda m, a, o, name=name: outs.append((name, o.detach().clone()))
+                if isinstance(o, torch.Tensor) else None)
+        model.requires_grad_(True)
+        t = torch.from_numpy(toks).to(device)
+        names, params = zip(*model.named_parameters())
+        grads = torch.autograd.grad(model.loss_fn({"tokens": t, "labels": t}), params)
+        runs.append((outs, list(zip(names, grads))))
+    for (name, a), (_, b) in zip(runs[0][0], runs[1][0]):
+        if not torch.equal(a, b):
+            return f"the output of {name}"
+    for (name, a), (_, b) in zip(runs[0][1], runs[1][1]):
+        if not torch.equal(a, b):
+            return f"the gradient of {name}"
+    return "none found in one step (the difference builds over steps)"
+
+
+def phase_lm_train(device) -> dict:
+    """The LM training path at full width through ``launch.train.train``
+    (see the module doc, phase 17)."""
+    import shutil
+
+    import numpy as np
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile, record_function
+    from repro_torch import convert, prng
+    from repro_torch.checkpoint import load_checkpoint
+    from repro_torch.configs import get_config
+    from repro_torch.examples import async_embeddings_for_llm as example
+    from repro_torch.kernels import sgns_fused
+    from repro_torch.launch.train import synthetic_lm_batches, train
+    from repro_torch.models import Model
+    from repro_torch.optim import get_optimizer
+    from repro_torch.tree import tree_paths
+
+    arch, steps, B, S = LM_TRAIN["arch"], LM_TRAIN["steps"], LM_TRAIN["batch"], LM_TRAIN["seq"]
+    cfg = get_config(arch)
+    out = ROOT / "build" / "chip_smoke_lm"
+    shutil.rmtree(out, ignore_errors=True)
+    kw = dict(reduced=False, steps=steps, batch=B, seq=S, lr=LM_TRAIN["lr"],
+              ckpt_every=LM_TRAIN["ckpt_every"], device=device)
+
+    # 1. the launcher, its checkpoints, no kernel, the loss falls
+    log(f"[lm_train] train({arch!r}, reduced=False, steps={steps}, batch={B}, seq={S}, "
+        f"lr={LM_TRAIN['lr']}, ckpt_every={LM_TRAIN['ckpt_every']}) on {device}")
+    sgns_fused.reset_launch_counts()
+    t0 = time.perf_counter()
+    model, losses, opt_state = train(arch, ckpt_dir=str(out), **kw)
+    wall = time.perf_counter() - t0
+    launches = dict(sgns_fused.LAUNCHES)
+    log(f"[lm_train] losses {losses}; wall {wall:.1f} s (init, {steps} steps, "
+        f"{steps // LM_TRAIN['ckpt_every'] + 1} checkpoint writes); launches {launches}")
+    if any(launches.values()):
+        raise RuntimeError(f"the LM training path launched a kernel: {launches}")
+    first, last = float(np.mean(losses[:4])), float(np.mean(losses[-4:]))
+    if len(losses) != steps or not np.isfinite(losses).all() or not last < first:
+        raise RuntimeError(f"the loss did not fall: first 4 {first}, last 4 {last}")
+    path = out / f"step_{steps}.npz"
+    t0 = time.perf_counter()
+    tree, meta = load_checkpoint(str(path))
+    load_s = time.perf_counter() - t0
+    saved = tree_paths(tree)
+    live = tree_paths({"params": convert.to_jax_model_params(model),
+                       "opt": convert.to_jax_opt_state(opt_state)})
+    same = set(saved) == set(live) and all(
+        saved[k].dtype == live[k].dtype and np.array_equal(saved[k], live[k]) for k in live)
+    ckpt_bytes = path.stat().st_size
+    log(f"[lm_train] step-{steps} checkpoint: {len(live)} arrays, {ckpt_bytes / 1e9:.3f} GB, "
+        f"loaded in {load_s:.2f} s, bitwise the live parameters and AdamW state: {same}")
+    if not same or meta.get("step") != steps:
+        raise RuntimeError(f"the step-{steps} checkpoint is not the live state ({meta})")
+    del model, opt_state, tree, saved, live
+    shutil.rmtree(out, ignore_errors=True)
+    torch.cuda.empty_cache()
+
+    # 2. the same run again from the same seed: the same losses
+    torch.cuda.reset_peak_memory_stats(device)
+    held = torch.cuda.memory_allocated(device)
+    t0 = time.perf_counter()
+    model, again, opt_state = train(arch, ckpt_dir=None, **kw)
+    wall2 = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated(device) - held
+    culprit = None
+    if again != losses:
+        toks = next(synthetic_lm_batches(cfg.vocab_size, B, S, 1))
+        init = convert.to_jax_model_params(Model(cfg, prng.PRNGKey(0), device=device))
+        culprit = _lm_divergence(cfg, init, toks, device)
+        log(f"[lm_train] the repeat differs: {again}; not deterministic on the card: "
+            f"{culprit}; held at rtol {LM_REPEAT_RTOL}")
+        np.testing.assert_allclose(again, losses, rtol=LM_REPEAT_RTOL)
+    log(f"[lm_train] repeat from the same seed: losses bitwise {again == losses}; wall "
+        f"{wall2:.1f} s; peak device memory {peak / 2**30:.2f} GiB above the "
+        f"{held / 2**30:.2f} GiB held before")
+
+    # 3. the loop timed, then profiled
+    step_fn = model.make_train_step(get_optimizer(cfg.train_optimizer, lr=LM_TRAIN["lr"]))
+    batches = [torch.from_numpy(t).to(device) for t in
+               synthetic_lm_batches(cfg.vocab_size, B, S, LM_TIMED_STEPS + LM_PROFILED_STEPS)]
+
+    def run_steps(toks, step0):
+        nonlocal opt_state
+        for i, t in enumerate(toks):
+            opt_state, loss = step_fn(opt_state, {"tokens": t, "labels": t}, step0 + i)
+            float(loss)                  # the launcher reads every loss
+        torch.cuda.synchronize(device)
+
+    torch.cuda.synchronize(device)
+    t0 = time.perf_counter()
+    run_steps(batches[:LM_TIMED_STEPS], steps)
+    s_step = (time.perf_counter() - t0) / LM_TIMED_STEPS
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        with record_function("repro_torch.lm_train_loop"):
+            run_steps(batches[LM_TIMED_STEPS:], steps + LM_TIMED_STEPS)
+    summary = _device_summary(prof, "repro_torch.lm_train_loop", LM_PROFILED_STEPS,
+                              PROFILE_GROUPS["lm_train"], DeviceType)
+    _write_profile("lm_train", prof, summary, trace=False)
+    n_params = sum(p.numel() for p in model.parameters())
+    layer_params = n_params - model.embed.numel() - model.final_norm.scale.numel()
+    T, L = B * S, cfg.num_layers
+    attn_fwd = 4 * B * S * S * cfg.num_heads * cfg.resolved_head_dim * L
+    model_flops = 6 * n_params * T + 3 * attn_fwd
+    executed = model_flops + 2 * layer_params * T + attn_fwd      # remat's second forward
+    mfu = model_flops / s_step / PEAK_FP32_FLOP_PER_S
+    log(f"[lm_train] {n_params} parameters; {s_step:.4f} s a step, {T / s_step:.1f} tokens/s; "
+        f"model FLOPs a step {model_flops / 1e12:.3f} T (6·N·tokens + attention), "
+        f"{executed / 1e12:.3f} T with remat's second forward; "
+        f"{mfu:.4f} of the float32 peak ({executed / s_step / PEAK_FP32_FLOP_PER_S:.4f} "
+        f"counting remat) ({nvidia_smi_line()})")
+    log(f"[lm_train] profile of {LM_PROFILED_STEPS} steps: loop "
+        f"{summary['window_us'] / 1e3:.1f} ms, device busy "
+        f"{summary['device_busy_us'] / 1e3:.1f} ms, idle share {summary['idle_share']:.4f}")
+    for g, v in summary["device_us_per_step"].items():
+        log(f"[lm_train]   {g}: {v / 1e3:.2f} ms/step")
+    for k in summary["kernels"][:8]:
+        log(f"[lm_train]     {k['device_us'] / LM_PROFILED_STEPS / 1e3:8.2f} ms/step  "
+            f"x{k['count']:<6d} {k['name'][:90]}")
+    del model, opt_state, step_fn, batches, prof
+    torch.cuda.empty_cache()
+
+    # 4. the card against the CPU at full width, one step's loss and gradients
+    init = convert.to_jax_model_params(Model(cfg, prng.PRNGKey(0), device=device))
+    toks = next(synthetic_lm_batches(cfg.vocab_size, LM_CHECK_BATCH, LM_CHECK_SEQ, 1))
+    t0 = time.perf_counter()
+    card, cpu = _lm_grads(cfg, init, toks, device), _lm_grads(cfg, init, toks, "cpu")
+    loss_rel = abs(card[0] - cpu[0]) / abs(cpu[0])
+    grad_rel = max(float(np.abs(card[1][k] - g).max() / np.abs(g).max())
+                   for k, g in cpu[1].items())
+    log(f"[lm_train] card vs CPU at {LM_CHECK_BATCH} x {LM_CHECK_SEQ}: loss {card[0]!r} vs "
+        f"{cpu[0]!r} (rel {loss_rel:.3e}); the largest gradient difference "
+        f"{grad_rel:.3e} of its tensor's largest |g| ({time.perf_counter() - t0:.1f} s)")
+    if loss_rel > LM_LOSS_RTOL or grad_rel > CHUNK_REL:
+        raise RuntimeError("the card's full-width step is not the CPU's")
+    del init, card, cpu
+    torch.cuda.empty_cache()
+
+    # 5. the example: SGNS sub-models → ALiR → published → served → the LM
+    sgns_fused.reset_launch_counts()
+    t0 = time.perf_counter()
+    text, res = _run_cli(example.main, ["--device", str(device)])
+    example_s = time.perf_counter() - t0
+    ex_launches = dict(sgns_fused.LAUNCHES)
+    _expect(text, LM_EXAMPLE_LINES, "async_embeddings_for_llm")
+    pretrain_steps = res["timings"]["steps_per_epoch"] * example.PRETRAIN_EPOCHS
+    log(f"[lm_train] async_embeddings_for_llm: {example_s:.1f} s; {pretrain_steps} "
+        f"pretraining steps; launches {ex_launches}")
+    others = {k: n for k, n in ex_launches.items() if k != "sgns_fused_step" and n}
+    if ex_launches["sgns_fused_step"] != pretrain_steps or others:
+        raise RuntimeError(f"expected {pretrain_steps} K2 launches and no other kernel, "
+                           f"got {ex_launches}")
+    for name in ("loss_random", "loss_pretrained"):
+        ls = res[name]
+        if not (np.isfinite(ls).all() and np.mean(ls[-10:]) < np.mean(ls[:10])):
+            raise RuntimeError(f"the example's {name} did not fall")
+    return {"losses": losses, "s_step": s_step, "tokens_per_s": T / s_step,
+            "peak_bytes": peak, "model_flops": model_flops, "mfu": mfu,
+            "idle_share": summary["idle_share"], "repeat_bitwise": culprit is None,
+            "culprit": culprit, "ckpt_bytes": ckpt_bytes, "loss_rel": loss_rel,
+            "grad_rel": grad_rel, "example_launches": ex_launches}
 
 
 # ---------------------------------------------------------------------------
@@ -2979,6 +3221,11 @@ PROFILE_GROUPS = {
     "decode": (("K7", ("swa_partial_kernel", "swa_combine_kernel")),
                ("matmuls (cuBLAS)", ("gemm", "gemv")),
                ("copies", ("memcpy",))),
+    "lm_train": (("matmuls (cuBLAS)", ("gemm", "gemv")),
+                 ("softmax and log-sum-exp", ("softmax", "logsumexp")),
+                 ("reductions", ("reduce",)),
+                 ("copies", ("memcpy", "copy")),
+                 ("elementwise", ("elementwise",))),
     "random": (("K3", ("row_grads_",)),
                ("ordered apply (index_put_: stable sort, serial adds)",
                 ("indexing_backward", "index_put", "radixsort")),
@@ -3191,6 +3438,9 @@ def main(argv=None) -> int:
     if "decode" in phases:
         torch.cuda.empty_cache()
         results["decode"] = run("decode", phase_decode, device, profile="profile" in phases)
+    if "lm_train" in phases:
+        torch.cuda.empty_cache()
+        results["lm_train"] = run("lm_train", phase_lm_train, device)
 
     if set(PHASES) - {"build", "profile"} <= set(phases):
         # launches: each kernel's count over its own path's training run

@@ -5,14 +5,18 @@ The JAX package's parameters are ``{"W", "C"}`` dicts of arrays, single
 ``{"prob", "alias"}`` dicts; ``np.asarray`` turns either into numpy.
 These helpers start the port from exactly that state (a copy, on the
 requested device) and bring the port's state back. The LLM model's
-parameter pytree (``repro.models.Model.init``) and decode cache go across
-too: :func:`from_jax_model_params`, :func:`to_jax_cache`.
+parameter pytree (``repro.models.Model.init``), its optimizer states and
+its decode cache go across too: :func:`from_jax_model_params`,
+:func:`to_jax_model_params`, :func:`from_jax_opt_state`,
+:func:`to_jax_opt_state`, :func:`to_jax_cache`.
 """
 
 from __future__ import annotations
 
 import numpy as np
 import torch
+
+from repro_torch.tree import tree_map
 
 
 def from_jax_params(params_np: dict, device="cpu") -> dict:
@@ -35,61 +39,43 @@ def to_numpy(params: dict) -> dict:
     return {k: v.detach().cpu().numpy() for k, v in params.items()}
 
 
-def _jax_layer_params(params_np: dict, cfg) -> list:
-    """The reference's per-layer parameter dicts in layer order: prefix
-    layers, then cycle c's position j (``params[...][c]`` of the stacked
-    cycle arrays) at ``len(prefix) + c·len(cycle_codes) + j``."""
-    stack = params_np["stack"]
-    layers = list(stack["prefix"])
-    if stack["cycle"] is not None:
-        for c in range(cfg.resolved_num_cycles):
-            for j in range(len(cfg.cycle_codes)):
-                layers.append(_tree_index(stack["cycle"][str(j)], c))
-    return layers
-
-
-def _tree_index(tree, c: int):
-    if isinstance(tree, dict):
-        return {k: _tree_index(v, c) for k, v in tree.items()}
-    return np.asarray(tree)[c]
-
-
-def _flatten(tree: dict, prefix: str = "") -> dict:
-    out = {}
-    for k, v in tree.items():
-        name = f"{prefix}{k}"
-        if isinstance(v, dict):
-            out.update(_flatten(v, name + "."))
-        else:
-            # an RMSNorm's scale is a bare array in the reference's tree
-            out[name + ".scale" if k in ("norm", "norm2", "final_norm") else name] = v
-    return out
-
-
 def from_jax_model_params(cfg, params_np: dict, device="cpu"):
     """``repro.models.Model(cfg).init(key)``'s pytree, as numpy (or
     array-likes), → the port's :class:`repro_torch.models.Model` on
-    ``device`` with exactly those values (copied). Raises if a parameter of
-    either side has no counterpart or another shape."""
+    ``device`` with exactly those values (copied), ready to serve or to
+    train. Raises ``ValueError`` if a parameter of either side has no
+    counterpart or another shape."""
     from repro_torch.models import Model
 
-    model = Model(cfg, device=device)
-    flat = {k: params_np[k] for k in ("embed", "final_norm", "lm_head") if k in params_np}
-    flat = _flatten(flat)
-    for i, layer in enumerate(_jax_layer_params(params_np, cfg)):
-        flat.update(_flatten(layer, f"layers.{i}."))
-    ours = dict(model.named_parameters())
-    if set(flat) != set(ours):
-        raise ValueError(f"parameters differ: only in the reference's tree "
-                         f"{sorted(set(flat) - set(ours))}, only in the port's "
-                         f"{sorted(set(ours) - set(flat))}")
-    with torch.no_grad():
-        for name, p in ours.items():
-            src = torch.tensor(np.asarray(flat[name]))
-            if tuple(src.shape) != tuple(p.shape):
-                raise ValueError(f"{name}: shape {tuple(src.shape)} != {tuple(p.shape)}")
-            p.copy_(src)
-    return model
+    return Model(cfg, device=device).load_param_tree(params_np)
+
+
+def to_jax_model_params(model) -> dict:
+    """The port's :class:`repro_torch.models.Model` → the reference's
+    parameter pytree as numpy, the cycle's leaves stacked over cycles (the
+    inverse of :func:`from_jax_model_params`)."""
+    return _numpy_tree(model.param_tree())
+
+
+def to_jax_opt_state(state):
+    """An optimizer state (``repro_torch.optim``: ``sgd``, ``adamw``,
+    ``adafactor``), tensors on any device → numpy. Each optimizer's state
+    is already the reference's tree (the parameters as
+    :meth:`~repro_torch.models.Model.param_tree` lays them out), so this is
+    the tree, leaf by leaf."""
+    return _numpy_tree(state)
+
+
+def _numpy_tree(tree):
+    # copies, also of CPU tensors: a later training step changes none of them
+    return tree_map(lambda t: t.detach().to("cpu", copy=True).numpy(), tree)
+
+
+def from_jax_opt_state(state_np, device="cpu"):
+    """The reference's optimizer state (numpy or array-likes) → tensors on
+    ``device`` (copied, dtypes kept): the inverse of
+    :func:`to_jax_opt_state`."""
+    return tree_map(lambda a: torch.tensor(np.asarray(a), device=device), state_np)
 
 
 def to_jax_cache(cfg, cache: list) -> dict:

@@ -1,5 +1,6 @@
-"""The LLM decode path of the seed scaffolding, in torch: layers, GQA
-attention (full rings through K7), the layer stack and the model facade."""
+"""The LLM path of the seed scaffolding, in torch: layers, GQA attention
+(full rings of decode through K7), the layer stack, the full-sequence
+forward, the LM loss, the training step and the model facade."""
 
 from repro_torch.models.model import Model
 

@@ -1,6 +1,11 @@
-"""GQA attention (optionally sliding-window) for one-token decode — the
-counterpart of ``repro.models.attention``'s ``init_gqa``, ``_project_qkv``,
-``_sdpa``, ``init_gqa_cache`` and ``gqa_decode``.
+"""GQA attention (optionally sliding-window): the full-sequence forward of
+training and one-token decode — the counterpart of
+``repro.models.attention``'s ``init_gqa``, ``_project_qkv``, ``_sdpa``,
+``causal_mask``, ``gqa_forward``, ``init_gqa_cache`` and ``gqa_decode``.
+
+The forward (:meth:`GQA.forward`) is the reference's: projections, RoPE,
+the additive ``causal_mask`` and ``_sdpa``'s float32 scores, all outside
+any Pallas kernel there, as torch ops here.
 
 Caches, as the reference's:
 
@@ -14,8 +19,8 @@ reference's mask ``(idx <= slot) | (pos >= W)`` marks every slot valid),
 its attention is exactly K7's function, and :meth:`GQA.decode` computes
 it with K7 (:func:`repro_torch.kernels.swa_decode.swa_decode`). Every
 other step takes the plain masked ``_sdpa``, which the reference computes
-outside any Pallas kernel too. ``gqa_forward``, MLA and cross-attention
-are not ported yet (``ROADMAP.md`` queue 1 item 12).
+outside any Pallas kernel too. MLA and cross-attention are not ported yet
+(``ROADMAP.md`` queue 1 item 12).
 """
 
 from __future__ import annotations
@@ -57,6 +62,18 @@ def _sdpa(q, k, v, mask):
     p = torch.softmax(s, dim=-1)
     o = torch.einsum("bhrqk,bkhd->bqhrd", p, v.float())
     return o.reshape(B, Sq, Hq, D).to(q.dtype)
+
+
+def causal_mask(Sq: int, Sk: int, window: int | None = None, offset: int = 0,
+                device="cpu") -> torch.Tensor:
+    """Additive (Sq, Sk) float32 mask; query i attends keys j with
+    j <= i+offset and (window is None or j > i+offset-window)."""
+    qi = torch.arange(Sq, device=device)[:, None] + offset
+    kj = torch.arange(Sk, device=device)[None, :]
+    ok = kj <= qi
+    if window is not None:
+        ok &= kj > qi - window
+    return torch.where(ok, 0.0, NEG_INF).to(torch.float32)
 
 
 def decode_mask(cache_len: int, pos: int, window: int | None, device) -> torch.Tensor:
@@ -104,6 +121,19 @@ class GQA(nn.Module):
         return (q.reshape(B, S, self.n_heads, self.head_dim),
                 k.reshape(B, S, self.n_kv, self.head_dim),
                 v.reshape(B, S, self.n_kv, self.head_dim))
+
+    def forward(self, x: torch.Tensor, rope_cos_sin, window: int | None = None) -> torch.Tensor:
+        """``gqa_forward`` (causal): x (B, S, d) → (B, S, d). ``rope_cos_sin``
+        is ``rope_angles`` at the tokens' positions (the reference derives
+        it from ``positions`` and ``rope_theta`` when it is not given; the
+        port's context always gives it), ``window`` the SWA window."""
+        B, S, _ = x.shape
+        q, k, v = self.project_qkv(x)
+        cos, sin = rope_cos_sin
+        q = apply_rope(q, cos, sin)
+        k = apply_rope(k, cos, sin)
+        o = _sdpa(q, k, v, causal_mask(S, S, window, device=x.device))
+        return o.reshape(B, S, self.n_heads * self.head_dim) @ self.wo
 
     def decode(self, cache: dict, x: torch.Tensor, pos: int, *, rope_cos_sin, mask,
                window: int | None = None, swa_kernel: bool = True) -> torch.Tensor:

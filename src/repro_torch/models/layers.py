@@ -1,7 +1,7 @@
-"""Shared building blocks: initializers, RMSNorm, the SwiGLU MLP and RoPE —
-the counterparts of ``repro.models.layers`` (``dense_init``, ``embed_init``,
-``rms_norm``, ``init_rms``, ``init_mlp``/``mlp``, ``rope_angles``,
-``apply_rope``).
+"""Shared building blocks: initializers, RMSNorm, the SwiGLU MLP, RoPE and
+the LM loss — the counterparts of ``repro.models.layers`` (``dense_init``,
+``embed_init``, ``rms_norm``, ``init_rms``, ``init_mlp``/``mlp``,
+``rope_angles``, ``apply_rope``, ``lm_loss``).
 
 Weights keep the reference's ``(in, out)`` layout and are applied as
 ``x @ w``, so a converted parameter is a copy and the tests compare like
@@ -31,7 +31,9 @@ def embed_init(key, vocab: int, dim: int, dtype, device="cpu") -> torch.Tensor:
 
 
 def frozen(t: torch.Tensor) -> nn.Parameter:
-    """A parameter of a serving model: no gradient is ever taken."""
+    """A parameter created without gradients: serving takes none (and its
+    tensors go to numpy as they are). Training turns them on
+    (:meth:`repro_torch.models.Model.make_train_step`)."""
     return nn.Parameter(t, requires_grad=False)
 
 
@@ -114,3 +116,24 @@ def apply_rope(x: torch.Tensor, cos: torch.Tensor, sin: torch.Tensor) -> torch.T
         cos, sin = cos[:, :, None, :], sin[:, :, None, :]
     out = torch.cat([x1 * cos - x2 * sin, x1 * sin + x2 * cos], dim=-1)
     return out.to(dt)
+
+
+# ---------------------------------------------------------------------------
+# Cross-entropy LM loss
+# ---------------------------------------------------------------------------
+def lm_loss(logits: torch.Tensor, labels: torch.Tensor,
+            mask: torch.Tensor | None = None) -> torch.Tensor:
+    """Mean next-token cross-entropy. logits (B, S, V) already aligned with
+    labels (B, S) (the caller shifts). The reference's formulation: the
+    log-sum-exp in float32 over the whole (padded) vocabulary, minus the
+    picked logit, the mask's mean with ``max(sum, 1)``. The reference picks
+    the logit as a one-hot sum (for a vocabulary-sharded axis); the port
+    gathers it: a sum of one logit and zeros is that logit, bitwise."""
+    lg = logits.float()
+    lse = torch.logsumexp(lg, dim=-1)
+    picked = lg.gather(-1, labels[..., None].long())[..., 0]
+    ll = picked - lse
+    if mask is None:
+        return -ll.mean()
+    m = mask.float()
+    return -(ll * m).sum() / torch.clamp(m.sum(), min=1.0)

@@ -1,6 +1,10 @@
-"""Architecture assembly for decode: the layer stack, its caches and the
-one-token step — the counterpart of ``repro.models.transformer``'s
-``init_layer`` (mixers ``A``/``S``, FFN ``D``: :class:`Layer`), ``Ctx``,
+"""Architecture assembly: the layer stack, the full-sequence forward of
+training, and decode's caches and one-token step — the counterpart of
+``repro.models.transformer``'s ``init_layer`` (mixers ``A``/``S``, FFN
+``D``: :class:`Layer`), ``Ctx`` (:class:`ForwardCtx` for the forward,
+:class:`Ctx` for decode), ``apply_layer_forward`` (:meth:`Layer.forward`),
+``_make_ctx_forward`` (:func:`make_ctx_forward`, plain RoPE),
+``run_stack_forward``, ``forward_logits`` (the dense branch),
 ``apply_layer_decode`` (:meth:`Layer.decode`), ``init_stack``
 (:func:`layer_keys`), ``init_layer_cache`` and ``init_cache``
 (:func:`init_cache`) and ``decode_step``; ``init_model`` is
@@ -10,11 +14,15 @@ The reference scans the cycle over stacked parameters (``lax.scan``);
 the port runs the same layers as a Python loop over an ``nn.ModuleList``,
 prefix first, then cycle by cycle, and draws each layer's weights from the
 key the reference's scan slice gets (``split`` trees, ``jax.vmap`` over
-the cycle keys: a vmapped draw equals the per-key draw). The reference's
-``sharding.ctx.shard_batch`` is a no-op without a mesh; the port runs on
-one device and has no counterpart. Caches are a list of per-layer
-``{"k", "v"}`` dicts in layer order, updated in place;
-:func:`repro_torch.convert.to_jax_cache` gives the reference's layout.
+the cycle keys: a vmapped draw equals the per-key draw). Where the
+reference wraps the scan's body in ``jax.checkpoint`` (``cfg.remat``: each
+cycle; ``cfg.remat_per_layer``: each layer inside it), the forward wraps
+the same spans in ``torch.utils.checkpoint.checkpoint``; recomputing
+changes no value. The reference's ``sharding.ctx.shard_batch`` is a no-op
+without a mesh; the port runs on one device and has no counterpart.
+Caches are a list of per-layer ``{"k", "v"}`` dicts in layer order,
+updated in place; :func:`repro_torch.convert.to_jax_cache` gives the
+reference's layout.
 
 Ported: the dense GQA family (llama3-8b, qwen1.5-0.5b, smollm-360m,
 h2o-danube-1.8b). Anything else raises ``NotImplementedError`` when the
@@ -27,6 +35,7 @@ from dataclasses import dataclass
 
 import torch
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch import prng
 from repro_torch.configs.base import ModelConfig
@@ -54,8 +63,25 @@ def check_supported(cfg: ModelConfig) -> None:
 
 
 # ---------------------------------------------------------------------------
-# Context threaded through the layers of one step
+# Contexts threaded through the layers: the forward's and a decode step's
 # ---------------------------------------------------------------------------
+@dataclass
+class ForwardCtx:
+    rope_cos_sin: tuple             # rope_angles at the positions, (B, S, hd/2) each
+    window: int | None = None       # effective SWA window
+
+
+def make_ctx_forward(cfg: ModelConfig, B: int, S: int, positions=None,
+                     device="cpu") -> ForwardCtx:
+    """``_make_ctx_forward`` for plain RoPE: positions ``(B, S)`` (default
+    ``arange(S)`` on every row) → their RoPE angles."""
+    if positions is None:
+        positions = torch.arange(S, dtype=torch.int32, device=device)[None].expand(B, S)
+    return ForwardCtx(rope_cos_sin=rope_angles(positions, cfg.resolved_head_dim,
+                                               cfg.rope_theta),
+                      window=cfg.attention_window)
+
+
 @dataclass
 class Ctx:
     pos: int                        # tokens so far (a Python int)
@@ -84,6 +110,12 @@ class Layer(nn.Module):
         self.norm2 = RMSNorm(d, cfg.norm_eps, dt, device)
         self.ffn = MLP(keys[1], d, cfg.d_ff, dt, device)
 
+    def forward(self, x: torch.Tensor, ctx: ForwardCtx) -> torch.Tensor:
+        """``apply_layer_forward``: x (B, S, d) → (B, S, d) (a dense layer's
+        aux loss is the reference's 0.0, and is left out)."""
+        x = x + self.attn(self.norm(x), ctx.rope_cos_sin, ctx.window)
+        return x + self.ffn(self.norm2(x))
+
     def decode(self, cache: dict, x: torch.Tensor, ctx: Ctx) -> torch.Tensor:
         """``apply_layer_decode``: x (B, 1, d) → (B, 1, d); the layer's
         cache is updated in place."""
@@ -106,6 +138,48 @@ def layer_keys(key, cfg: ModelConfig) -> list:
         for kcyc in prng.split(kc, n_cycles):
             cycle += list(prng.split(kcyc, len(cfg.cycle_codes)))
     return prefix + cycle
+
+
+def run_stack_forward(model, x: torch.Tensor, ctx: ForwardCtx) -> torch.Tensor:
+    """The prefix layers, then each cycle: with ``cfg.remat`` a cycle is
+    recomputed in the backward pass (the reference's ``jax.checkpoint`` of
+    the scan's body), with ``cfg.remat_per_layer`` each layer inside it too
+    (the two nest, as the reference's do)."""
+    cfg = model.cfg
+    P, n = len(cfg.prefix_codes), len(cfg.cycle_codes)
+    for layer in model.layers[:P]:
+        x = layer(x, ctx)
+
+    def one_layer(layer, xx):
+        if cfg.remat_per_layer:
+            return checkpoint(layer, xx, ctx, use_reentrant=False)
+        return layer(xx, ctx)
+
+    def body(xx, cycle):
+        for layer in cycle:
+            xx = one_layer(layer, xx)
+        return xx
+
+    for c in range(cfg.resolved_num_cycles):
+        cycle = model.layers[P + c * n:P + (c + 1) * n]
+        x = checkpoint(body, x, cycle, use_reentrant=False) if cfg.remat else body(x, cycle)
+    return x
+
+
+def forward_logits(model, batch: dict):
+    """Full-sequence forward of ``model`` (a :class:`repro_torch.models.Model`)
+    on ``{"tokens" (B, S) int[, "positions" (B, S)]}``. Returns (logits
+    (B, S, Vp) over the padded vocabulary, the aux loss (0.0 for a dense
+    model), the loss mask (B, S) of ones)."""
+    tokens = batch["tokens"]
+    B, S = tokens.shape
+    x = torch.nn.functional.embedding(tokens, model.embed)
+    mask = torch.ones((B, S), dtype=torch.float32, device=x.device)
+    ctx = make_ctx_forward(model.cfg, B, S, batch.get("positions"), x.device)
+    x = run_stack_forward(model, x, ctx)
+    x = model.final_norm(x)
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    return x @ model.head, aux, mask
 
 
 def init_cache(cfg: ModelConfig, batch: int, cache_len: int, device=None) -> list:

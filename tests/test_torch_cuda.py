@@ -931,3 +931,47 @@ def test_multiproc_ranks_on_one_card_choose_gloo(device):
     assert worker_backend(device, 1) == "nccl"
     assert worker_backend(device, torch.cuda.device_count() + 1) == "gloo"
     assert worker_backend("cpu", 2) == "gloo"
+
+
+@pytest.mark.parametrize("arch", ("smollm-360m", "h2o-danube-1.8b"))
+def test_lm_train_step_on_the_card_matches_the_cpu_and_repeats(device, arch):
+    """One training step of a reduced LM from one converted init: the card's
+    loss within rtol 1e-5 of the CPU's and each gradient within 1e-3 of its
+    largest |g| (matmul and reduction order); with SGD the parameters after
+    the step within atol 1e-5; the AdamW step run twice on the card
+    bitwise (h2o-danube's S = 48 runs past its window of 32)."""
+    from repro_torch import convert
+    from repro_torch.configs import get_config
+    from repro_torch.models import Model
+    from repro_torch.optim import get_optimizer
+    from repro_torch.tree import tree_paths
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = get_config(arch).reduced()
+    init = convert.to_jax_model_params(Model(cfg, prng.PRNGKey(0), device="cpu"))
+    toks = np.random.default_rng(0).integers(0, cfg.vocab_size, (4, 48), dtype=np.int32)
+
+    def run(dev, opt):
+        model = convert.from_jax_model_params(cfg, init, device=dev)
+        t = torch.from_numpy(toks).to(dev)
+        batch = {"tokens": t, "labels": t}
+        names, params = zip(*model.named_parameters())
+        model.requires_grad_(True)
+        grads = torch.autograd.grad(model.loss_fn(batch), params)
+        grads = tree_paths(convert.to_jax_opt_state(model.param_tree(dict(zip(names, grads)))))
+        with torch.no_grad():
+            state = opt.init(model.param_tree())
+        _, loss = model.make_train_step(opt)(state, batch, 0)
+        return float(loss), grads, tree_paths(convert.to_jax_model_params(model))
+
+    sgd = get_optimizer("sgd", lr=0.1)
+    card, cpu = run(device, sgd), run("cpu", sgd)
+    np.testing.assert_allclose(card[0], cpu[0], rtol=1e-5)
+    for path, g in cpu[1].items():
+        assert np.abs(card[1][path] - g).max() <= 1e-3 * np.abs(g).max(), path
+        np.testing.assert_allclose(card[2][path], cpu[2][path], rtol=0, atol=1e-5, err_msg=path)
+    adamw = get_optimizer("adamw", lr=3e-3)
+    a, b = run(device, adamw), run(device, adamw)
+    assert a[0] == b[0]
+    for path in a[2]:
+        assert np.array_equal(a[1][path], b[1][path]) and np.array_equal(a[2][path], b[2][path])

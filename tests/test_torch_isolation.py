@@ -53,7 +53,9 @@ def test_port_has_the_slice_modules():
               "repro_torch.elastic", "repro_torch.elastic.cursor", "repro_torch.elastic.store",
               "repro_torch.elastic.faults", "repro_torch.elastic.runner",
               "repro_torch.analysis.contracts", "repro_torch.analysis.lint_rules",
-              "repro_torch.analysis.__main__", "repro_torch.core", "repro_torch.core.async_trainer"):
+              "repro_torch.analysis.__main__", "repro_torch.core", "repro_torch.core.async_trainer",
+              "repro_torch.optim", "repro_torch.optim.optimizers", "repro_torch.tree",
+              "repro_torch.launch.train", "repro_torch.examples.async_embeddings_for_llm"):
         assert m in mods
 
 
@@ -188,6 +190,24 @@ def test_serving_launchers_and_examples_refuse_the_cpu_by_default(monkeypatch, t
         with pytest.raises(RuntimeError, match="device='cpu'"):
             call()
     assert ArtifactStore(art, device="cpu").table.emb.device.type == "cpu"
+
+
+def test_lm_training_entry_points_refuse_the_cpu_by_default(monkeypatch):
+    """The LM launcher (function and CLI) and the example that feeds it the
+    paper's embeddings raise without a GPU unless given the CPU."""
+    from repro_torch.examples import async_embeddings_for_llm
+    from repro_torch.launch import train
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    calls = [
+        lambda: train.train("smollm-360m", reduced=True, steps=1, batch=1, seq=8, lr=1e-3,
+                            ckpt_dir=None, ckpt_every=1),
+        lambda: train.main(["--arch", "smollm-360m", "--reduced", "--steps", "1"]),
+        lambda: async_embeddings_for_llm.main([]),
+    ]
+    for call in calls:
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            call()
 
 
 def test_version_and_package_data():

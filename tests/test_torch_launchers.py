@@ -20,14 +20,29 @@
   ``--vmem-budget-mb`` (the H100's opt-in 227 KiB of shared memory a CTA,
   in MiB); a budget below the engine's footprint raises, as the
   reference's does, and ``--processes 2`` without a rendezvous raises;
-* the engine names of either package, mapped to the port's.
+* the engine names of either package, mapped to the port's;
+* the LM training launcher (``launch/train.py``): ``tests/test_launchers.py``'s
+  two tests on the port (the loss falls; the checkpoint's ``step``,
+  ``params`` and ``opt``; a resume), ``synthetic_lm_batches`` bitwise, 25
+  steps of qwen1.5-0.5b (reduced) from the reference's init against the
+  reference's losses (rtol 1e-5: 25 AdamW steps on the same batches, the
+  forward's and gradients' sums in another order), and each package
+  resuming the other's checkpoint: both resumes from one checkpoint give
+  the same losses (rtol 1e-5) and write the same ``.npz`` keys;
+* ``examples/async_embeddings_for_llm.py``: ``make_lm_batches`` bitwise and
+  3 steps of ``train_lm`` from the reference's parameters against the
+  reference's losses (rtol 1e-5). The whole example is not run here (the
+  reference's takes about 3 minutes on the CPU).
 """
 
 import argparse
 import contextlib
+import importlib.util
 import io
 import json
 import os
+import shutil
+from pathlib import Path
 
 import numpy as np
 import pytest
@@ -36,6 +51,7 @@ from repro.checkpoint import load_checkpoint as jload_checkpoint
 from repro.checkpoint import load_manifest as jload_manifest
 from repro.checkpoint import load_table as jload_table
 from repro.launch import serve as jserve
+from repro.launch import train as jlm
 from repro.launch import train_sgns as jtrain
 from repro_torch.analysis.vmem import DEFAULT_VMEM_BUDGET_BYTES, VmemBudgetError
 from repro_torch.checkpoint import load_checkpoint, load_table
@@ -43,6 +59,7 @@ from repro_torch.checkpoint.io import load_worker_state
 from repro_torch.core.async_trainer import AsyncShardTrainer
 from repro_torch.core.engine import REFERENCE_ENGINE, get_engine, port_engine_spec
 from repro_torch.launch import serve as tserve
+from repro_torch.launch import train as tlm
 from repro_torch.launch import train_sgns as ttrain
 
 MERGE_ATOL = 1e-4
@@ -242,9 +259,10 @@ def _flags(ap: argparse.ArgumentParser) -> dict:
             for a in ap._actions if a.option_strings and a.dest != "help"}
 
 
-@pytest.mark.parametrize("name", ("train_sgns", "serve"))
+@pytest.mark.parametrize("name", ("train_sgns", "serve", "train"))
 def test_parsers_are_the_reference_ones_plus_device(name, monkeypatch):
-    port_mod, ref_mod = {"train_sgns": (ttrain, jtrain), "serve": (tserve, jserve)}[name]
+    port_mod, ref_mod = {"train_sgns": (ttrain, jtrain), "serve": (tserve, jserve),
+                         "train": (tlm, jlm)}[name]
     ours = _flags(port_mod.build_parser())
     ref = _flags(_reference_parser(ref_mod.main, monkeypatch))
     assert ours.pop(("--device",))[:2] == ("device", None)
@@ -289,3 +307,140 @@ def test_engine_names_of_either_package():
     assert get_engine(port_engine_spec("sparse:alias")).describe() == "sparse:alias"
     with pytest.raises(ValueError, match="unknown update engine"):
         get_engine(port_engine_spec("pallas_nope"))
+
+
+# ---------------------------------------------------------------------------
+# The LM training launcher and the example that joins the LM to the paper
+# ---------------------------------------------------------------------------
+@pytest.fixture
+def one_torch_thread():
+    """A reduced LM's ops are too small to split across threads; beside other
+    test processes on the machine, torch's thread pool only contends."""
+    import torch
+
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
+@pytest.mark.usefixtures("one_torch_thread")
+def test_lm_train_launcher_reduces_loss(tmp_path):
+    _, losses, _ = tlm.train("qwen1.5-0.5b", reduced=True, steps=25, batch=4, seq=48,
+                             lr=3e-3, ckpt_dir=str(tmp_path), ckpt_every=20, device="cpu")
+    assert losses[-1] < losses[0]
+    from repro_torch.checkpoint import latest_step_path
+    path = latest_step_path(str(tmp_path))
+    assert path is not None
+    tree, meta = load_checkpoint(path)
+    assert meta["step"] == 25
+    assert "params" in tree and "opt" in tree
+    assert os.path.exists(tmp_path / "step_20.npz")
+
+
+@pytest.mark.usefixtures("one_torch_thread")
+def test_lm_train_launcher_resume(tmp_path):
+    tlm.train("smollm-360m", reduced=True, steps=10, batch=2, seq=32, lr=1e-3,
+              ckpt_dir=str(tmp_path), ckpt_every=100, device="cpu")
+    _, losses, _ = tlm.train("smollm-360m", reduced=True, steps=5, batch=2, seq=32, lr=1e-3,
+                             ckpt_dir=str(tmp_path), ckpt_every=100, resume=True,
+                             device="cpu")
+    assert len(losses) > 0 and np.isfinite(losses).all()
+    assert load_checkpoint(str(tmp_path / "step_15.npz"))[1]["step"] == 15
+
+
+@pytest.mark.parametrize("vocab,batch,seq,steps", [(512, 4, 48, 25), (49152, 2, 1024, 3)])
+def test_synthetic_lm_batches_are_the_reference_batches(vocab, batch, seq, steps):
+    ours = list(tlm.synthetic_lm_batches(vocab, batch, seq, steps))
+    ref = list(jlm.synthetic_lm_batches(vocab, batch, seq, steps))
+    assert len(ours) == len(ref) == steps
+    for a, b in zip(ours, ref):
+        assert a.dtype == np.int32 and a.shape == (batch, seq)
+        np.testing.assert_array_equal(a, np.asarray(b))
+
+
+def _reference_init_checkpoint(arch, ckpt_dir):
+    """The reference's ``PRNGKey(0)`` init and fresh optimizer state as a
+    step-0 checkpoint: a ``resume`` of either launcher starts from it."""
+    import jax
+    from repro.checkpoint import save_checkpoint as jsave
+    from repro.configs import get_config
+    from repro.models import Model as JaxModel
+    from repro.optim import get_optimizer as jget
+
+    cfg = get_config(arch).reduced()
+    params = JaxModel(cfg).init(jax.random.PRNGKey(0))
+    opt = jget(cfg.train_optimizer)
+    jsave(f"{ckpt_dir}/step_0.npz", {"params": params, "opt": opt.init(params)}, step=0)
+
+
+@pytest.mark.usefixtures("one_torch_thread")
+def test_lm_train_launcher_matches_the_reference_losses(tmp_path):
+    kw = dict(reduced=True, steps=25, batch=4, seq=48, lr=3e-3, ckpt_every=100, resume=True)
+    for pkg in ("repro", "port"):
+        _reference_init_checkpoint("qwen1.5-0.5b", tmp_path / pkg)
+    with contextlib.redirect_stdout(io.StringIO()):
+        _, ref = jlm.train("qwen1.5-0.5b", ckpt_dir=str(tmp_path / "repro"), **kw)
+        _, ours, _ = tlm.train("qwen1.5-0.5b", ckpt_dir=str(tmp_path / "port"), device="cpu",
+                               **kw)
+    np.testing.assert_allclose(ours, ref, rtol=1e-5)
+    assert ours[-1] < ours[0]
+
+
+@pytest.mark.usefixtures("one_torch_thread")
+@pytest.mark.parametrize("first", ["repro", "port"])
+def test_lm_checkpoints_resume_across_packages(tmp_path, first):
+    """One package trains 10 steps and saves; each package resumes that
+    checkpoint for 5 steps in a copy of the directory."""
+    kw = dict(reduced=True, batch=2, seq=32, lr=1e-3, ckpt_every=100)
+    run = {"repro": lambda d, **k: jlm.train("smollm-360m", ckpt_dir=str(d), **kw, **k)[1],
+           "port": lambda d, **k: tlm.train("smollm-360m", ckpt_dir=str(d), device="cpu",
+                                             **kw, **k)[1]}
+    with contextlib.redirect_stdout(io.StringIO()):
+        run[first](tmp_path / "first", steps=10)
+        losses = {}
+        for pkg in ("repro", "port"):
+            shutil.copytree(tmp_path / "first", tmp_path / pkg)
+            losses[pkg] = run[pkg](tmp_path / pkg, steps=5, resume=True)
+    np.testing.assert_allclose(losses["port"], losses["repro"], rtol=1e-5)
+    keys = {}
+    for pkg in ("repro", "port"):
+        with np.load(tmp_path / pkg / "step_15.npz") as f:
+            keys[pkg] = sorted(f.files)
+    with np.load(tmp_path / "first" / "step_10.npz") as f:
+        assert sorted(f.files) == keys["repro"] == keys["port"]
+
+
+def _reference_example():
+    path = Path(__file__).resolve().parents[1] / "examples" / "async_embeddings_for_llm.py"
+    spec = importlib.util.spec_from_file_location("ref_async_embeddings_for_llm", path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+@pytest.mark.usefixtures("one_torch_thread")
+def test_llm_example_batches_and_train_lm_match_the_reference():
+    import jax
+    from repro.configs import get_config as jget_config
+    from repro.data.corpus import SemanticCorpusModel as JCorpusModel
+    from repro.models import Model as JaxModel
+    from repro_torch import convert
+    from repro_torch.configs import get_config
+    from repro_torch.data.corpus import SemanticCorpusModel
+    from repro_torch.examples import async_embeddings_for_llm as ex
+
+    ref = _reference_example()
+    jcorpus = JCorpusModel.create(vocab_size=512, seed=0).generate(num_sentences=400, seed=1)
+    corpus = SemanticCorpusModel.create(vocab_size=512, seed=0).generate(num_sentences=400,
+                                                                         seed=1)
+    ours_b = list(ex.make_lm_batches(corpus, 512, 8, 48, 5))
+    for a, b in zip(ours_b, ref.make_lm_batches(jcorpus, 512, 8, 48, 5)):
+        assert a.dtype == np.int32
+        np.testing.assert_array_equal(a, np.asarray(b))
+    jcfg = jget_config("smollm-360m").reduced()
+    params = JaxModel(jcfg).init(jax.random.PRNGKey(0))
+    model = convert.from_jax_model_params(get_config("smollm-360m").reduced(),
+                                          jax.tree.map(np.asarray, params))
+    ours = ex.train_lm(model, corpus, steps=3)
+    np.testing.assert_allclose(ours, ref.train_lm(jcfg, params, jcorpus, steps=3), rtol=1e-5)
