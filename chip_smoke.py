@@ -12,6 +12,7 @@
     python3 chip_smoke.py --phases build,main,multiproc
     python3 chip_smoke.py --phases build,dryrun,budget
     python3 chip_smoke.py --phases build,lm_train
+    python3 chip_smoke.py --phases build,archs
 
 Phases:
 
@@ -212,6 +213,34 @@ Phases:
    |g|); and ``repro_torch.examples.async_embeddings_for_llm`` in-process
    with its expected lines, K2 once a step of its SGNS pretraining and no
    other kernel. Independent of the other phases.
+18. ``archs`` — the rest of the model zoo, through
+   ``repro_torch.launch.decode_llm.serve`` at the reference CLI's defaults
+   (batch 4, a prompt of 16, 32 new tokens, seed 0) at full width, float32,
+   TF32 off: deepseek-v2-lite-16b (MLA's absorbed decode over the
+   compressed cache, MoE with 2 shared and 64 routed experts, top 6; its
+   15,706,470,400 parameters counted), qwen2-vl-7b (M-RoPE, qkv biases),
+   xlstm-1.3b (mLSTM, sLSTM) and seamless-m4t-large-v2 (24 + 24 layers,
+   cross-attention; zero frames encoded first), each freed before the
+   next: tokens int32 of shape (4, 32) in range; prefill and decode ms a
+   step, tok/s, peak memory beside the bytes bound (every weight read once
+   a step: the reference's MoE runs every expert on its capacity buffer).
+   Then from the same seed again (init timed): decode against the forward
+   at B = 2 (deepseek S = 12 at capacity factor 16, no assignment dropped
+   in either pass; qwen2-vl S = 12; xlstm S = 512, so that the chunkwise
+   mLSTM and the segmented sLSTM run; seamless 10 frames and 8 tokens)
+   within atol = rtol = 2e-3; 16 deepseek steps replayed from a cache
+   snapshot, bitwise; qwen2-vl's forward over 1,024 zero patch embeddings
+   and 12 tokens. The six archs of the slice reduced, card vs CPU from one
+   converted init: logits and 4 decode steps (caches included) within the
+   CPU tests' tolerances, the MoE routes equal, one step's loss (rtol
+   1e-5) and gradients (``CHUNK_REL`` of each tensor's largest |g|). One
+   Mamba mixer at jamba-1.5-large's widths (d 8,192, d_inner 16,384,
+   d_state 16, dt_rank 512), card vs CPU: a forward at S = 1,024 (two
+   chunks of 512) and 8 decode steps. Each full-width arch's decode is
+   also profiled (8 steps at B = 4: ms a step, device busy, idle share,
+   device ops a step, device time by group; ``profile_archs_<arch>.json``
+   in the output directory). None of the eight kernels launches (no arch
+   here has a window). Independent of the other phases.
 
 Each phase's wall is printed as it ends. It prints a ``{"kernels": [...]}``
 JSON line, then the card's name and power
@@ -273,7 +302,7 @@ DECODE_LOGITS_TOL = 2e-3
 
 PHASES = ("build", "k1", "k2", "main", "multiproc", "sync", "merge", "serve", "cli", "random",
           "hbm", "pipe", "elastic", "contracts", "dryrun", "budget", "time", "profile",
-          "decode", "lm_train")
+          "decode", "lm_train", "archs")
 REPLACES = {
     "sample_negatives": "src/repro/kernels/sgns_fused.py:197",
     "sgns_fused_step": "src/repro/kernels/sgns_fused.py:105",
@@ -328,6 +357,27 @@ LM_CHECK_BATCH, LM_CHECK_SEQ, LM_LOSS_RTOL, LM_REPEAT_RTOL = 1, 128, 1e-5, 1e-6
 LM_TIMED_STEPS, LM_PROFILED_STEPS = 4, 3
 LM_EXAMPLE_LINES = ("async embedding pretrain:", "vocab covered by the merged model",
                     "LM loss, last")
+# The archs phase: the four archs that fit one card whole decode at full
+# width (serve at the reference CLI's defaults), each decode held against
+# its forward (deepseek at a capacity factor where no assignment drops:
+# 16·2·6/64 → 3 slots at decode), 16 replayed steps of deepseek; the six
+# new archs reduced, card vs CPU; jamba's Mamba mixer at its widths.
+ZOO_FULL = ("deepseek-v2-lite-16b", "qwen2-vl-7b", "xlstm-1.3b", "seamless-m4t-large-v2")
+ZOO_REDUCED = ("qwen3-moe-30b-a3b", "deepseek-v2-lite-16b", "jamba-1.5-large-398b",
+               "xlstm-1.3b", "qwen2-vl-7b", "seamless-m4t-large-v2")
+ZOO_SERVE = dict(batch=4, prompt_len=16, new_tokens=32, seed=0)
+ZOO_CONSISTENCY = {
+    "deepseek-v2-lite-16b": dict(b=2, s=12, moe=dict(capacity_factor=16.0)),
+    "qwen2-vl-7b": dict(b=2, s=12),
+    "xlstm-1.3b": dict(b=2, s=512),      # mLSTM chunkwise, sLSTM segmented
+    "seamless-m4t-large-v2": dict(b=2, s=8, enc_len=10),
+}
+DEEPSEEK_PARAMS = 15_706_470_400
+ZOO_REPLAY_STEPS, ZOO_VL_PATCHES, ZOO_REDUCED_DECODE = 16, 1024, 4
+ZOO_MAMBA_SEQ, ZOO_MAMBA_DECODE, ZOO_PROFILE_STEPS = 1024, 8, 8
+# the CPU tests' tolerances of the reduced archs (xlstm's recurrences grow
+# a last-ulp difference: tests/test_torch_arch_zoo.py)
+ZOO_ATOL = {"xlstm-1.3b": 2e-4}
 CLI_SENTENCES = 60_000
 EXAMPLES = (
     ("quickstart", [], ("trained 4 async sub-models", "alir_pca   similarity")),
@@ -1514,6 +1564,383 @@ def phase_lm_train(device) -> dict:
             "idle_share": summary["idle_share"], "repeat_bitwise": culprit is None,
             "culprit": culprit, "ckpt_bytes": ckpt_bytes, "loss_rel": loss_rel,
             "grad_rel": grad_rel, "example_launches": ex_launches}
+
+
+# ---------------------------------------------------------------------------
+# The rest of the model zoo (MoE, MLA, Mamba, mLSTM/sLSTM, M-RoPE with the
+# vision stub, encoder-decoder) at full width and, reduced, card vs CPU.
+# ---------------------------------------------------------------------------
+def _zoo_tol(arch) -> float:
+    return ZOO_ATOL.get(arch, 1e-5)
+
+
+def _zoo_batch(cfg, seed, b, s, device):
+    """Random tokens (labels = tokens), with the arch's patch embeddings or
+    frames (random normal), as numpy and on ``device``."""
+    import numpy as np
+    import torch
+
+    rng = np.random.default_rng(seed)
+    np_b = {"tokens": rng.integers(0, cfg.vocab_size, (b, s), dtype=np.int32)}
+    np_b["labels"] = np_b["tokens"]
+    if cfg.frontend == "vision":
+        np_b["patch_embeds"] = rng.standard_normal(
+            (b, cfg.frontend_tokens, cfg.d_model)).astype(np.float32)
+    if cfg.encoder_layers:
+        np_b["frames"] = rng.standard_normal((b, s, cfg.d_model)).astype(np.float32)
+    return {k: torch.from_numpy(v).to(device) for k, v in np_b.items()}
+
+
+def _max_scaled(a, b) -> float:
+    """max |a − b| over max(1, max |b|): the CPU tests' scaled rule."""
+    import numpy as np
+
+    a, b = np.asarray(a, np.float64), np.asarray(b, np.float64)
+    return float(np.abs(a - b).max() / max(1.0, float(np.abs(b).max())))
+
+
+def _zoo_serve(arch, device, n_params) -> dict:
+    """``serve`` at full width with the launch counts at 0, its tokens
+    checked; the stats, the peak above what was held, the bytes bound."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import sgns_fused
+    from repro_torch.launch.decode_llm import serve
+
+    cfg = get_config(arch)
+    torch.cuda.reset_peak_memory_stats(device)
+    held = torch.cuda.memory_allocated(device)
+    sgns_fused.reset_launch_counts()
+    t0 = time.perf_counter()
+    gen, stats = serve(arch, device=device, **ZOO_SERVE)
+    wall = time.perf_counter() - t0
+    launches = dict(sgns_fused.LAUNCHES)
+    peak = torch.cuda.max_memory_allocated(device) - held
+    B, P, N = ZOO_SERVE["batch"], ZOO_SERVE["prompt_len"], ZOO_SERVE["new_tokens"]
+    bound_ms = 4 * n_params / PEAK_BYTES_PER_S * 1e3
+    out = {"params": n_params, "bytes": 4 * n_params, "peak_bytes": peak, "serve_wall_s": wall,
+           "prefill_ms": stats["prefill_s"] / P * 1e3, "decode_ms": stats["decode_s"] / N * 1e3,
+           "tok_per_s": stats["tok_per_s"], "bound_ms": bound_ms, "launches": launches}
+    log(f"[archs] {arch}: serve(batch={B}, prompt_len={P}, new_tokens={N}, seed=0) on "
+        f"{device}: {n_params} parameters ({4 * n_params / 1e9:.3f} GB); prefill "
+        f"{out['prefill_ms']:.3f} ms/step, decode {out['decode_ms']:.3f} ms/step, "
+        f"{stats['tok_per_s']:.1f} tok/s (the weights read once a step: {bound_ms:.3f} "
+        f"ms/step, {B / bound_ms * 1e3:.0f} tok/s); wall with init {wall:.1f} s; peak device "
+        f"memory {peak / 2**30:.2f} GiB above the {held / 2**30:.2f} GiB held before")
+    if any(launches.values()):
+        raise RuntimeError(f"{arch}: the decode path launched a kernel: {launches}")
+    if gen.shape != (B, N) or gen.dtype != torch.int32 or not (
+            0 <= int(gen.min()) and int(gen.max()) < cfg.vocab_size):
+        raise RuntimeError(f"{arch}: bad generated tokens: {gen.dtype} {tuple(gen.shape)}")
+    log(f"[archs] {arch}: first sequence {gen[0, :16].tolist()}")
+    return out
+
+
+def _zoo_model(arch, device, **moe_overrides):
+    import torch
+    from repro_torch import prng
+    from repro_torch.configs import get_config
+    from repro_torch.models import Model
+
+    cfg = get_config(arch)
+    if moe_overrides:
+        cfg = replace(cfg, moe=replace(cfg.moe, **moe_overrides))
+    torch.cuda.synchronize(device)
+    t0 = time.perf_counter()
+    with torch.no_grad():
+        model = Model(cfg, prng.PRNGKey(0), device=device)
+    torch.cuda.synchronize(device)
+    return model, time.perf_counter() - t0
+
+
+def _decode_vs_forward(arch, model, device, b, s, enc_len=None) -> dict:
+    """Teacher-forced decode of ``s`` tokens against the forward's last
+    position (``tests/test_decode_consistency.py``'s atol = rtol = 2e-3);
+    every MoE assignment of both passes kept."""
+    import numpy as np
+    import torch
+
+    cfg = model.cfg
+    rng = np.random.default_rng(0)
+    toks = torch.from_numpy(rng.integers(0, cfg.vocab_size, (b, s), dtype=np.int32)).to(device)
+    batch = {"tokens": toks}
+    if enc_len:
+        batch["frames"] = torch.from_numpy(
+            rng.normal(size=(b, enc_len, cfg.d_model)).astype(np.float32)).to(device)
+    fwd_routes, dec_routes = [], []
+    t0 = time.perf_counter()
+    with torch.inference_mode():
+        full, _, _ = model.forward_logits(batch, routes=fwd_routes)
+        torch.cuda.synchronize(device)
+        t_fwd = time.perf_counter() - t0
+        cache = model.init_cache(b, s, enc_len=enc_len)
+        if enc_len:
+            cache = model.prefill_encoder(batch["frames"], cache)
+        for i in range(s):
+            out, cache = model.decode_step(cache, toks[:, i:i + 1], i, routes=dec_routes)
+        torch.cuda.synchronize(device)
+    t_dec = time.perf_counter() - t0 - t_fwd
+    a, ref = out[:, 0].double().cpu(), full[:, -1].double().cpu()
+    err = float(((a - ref).abs() - DECODE_LOGITS_TOL * ref.abs()).max())
+    dropped = sum(int((~r["keep"]).sum()) for r in fwd_routes + dec_routes)
+    kept = sum(int(r["keep"].sum()) for r in fwd_routes + dec_routes)
+    log(f"[archs] {arch}: decode vs forward at B = {b}, S = {s}"
+        f"{f', {enc_len} frames' if enc_len else ''}: max |diff| − 2e-3·|ref| = {err:.3e} "
+        f"(forward {t_fwd:.2f} s, decode {t_dec:.2f} s); MoE assignments kept {kept}, "
+        f"dropped {dropped}")
+    if err > DECODE_LOGITS_TOL or not torch.isfinite(full).all():
+        raise RuntimeError(f"{arch}: decode is not the forward")
+    if dropped:
+        raise RuntimeError(f"{arch}: {dropped} MoE assignments dropped")
+    return {"excess": err, "kept": kept, "forward_s": t_fwd, "decode_s": t_dec}
+
+
+def _replay(arch, model, device, steps) -> bool:
+    """The serve prompt decoded into a cache, a snapshot, then ``steps``
+    greedy steps twice from copies of it: the logits bitwise."""
+    import numpy as np
+    import torch
+
+    cfg = model.cfg
+    B, P = ZOO_SERVE["batch"], ZOO_SERVE["prompt_len"]
+    prompts = torch.from_numpy(np.random.default_rng(0).integers(
+        0, cfg.vocab_size, (B, P), dtype=np.int32)).to(device)
+    cache = model.init_cache(B, P + steps)
+    for i in range(P):
+        logits, cache = model.decode_step(cache, prompts[:, i:i + 1], i)
+    snap = [{k: v.clone() for k, v in c.items()} for c in cache]
+    runs = []
+    for _ in range(2):
+        c = [{k: v.clone() for k, v in layer.items()} for layer in snap]
+        tok = torch.argmax(logits[:, :, :cfg.vocab_size], dim=-1).to(torch.int32)
+        outs = []
+        for i in range(steps):
+            lg, c = model.decode_step(c, tok, P + i)
+            outs.append(lg)
+            tok = torch.argmax(lg[:, :, :cfg.vocab_size], dim=-1).to(torch.int32)
+        runs.append(torch.cat(outs, dim=1))
+    same = torch.equal(runs[0], runs[1])
+    log(f"[archs] {arch}: {steps} decode steps replayed from a cache snapshot: bitwise {same}")
+    if not same:
+        raise RuntimeError(f"{arch}: decode does not repeat bit for bit")
+    return same
+
+
+def _profile_zoo_decode(arch, model, device, steps: int = ZOO_PROFILE_STEPS) -> dict:
+    """``steps`` greedy decode steps after a 4-token prompt, at the serve
+    batch, under torch.profiler: the loop's window and device busy time,
+    its idle share, kernels launched a step, device µs a step by group."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile, record_function
+
+    cfg = model.cfg
+    B, enc_len = ZOO_SERVE["batch"], (ZOO_SERVE["prompt_len"] if cfg.encoder_layers else None)
+    cache = model.init_cache(B, 4 + steps, enc_len=enc_len)
+    if enc_len:          # serve's zero frames
+        cache = model.prefill_encoder(torch.zeros((B, enc_len, cfg.d_model), device=device),
+                                      cache)
+    tok = torch.ones((B, 1), dtype=torch.int32, device=device)
+    for i in range(4):
+        logits, cache = model.decode_step(cache, tok, i)
+    torch.cuda.synchronize(device)
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        with record_function("repro_torch.zoo_decode_loop"):
+            for j in range(steps):
+                tok = torch.argmax(logits[:, :, :cfg.vocab_size], dim=-1).to(torch.int32)
+                logits, cache = model.decode_step(cache, tok, 4 + j)
+            torch.cuda.synchronize(device)
+    summary = _device_summary(prof, "repro_torch.zoo_decode_loop", steps,
+                              PROFILE_GROUPS["archs"], DeviceType)
+    launches = sum(k["count"] for k in summary["kernels"]) / steps
+    summary["launches_per_step"] = launches
+    _write_profile(f"archs_{arch}", prof, summary, trace=False)
+    log(f"[archs] {arch}: profile of {steps} decode steps at B = {B}: "
+        f"{summary['window_us'] / steps / 1e3:.3f} ms/step, device busy "
+        f"{summary['device_busy_us'] / steps / 1e3:.3f} ms/step, idle share "
+        f"{summary['idle_share']:.3f}, {launches:.0f} device ops a step")
+    log(f"[archs] {arch}:   " + ", ".join(f"{g} {v / 1e3:.3f}" for g, v in
+                                          summary["device_us_per_step"].items()) + " ms/step")
+    for k in summary["kernels"][:4]:
+        log(f"[archs] {arch}:     {k['device_us'] / steps / 1e3:8.3f} ms/step  "
+            f"x{k['count']:<6d} {k['name'][:90]}")
+    return {k: summary[k] for k in ("window_us", "device_busy_us", "idle_share",
+                                    "device_us_per_step", "launches_per_step")}
+
+
+def _zoo_reduced_vs_cpu(arch, device) -> dict:
+    """One converted init of the reduced arch on the card and on the CPU:
+    the forward's logits and MoE routes, 4 decode steps (logits, caches,
+    routes), one step's loss and gradients."""
+    import numpy as np
+    import torch
+    from repro_torch import convert, prng
+    from repro_torch.configs import get_config
+    from repro_torch.models import Model
+    from repro_torch.tree import tree_paths
+
+    cfg = get_config(arch).reduced()
+    init = convert.to_jax_model_params(Model(cfg, prng.PRNGKey(0), device="cpu"))
+    res = []
+    for dev in (device, torch.device("cpu")):
+        model = convert.from_jax_model_params(cfg, init, device=dev)
+        batch = _zoo_batch(cfg, 2, 2, 16, dev)
+        r = {"fwd_routes": [], "dec_routes": []}
+        with torch.no_grad():
+            r["logits"] = model.forward_logits(batch, routes=r["fwd_routes"])[0].cpu()
+        enc_len = 6 if cfg.encoder_layers else None
+        cache = model.init_cache(2, ZOO_REDUCED_DECODE, enc_len=enc_len)
+        if enc_len:
+            cache = model.prefill_encoder(batch["frames"][:, :enc_len], cache)
+        r["dec"] = []
+        for i in range(ZOO_REDUCED_DECODE):
+            lg, cache = model.decode_step(cache, batch["tokens"][:, i:i + 1], i,
+                                          routes=r["dec_routes"])
+            r["dec"].append((lg.cpu(), tree_paths(convert.to_jax_cache(cfg, cache))))
+        model.requires_grad_(True)
+        names, ps = zip(*model.named_parameters())
+        loss = model.loss_fn(batch)
+        grads = torch.autograd.grad(loss, ps)
+        r["loss"] = float(loss.detach())
+        r["grads"] = tree_paths(convert.to_jax_opt_state(model.param_tree(dict(zip(names,
+                                                                                  grads)))))
+        res.append(r)
+    card, cpu = res
+    tol = _zoo_tol(arch)
+    logits_err = _max_scaled(card["logits"], cpu["logits"])
+    dec_err = max(max(_max_scaled(a[0], b[0]),
+                      max(_max_scaled(a[1][k], b[1][k]) for k in b[1]))
+                  for a, b in zip(card["dec"], cpu["dec"]))
+    routes_equal = all(torch.equal(x[k].cpu(), y[k].cpu())
+                       for rs in ("fwd_routes", "dec_routes")
+                       for x, y in zip(card[rs], cpu[rs]) for k in ("top_idx", "keep"))
+    loss_rel = abs(card["loss"] - cpu["loss"]) / abs(cpu["loss"])
+    grad_rel = max(float(np.abs(card["grads"][k] - g).max() / max(np.abs(g).max(), 1e-30))
+                   for k, g in cpu["grads"].items())
+    log(f"[archs] {arch} (reduced) card vs CPU: logits {logits_err:.3e}, {ZOO_REDUCED_DECODE} "
+        f"decode steps (logits, caches) {dec_err:.3e} (tolerance {tol:g}); MoE routes "
+        f"equal {routes_equal} ({len(card['fwd_routes']) + len(card['dec_routes'])} "
+        f"routings); loss {card['loss']!r} vs {cpu['loss']!r} (rel {loss_rel:.3e}); the "
+        f"largest gradient difference {grad_rel:.3e} of its tensor's largest |g|")
+    if (logits_err > tol or dec_err > tol or not routes_equal or loss_rel > LM_LOSS_RTOL
+            or grad_rel > CHUNK_REL):
+        raise RuntimeError(f"{arch}: the card's reduced model is not the CPU's")
+    return {"logits": logits_err, "decode": dec_err, "routes_equal": routes_equal,
+            "loss_rel": loss_rel, "grad_rel": grad_rel}
+
+
+def _jamba_mamba_vs_cpu(device) -> dict:
+    """One Mamba mixer at jamba-1.5-large's published widths, from a key, on
+    the card and on the CPU: a forward at S = 1,024 (the chunked scan: two
+    chunks of 512) and 8 decode steps."""
+    import numpy as np
+    import torch
+    from repro_torch import prng
+    from repro_torch.configs import get_config
+    from repro_torch.models.ssm import Mamba, init_mamba_cache
+
+    cfg = get_config("jamba-1.5-large-398b")
+    kw = dict(d_inner=cfg.ssm.expand * cfg.d_model, d_state=cfg.ssm.d_state,
+              d_conv=cfg.ssm.d_conv, dt_rank=cfg.ssm.dt_rank, dtype=torch.float32)
+    with torch.inference_mode():
+        card = Mamba(prng.PRNGKey(0), cfg.d_model, device=device, **kw)
+        cpu = Mamba(None, cfg.d_model, device="cpu", **kw)
+        for name, p in card.named_parameters():
+            cpu.get_parameter(name).copy_(p.cpu())
+        n = sum(p.numel() for p in card.parameters())
+        rng = np.random.default_rng(0)
+        x = rng.standard_normal((1, ZOO_MAMBA_SEQ, cfg.d_model)).astype(np.float32)
+        steps = rng.standard_normal((ZOO_MAMBA_DECODE, 1, 1, cfg.d_model)).astype(np.float32)
+        t0 = time.perf_counter()
+        y_card = card(torch.from_numpy(x).to(device)).cpu()
+        t_card = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        y_cpu = cpu(torch.from_numpy(x))
+        t_cpu = time.perf_counter() - t0
+        fwd = float((y_card - y_cpu).abs().max() / y_cpu.abs().max())
+        c_card = init_mamba_cache(1, kw["d_inner"], kw["d_state"], kw["d_conv"], torch.float32,
+                                  device)
+        c_cpu = init_mamba_cache(1, kw["d_inner"], kw["d_state"], kw["d_conv"], torch.float32)
+        dec = 0.0
+        for t in range(ZOO_MAMBA_DECODE):
+            a = card.decode(c_card, torch.from_numpy(steps[t]).to(device)).cpu()
+            b = cpu.decode(c_cpu, torch.from_numpy(steps[t]))
+            dec = max(dec, float((a - b).abs().max() / b.abs().max()),
+                      *(float((c_card[k].cpu() - c_cpu[k]).abs().max() / c_cpu[k].abs().max())
+                        for k in ("conv", "h")))
+    log(f"[archs] jamba's Mamba mixer at d = {cfg.d_model}, d_inner = {kw['d_inner']}, "
+        f"d_state = {kw['d_state']}, dt_rank = {card.dt_rank}: {n} parameters; forward at "
+        f"S = {ZOO_MAMBA_SEQ} card vs CPU {fwd:.3e} of the largest |y| (card {t_card:.2f} s, "
+        f"CPU {t_cpu:.2f} s); {ZOO_MAMBA_DECODE} decode steps (outputs, conv and SSM states) "
+        f"{dec:.3e} of the largest (tolerance {CHUNK_REL:g})")
+    if not fwd <= CHUNK_REL or not dec <= CHUNK_REL:
+        raise RuntimeError("jamba's Mamba mixer on the card is not the CPU's")
+    return {"params": n, "forward_rel": fwd, "decode_rel": dec, "card_s": t_card}
+
+
+def phase_archs(device) -> dict:
+    """The rest of the model zoo (see the module doc, phase 18)."""
+    import torch
+    from repro_torch.kernels import sgns_fused
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    sgns_fused.reset_launch_counts()
+    out: dict = {}
+    for arch in ZOO_FULL:
+        t_arch = time.perf_counter()
+        n_params = sum(math.prod(s) for s in _param_shapes(_zoo_cfg(arch)))
+        if arch == "deepseek-v2-lite-16b" and n_params != DEEPSEEK_PARAMS:
+            raise RuntimeError(f"deepseek-v2-lite-16b has {n_params} parameters, "
+                               f"not {DEEPSEEK_PARAMS}")
+        r = _zoo_serve(arch, device, n_params)
+        torch.cuda.empty_cache()
+        check = ZOO_CONSISTENCY[arch]
+        model, r["init_s"] = _zoo_model(arch, device, **check.get("moe", {}))
+        log(f"[archs] {arch}: init {r['init_s']:.1f} s "
+            f"({4 * n_params / r['init_s'] / 1e9:.2f} GB/s of weights drawn)")
+        r["consistency"] = _decode_vs_forward(arch, model, device, check["b"], check["s"],
+                                              check.get("enc_len"))
+        model.cfg = _zoo_cfg(arch)              # deepseek: the published capacity factor
+        if arch == "deepseek-v2-lite-16b":
+            r["replay_bitwise"] = _replay(arch, model, device, ZOO_REPLAY_STEPS)
+        r["profile"] = _profile_zoo_decode(arch, model, device)
+        if arch == "qwen2-vl-7b":
+            import numpy as np
+            cfg = model.cfg
+            toks = torch.from_numpy(np.random.default_rng(1).integers(
+                0, cfg.vocab_size, (2, 12), dtype=np.int32)).to(device)
+            pe = torch.zeros((2, ZOO_VL_PATCHES, cfg.d_model), device=device)
+            t0 = time.perf_counter()
+            with torch.inference_mode():
+                logits, _, mask = model.forward_logits({"tokens": toks, "patch_embeds": pe})
+            torch.cuda.synchronize(device)
+            ok = (logits.shape == (2, ZOO_VL_PATCHES + 12, cfg.padded_vocab)
+                  and bool(torch.isfinite(logits).all()) and not mask[:, :ZOO_VL_PATCHES].any()
+                  and bool(mask[:, ZOO_VL_PATCHES:].all()))
+            log(f"[archs] {arch}: forward of {ZOO_VL_PATCHES} zero patch embeddings + 12 "
+                f"tokens: logits {tuple(logits.shape)} finite, the patches masked: {ok} "
+                f"({time.perf_counter() - t0:.2f} s)")
+            if not ok:
+                raise RuntimeError(f"{arch}: the vision forward is wrong")
+            del logits
+        del model
+        torch.cuda.empty_cache()
+        r["wall_s"] = time.perf_counter() - t_arch
+        out[arch] = r
+    out["reduced"] = {arch: _zoo_reduced_vs_cpu(arch, device) for arch in ZOO_REDUCED}
+    out["mamba"] = _jamba_mamba_vs_cpu(device)
+    launches = dict(sgns_fused.LAUNCHES)
+    log(f"[archs] launches over the phase: {launches}")
+    if any(launches.values()):
+        raise RuntimeError(f"the archs phase launched a kernel: {launches}")
+    out["launches"] = launches
+    return out
+
+
+def _zoo_cfg(arch):
+    from repro_torch.configs import get_config
+
+    return get_config(arch)
 
 
 # ---------------------------------------------------------------------------
@@ -3221,6 +3648,12 @@ PROFILE_GROUPS = {
     "decode": (("K7", ("swa_partial_kernel", "swa_combine_kernel")),
                ("matmuls (cuBLAS)", ("gemm", "gemv")),
                ("copies", ("memcpy",))),
+    "archs": (("matmuls (cuBLAS)", ("gemm", "gemv")),
+              ("sorts (top-k)", ("sort",)),
+              ("indexing (dispatch, combine, caches)", ("index", "scatter", "gather")),
+              ("reductions", ("reduce",)),
+              ("copies", ("memcpy", "copy")),
+              ("elementwise", ("elementwise",))),
     "lm_train": (("matmuls (cuBLAS)", ("gemm", "gemv")),
                  ("softmax and log-sum-exp", ("softmax", "logsumexp")),
                  ("reductions", ("reduce",)),
@@ -3441,6 +3874,9 @@ def main(argv=None) -> int:
     if "lm_train" in phases:
         torch.cuda.empty_cache()
         results["lm_train"] = run("lm_train", phase_lm_train, device)
+    if "archs" in phases:
+        torch.cuda.empty_cache()
+        results["archs"] = run("archs", phase_archs, device)
 
     if set(PHASES) - {"build", "profile"} <= set(phases):
         # launches: each kernel's count over its own path's training run

@@ -81,8 +81,12 @@ def from_jax_opt_state(state_np, device="cpu"):
 def to_jax_cache(cfg, cache: list) -> dict:
     """The port's per-layer decode cache → the reference's layout, as
     numpy: ``{"prefix": [per-layer dict], "cycle": {str(j): stacked over
-    cycles} or None}``."""
-    layers = [{k: v.detach().cpu().numpy() for k, v in c.items()} for c in cache]
+    cycles} or None}``. Every kind goes across under its own keys: ``k``/
+    ``v`` (and ``cross_k``/``cross_v``), ``c_kv``/``k_rope``, ``conv``/
+    ``h``, ``C``/``n``/``m`` and ``h``/``c``/``n``/``m``."""
+    # copies, also of CPU tensors: the next decode step writes the caches in place
+    layers = [{k: v.detach().to("cpu", copy=True).numpy() for k, v in c.items()}
+              for c in cache]
     P = len(cfg.prefix_codes)
     cycle = None
     if cfg.resolved_num_cycles:

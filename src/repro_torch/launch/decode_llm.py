@@ -4,8 +4,10 @@
 
 The prompt is fed token by token through the decode step (the
 cache-building pass), then ``new_tokens`` tokens are generated greedily.
-Weights come from a seed, as the reference's do; the SWA layers'
-attention runs K7 once their ring is full. It runs on the GPU unless
+An encoder-decoder first encodes ``prompt_len`` zero frames into its
+cross-attention caches, as the reference does. Weights come from a seed,
+as the reference's do; the SWA layers' attention runs K7 once their ring
+is full. Every arch of the registry runs. It runs on the GPU unless
 ``device="cpu"`` is passed.
 
   PYTHONPATH=src python -m repro_torch.launch.decode_llm \\
@@ -51,7 +53,13 @@ def serve(arch: str, *, reduced: bool = False, batch: int = 4, prompt_len: int =
         cache_len = prompt_len + new_tokens
         if cfg.attention_window is not None:
             cache_len = min(cache_len, cfg.attention_window)
-        cache = model.init_cache(batch, cache_len)
+        enc_len = prompt_len if cfg.encoder_layers else None
+        cache = model.init_cache(batch, cache_len, enc_len=enc_len)
+        if cfg.encoder_layers:
+            # the reference's stand-in audio: zero frames, one a prompt token
+            frames = torch.zeros((batch, prompt_len, cfg.d_model), dtype=getattr(torch, cfg.dtype),
+                                 device=dev)
+            cache = model.prefill_encoder(frames, cache)
         _sync(dev)
 
         # prefill by decoding the prompt (cache-building pass)

@@ -51,6 +51,22 @@ def synthetic_lm_batches(vocab: int, batch: int, seq: int, steps: int,
         yield (chunk.reshape(batch, seq) % vocab).astype(np.int32)
 
 
+def lm_batch(cfg, toks: torch.Tensor, seq: int) -> dict:
+    """The reference launcher's batch dict around ``toks`` (B, S): tokens
+    and labels; for vision also ``cfg.frontend_tokens`` zero patch
+    embeddings; for an encoder-decoder ``seq`` zero frames too."""
+    batch = {"tokens": toks, "labels": toks}
+    dt = getattr(torch, cfg.dtype)
+    if cfg.frontend == "vision":
+        batch["patch_embeds"] = torch.zeros((toks.shape[0], cfg.frontend_tokens, cfg.d_model),
+                                            dtype=dt, device=toks.device)
+    if cfg.encoder_layers:
+        batch = {"frames": torch.zeros((toks.shape[0], seq, cfg.d_model), dtype=dt,
+                                       device=toks.device),
+                 "tokens": toks, "labels": toks}
+    return batch
+
+
 def _save(path: str, model: Model, opt_state, step: int) -> None:
     with torch.no_grad():
         save_checkpoint(path, {"params": model.param_tree(), "opt": opt_state}, step=step)
@@ -93,7 +109,7 @@ def train(arch: str, *, reduced: bool, steps: int, batch: int, seq: int,
     stream = synthetic_lm_batches(cfg.vocab_size, batch, seq, steps)
     for i, toks in enumerate(stream, start=step0):
         toks = torch.from_numpy(toks).to(dev)
-        opt_state, loss = step_fn(opt_state, {"tokens": toks, "labels": toks}, i)
+        opt_state, loss = step_fn(opt_state, lm_batch(cfg, toks, seq), i)
         losses.append(float(loss))
         if (i + 1) % log_every == 0:
             dt = time.perf_counter() - t0

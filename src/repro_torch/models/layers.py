@@ -1,7 +1,8 @@
 """Shared building blocks: initializers, RMSNorm, the SwiGLU MLP, RoPE and
 the LM loss — the counterparts of ``repro.models.layers`` (``dense_init``,
 ``embed_init``, ``rms_norm``, ``init_rms``, ``init_mlp``/``mlp``,
-``rope_angles``, ``apply_rope``, ``lm_loss``).
+``rope_angles``, ``apply_rope``, ``mrope_angles``, ``text_mrope_positions``,
+``lm_loss``).
 
 Weights keep the reference's ``(in, out)`` layout and are applied as
 ``x @ w``, so a converted parameter is a copy and the tests compare like
@@ -96,14 +97,40 @@ class MLP(nn.Module):
 # ---------------------------------------------------------------------------
 # RoPE (rotate-half, as the reference's ``jnp.split`` into halves)
 # ---------------------------------------------------------------------------
+def _freqs(half: int, theta: float, device) -> torch.Tensor:
+    exponent = -torch.arange(0, half, dtype=torch.float32, device=device) / half
+    return torch.pow(torch.tensor(theta, dtype=torch.float32, device=device), exponent)
+
+
 def rope_angles(positions: torch.Tensor, head_dim: int, theta: float):
     """positions (..., S) → cos/sin (..., S, head_dim/2), float32."""
-    half = head_dim // 2
-    exponent = -torch.arange(0, half, dtype=torch.float32, device=positions.device) / half
-    freqs = torch.pow(torch.tensor(theta, dtype=torch.float32, device=positions.device),
-                      exponent)
-    ang = positions.float()[..., None] * freqs
+    ang = positions.float()[..., None] * _freqs(head_dim // 2, theta, positions.device)
     return torch.cos(ang), torch.sin(ang)
+
+
+def mrope_angles(positions_3d: torch.Tensor, head_dim: int, theta: float,
+                 sections: tuple[int, int, int]):
+    """Qwen2-VL's multimodal RoPE (arXiv:2409.12191): ``positions_3d`` (3, B,
+    S) temporal/height/width ids; ``sections`` give the head_dim/2
+    frequency bands to (t, h, w) in order and sum to head_dim // 2. Band j
+    takes its angle from the axis that owns it. → cos/sin (B, S, half)."""
+    half = head_dim // 2
+    if sum(sections) != half:
+        raise ValueError(f"mrope sections {sections} do not sum to {half}")
+    dev = positions_3d.device
+    ang_per_axis = positions_3d.float()[..., None] * _freqs(half, theta, dev)  # (3,B,S,half)
+    band = torch.cat([torch.full((s,), i, dtype=torch.int64, device=dev)
+                      for i, s in enumerate(sections)])
+    ang = ang_per_axis[band, :, :, torch.arange(half, device=dev)]             # (half,B,S)
+    ang = ang.permute(1, 2, 0)
+    return torch.cos(ang), torch.sin(ang)
+
+
+def text_mrope_positions(batch: int, seq: int, start: int = 0, device="cpu") -> torch.Tensor:
+    """For pure-text spans all three M-RoPE axes share the position id:
+    (3, batch, seq) int32."""
+    pos = torch.arange(seq, dtype=torch.int32, device=device)[None] + start
+    return pos.to(torch.int32).expand(batch, seq)[None].expand(3, batch, seq)
 
 
 def apply_rope(x: torch.Tensor, cos: torch.Tensor, sin: torch.Tensor) -> torch.Tensor:

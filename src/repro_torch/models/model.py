@@ -38,14 +38,14 @@ _SCALE = ".scale"
 
 class Model(nn.Module):
     """``embed`` ``(Vp, d)``, ``layers`` (prefix, then cycle by cycle),
-    ``final_norm`` and, unless embeddings are tied, ``lm_head`` ``(d,
-    Vp)``. ``init_model``'s keys: ``split(key, 6)`` — embed from [0], the
-    stack from [1], lm_head from [2]. ``device``: the GPU unless given
-    (``"cpu"``, or ``"meta"`` for shapes alone)."""
+    ``final_norm``, ``lm_head`` ``(d, Vp)`` unless embeddings are tied, and
+    for an encoder-decoder ``enc`` (:class:`~repro_torch.models.transformer
+    .Encoder`). ``init_model``'s keys: ``split(key, 6)`` — embed from [0],
+    the stack from [1], lm_head from [2], the encoder from [3]. ``device``:
+    the GPU unless given (``"cpu"``, or ``"meta"`` for shapes alone)."""
 
     def __init__(self, cfg: ModelConfig, key=None, device=None):
         super().__init__()
-        tf.check_supported(cfg)
         device = resolve_device(device)
         self.cfg = cfg
         dt = getattr(torch, cfg.dtype)
@@ -53,46 +53,55 @@ class Model(nn.Module):
         ks = prng.split(key, 6) if key is not None else (None,) * 6
         self.embed = frozen(embed_init(ks[0], Vp, d, dt, device) if key is not None else
                             torch.empty((Vp, d), dtype=dt, device=device))
-        keys = tf.layer_keys(ks[1], cfg) if key is not None else (None,) * cfg.num_layers
-        self.layers = nn.ModuleList(tf.Layer(k, cfg, device) for k in keys)
+        self.layers = tf.build_layers(ks[1], cfg, cfg.prefix_codes, cfg.cycle_codes,
+                                      cfg.resolved_num_cycles, device)
         self.final_norm = RMSNorm(d, cfg.norm_eps, dt, device)
         self.register_parameter(
             "lm_head", None if cfg.tie_embeddings else dense_param(ks[2], d, Vp, dt, device))
+        self.enc = tf.Encoder(ks[3], cfg, device) if cfg.encoder_layers else None
 
     @property
     def head(self) -> torch.Tensor:
         return self.embed.T if self.cfg.tie_embeddings else self.lm_head
 
     # ------------------------------------------------------ the reference's tree
+    def _norms(self) -> set:
+        """The names of the RMSNorm modules: the reference's tree holds each
+        one's scale under the module's own name (``layers.3.norm2`` ↔
+        ``…/norm2``). A mixer's raw ``norm`` array (sLSTM, mLSTM) is a
+        parameter, not a module, and keeps its name."""
+        return {n for n, m in self.named_modules() if isinstance(m, RMSNorm)}
+
     def param_tree(self, values: dict | None = None) -> dict:
         """The reference's parameter pytree of this model's parameters, or of
         ``values`` (parameter name → tensor, e.g. their gradients): ``embed``,
-        ``final_norm``, ``lm_head`` unless tied, and ``stack`` = ``{"prefix":
-        [a tree per prefix layer], "cycle": {str(j): the tree of cycle
-        position j, each leaf stacked over the cycles (a copy)} or None}``."""
+        ``final_norm``, ``lm_head`` unless tied, ``stack`` = ``{"prefix": [a
+        tree per prefix layer], "cycle": {str(j): the tree of cycle position
+        j, each leaf stacked over the cycles (a copy)} or None}``, and for an
+        encoder-decoder ``enc`` = ``{"stack": the same for the encoder,
+        "final_norm"}``."""
         values = dict(self.named_parameters()) if values is None else values
-        tree = {"embed": values["embed"], "final_norm": values["final_norm" + _SCALE]}
-        if self.lm_head is not None:
-            tree["lm_head"] = values["lm_head"]
-
-        def layer(i):
-            out: dict = {}
-            for name, _ in self.layers[i].named_parameters():
-                *path, leaf = name.removesuffix(_SCALE).split(".")
-                node = out
-                for part in path:
-                    node = node.setdefault(part, {})
-                node[leaf] = values[f"layers.{i}.{name}"]
-            return out
-
+        norms = self._norms()
+        nested: dict = {}
+        for name, v in values.items():
+            if name.endswith(_SCALE) and name[:-len(_SCALE)] in norms:
+                name = name[:-len(_SCALE)]
+            *path, leaf = name.split(".")
+            node = nested
+            for part in path:
+                node = node.setdefault(part, {})
+            node[leaf] = v
         cfg = self.cfg
-        P, n, C = len(cfg.prefix_codes), len(cfg.cycle_codes), cfg.resolved_num_cycles
-        cycle = None
-        if C:
-            cycle = {str(j): tree_map(lambda *ls: torch.stack(ls),
-                                      *[layer(P + c * n + j) for c in range(C)])
-                     for j in range(n)}
-        tree["stack"] = {"prefix": [layer(i) for i in range(P)], "cycle": cycle}
+        tree = {k: nested[k] for k in ("embed", "final_norm", "lm_head") if k in nested}
+        tree["stack"] = _stack_tree([nested["layers"][str(i)] for i in range(len(self.layers))],
+                                    len(cfg.prefix_codes), len(cfg.cycle_codes),
+                                    cfg.resolved_num_cycles)
+        if self.enc is not None:
+            enc = nested["enc"]
+            tree["enc"] = {"stack": _stack_tree([enc["layers"][str(i)]
+                                                 for i in range(cfg.encoder_layers)],
+                                                0, 1, cfg.encoder_layers),
+                           "final_norm": enc["final_norm"]}
         return tree
 
     def load_param_tree(self, tree: dict) -> "Model":
@@ -100,9 +109,17 @@ class Model(nn.Module):
         cast to the parameters' dtype and device) into the parameters.
         Raises ``ValueError`` if a parameter of either side has no
         counterpart or another shape. Returns the model."""
+        cfg = self.cfg
         flat = _flatten({k: tree[k] for k in ("embed", "final_norm", "lm_head") if k in tree})
-        for i, lt in enumerate(_layer_trees(tree, self.cfg)):
+        for i, lt in enumerate(_layer_trees(tree["stack"], cfg.resolved_num_cycles,
+                                            len(cfg.cycle_codes))):
             flat.update(_flatten(lt, f"layers.{i}."))
+        if "enc" in tree:
+            for i, lt in enumerate(_layer_trees(tree["enc"]["stack"], cfg.encoder_layers, 1)):
+                flat.update(_flatten(lt, f"enc.layers.{i}."))
+            flat.update(_flatten({"final_norm": tree["enc"]["final_norm"]}, "enc."))
+        norms = self._norms()
+        flat = {(k + _SCALE if k in norms else k): v for k, v in flat.items()}
         ours = dict(self.named_parameters())
         if set(flat) != set(ours):
             raise ValueError(f"parameters differ: only in the reference's tree "
@@ -119,21 +136,26 @@ class Model(nn.Module):
         return self
 
     # ------------------------------------------------------------ training
-    def forward_logits(self, batch: dict):
+    def forward_logits(self, batch: dict, routes: list | None = None):
         """(logits (B, S, Vp), aux loss, loss mask (B, S)):
         :func:`repro_torch.models.transformer.forward_logits`."""
-        return tf.forward_logits(self, batch)
+        return tf.forward_logits(self, batch, routes)
 
     def loss_fn(self, batch: dict) -> torch.Tensor:
-        """The next-token loss on ``{"tokens", "labels"}`` (B, S)."""
-        logits, _, mask = self.forward_logits(batch)
+        """The next-token loss on the batch's ``labels`` (B, S) (plus its
+        ``tokens`` and, by the model, ``patch_embeds`` or ``frames``), and
+        for an MoE model ``cfg.moe.aux_weight`` times the aux loss."""
+        logits, aux, mask = self.forward_logits(batch)
         labels = batch["labels"]
         S_lab = labels.shape[1]
-        # Logits cover the full sequence; labels cover the text positions:
-        # take the tail, then shift by one token.
+        # Logits cover the full (possibly frontend-extended) sequence;
+        # labels cover the text positions: take the tail, then shift.
         logits = logits[:, -S_lab:]
         mask = mask[:, -S_lab:]
-        return lm_loss(logits[:, :-1], labels[:, 1:], mask[:, 1:])
+        loss = lm_loss(logits[:, :-1], labels[:, 1:], mask[:, 1:])
+        if self.cfg.moe is not None:
+            loss = loss + self.cfg.moe.aux_weight * aux
+        return loss
 
     def make_train_step(self, optimizer: Optimizer, microbatches: int = 1):
         """Turn the parameters' gradients on and return ``train_step(opt_state,
@@ -181,35 +203,62 @@ class Model(nn.Module):
     def example_batch(self, shape: InputShape, key=None) -> dict:
         """Concrete inputs of ``shape``'s kind on the model's device, drawn as
         the reference's are (``randint`` from ``key``, default
-        ``PRNGKey(0)``; tokens and labels from the same key): ``train``
-        ``{"tokens", "labels"}`` (B, S); ``prefill`` ``{"tokens"}``; the
-        decode kinds ``{"token" (B, 1), "pos": S − 1}`` (an int, as
-        :meth:`decode_step` takes it)."""
+        ``PRNGKey(0)``; tokens and labels from the same key; frames and
+        patches zeros): ``train`` ``{"tokens", "labels"}`` (B, S), with
+        ``frames`` (B, S, d) and B × max(S // 4, 8) tokens for an
+        encoder-decoder, ``patch_embeds`` (B, P, d) and S − P tokens for
+        vision; ``prefill`` the same without labels; the decode kinds
+        ``{"token" (B, 1), "pos": S − 1}`` (an int, as :meth:`decode_step`
+        takes it)."""
+        cfg = self.cfg
         B, S = shape.global_batch, shape.seq_len
         key = key if key is not None else prng.PRNGKey(0)
-        V, dev = self.cfg.vocab_size, self.embed.device
+        V, dev = cfg.vocab_size, self.embed.device
+        dt = getattr(torch, cfg.dtype)
 
         def toks(shape_):
             return prng.randint(key, shape_, 0, V, dev)
 
-        if shape.kind == "train":
-            return {"tokens": toks((B, S)), "labels": toks((B, S))}
-        if shape.kind == "prefill":
-            return {"tokens": toks((B, S))}
+        def dense(shape_):
+            return torch.zeros(shape_, dtype=dt, device=dev)
+
+        if shape.kind in ("train", "prefill"):
+            labels = shape.kind == "train"
+            if cfg.encoder_layers:
+                S_dec = max(S // 4, 8)
+                out = {"frames": dense((B, S, cfg.d_model)), "tokens": toks((B, S_dec))}
+                S_lab = S_dec
+            elif cfg.frontend == "vision":
+                P = cfg.frontend_tokens
+                out = {"tokens": toks((B, S - P)), "patch_embeds": dense((B, P, cfg.d_model))}
+                S_lab = S - P
+            else:
+                out, S_lab = {"tokens": toks((B, S))}, S
+            if labels:
+                out["labels"] = toks((B, S_lab))
+            return out
         return {"token": toks((B, 1)), "pos": S - 1}
 
     # ------------------------------------------------------------- serving
-    def init_cache(self, batch: int, cache_len: int) -> list:
-        return tf.init_cache(self.cfg, batch, cache_len, self.embed.device)
+    def init_cache(self, batch: int, cache_len: int, enc_len: int | None = None) -> list:
+        return tf.init_cache(self.cfg, batch, cache_len, enc_len, self.embed.device)
 
     def decode_step(self, cache: list, token: torch.Tensor, pos: int, *,
-                    swa_kernel: bool = True):
+                    swa_kernel: bool = True, routes: list | None = None):
         """token (B, 1) int on the model's device; ``pos`` a Python int.
         Returns (logits (B, 1, Vp), cache), the cache updated in place.
         ``swa_kernel=False`` runs full rings through the plain masked
-        attention instead of K7. No gradient is taken, trainable or not."""
+        attention instead of K7; ``routes`` (a list) gets each MoE layer's
+        routes. No gradient is taken, trainable or not."""
         with torch.no_grad():
-            return tf.decode_step(self, cache, token, pos, swa_kernel=swa_kernel)
+            return tf.decode_step(self, cache, token, pos, swa_kernel=swa_kernel,
+                                  routes=routes)
+
+    def prefill_encoder(self, frames: torch.Tensor, cache: list) -> list:
+        """An encoder-decoder's encoder on ``frames`` (B, Se, d), its cross
+        K/V put into the cache of every ``C`` layer (no gradient)."""
+        with torch.no_grad():
+            return tf.prefill_encoder(self, frames, cache)
 
     def decode_cache_len(self, shape: InputShape) -> int:
         cfg = self.cfg
@@ -218,26 +267,35 @@ class Model(nn.Module):
         return shape.seq_len
 
 
-def _layer_trees(tree: dict, cfg: ModelConfig) -> list:
-    """The reference's per-layer parameter trees in layer order: prefix
-    layers, then cycle c's position j (``[c]`` of the stacked cycle leaves)
-    at ``len(prefix) + c·len(cycle_codes) + j``."""
-    stack = tree["stack"]
+def _stack_tree(layers: list, n_prefix: int, n_cycle: int, n_cycles: int) -> dict:
+    """Per-layer trees in layer order → ``{"prefix": [...], "cycle": {str(j):
+    position j's leaves stacked over the cycles} or None}``."""
+    cycle = None
+    if n_cycles:
+        cycle = {str(j): tree_map(lambda *ls: torch.stack(ls),
+                                  *[layers[n_prefix + c * n_cycle + j] for c in range(n_cycles)])
+                 for j in range(n_cycle)}
+    return {"prefix": layers[:n_prefix], "cycle": cycle}
+
+
+def _layer_trees(stack: dict, n_cycles: int, n_cycle: int) -> list:
+    """The reference's per-layer parameter trees of a ``stack`` in layer
+    order: prefix layers, then cycle c's position j (``[c]`` of the stacked
+    cycle leaves) at ``len(prefix) + c·n_cycle + j``."""
     layers = list(stack["prefix"])
     if stack["cycle"] is not None:
-        for c in range(cfg.resolved_num_cycles):
-            for j in range(len(cfg.cycle_codes)):
+        for c in range(n_cycles):
+            for j in range(n_cycle):
                 layers.append(tree_map(lambda a, c=c: a[c], stack["cycle"][str(j)]))
     return layers
 
 
 def _flatten(tree: dict, prefix: str = "") -> dict:
-    """A reference tree → ``{port parameter name: leaf}``."""
+    """A reference tree → ``{dotted path: leaf}``."""
     out = {}
     for k, v in tree.items():
-        name = f"{prefix}{k}"
         if isinstance(v, dict):
-            out.update(_flatten(v, name + "."))
+            out.update(_flatten(v, f"{prefix}{k}."))
         else:
-            out[name + _SCALE if k in ("norm", "norm2", "final_norm") else name] = v
+            out[f"{prefix}{k}"] = v
     return out

@@ -1,0 +1,127 @@
+"""Mixture-of-Experts FFN with GShard-style capacity dispatch — the
+counterpart of ``repro.models.moe`` (``init_moe``, ``moe_forward``: :class:`MoE`).
+
+Used by qwen3-moe (128 experts, top 8), deepseek-v2-lite (64 routed, top
+6, 2 shared) and jamba (16, top 2). The reference's fixed-shape dispatch:
+a float32 router, softmax, top-k renormalised, the Switch aux loss, each
+assignment's position in its expert by a cumulative sum in token-major
+order, assignments past ``capacity`` dropped, the kept ones copied into
+``(G, E, C, d)`` buffers, every expert's SwiGLU on its buffer, and each
+token's k outputs weighted and summed.
+
+Integer routing is reproduced exactly: ``top_k`` is a stable descending
+sort (``jax.lax.top_k`` puts the lower index first among equal
+probabilities; ``torch.topk`` does not promise an order), positions are an
+integer cumsum. No float atomics: every kept assignment owns its (expert,
+slot); a dropped one goes to a slot of its own past the buffer (the
+reference adds its zero contribution into the clipped slot, which changes
+nothing), and the combine adds a token's k contributions in k order.
+"""
+
+from __future__ import annotations
+
+import torch
+from torch import nn
+
+from repro_torch import prng
+from repro_torch.models.layers import MLP, dense_param, frozen
+
+
+class MoE(nn.Module):
+    """``init_moe``'s parameters from ``split(key, 5)``: ``router`` ``(d, E)``
+    float32 from [0]; ``gate``, ``up`` ``(E, d, f)`` and ``down`` ``(E, f,
+    d)`` as ``0.02·normal`` from [1], [2], [3]; with shared experts
+    ``shared``, an MLP of width ``(d_ff_shared or f)·num_shared`` from [4].
+    ``key`` None leaves them uninitialised."""
+
+    def __init__(self, key, d_model: int, d_ff_expert: int, num_experts: int, top_k: int,
+                 dtype, num_shared: int = 0, d_ff_shared: int | None = None, device="cpu"):
+        super().__init__()
+        self.num_experts, self.top_k = num_experts, top_k
+        ks = prng.split(key, 5) if key is not None else (None,) * 5
+        E, d, f = num_experts, d_model, d_ff_expert
+        self.router = dense_param(ks[0], d, E, torch.float32, device)
+        for name, k, shape in (("gate", ks[1], (E, d, f)), ("up", ks[2], (E, d, f)),
+                               ("down", ks[3], (E, f, d))):
+            w = ((prng.normal(k, shape, device) * 0.02).to(dtype) if k is not None else
+                 torch.empty(shape, dtype=dtype, device=device))
+            setattr(self, name, frozen(w))
+        self.shared = (MLP(ks[4], d, (d_ff_shared or d_ff_expert) * num_shared, dtype, device)
+                       if num_shared else None)
+
+    def forward(self, x: torch.Tensor, capacity_factor: float = 1.25,
+                groups: int | None = None, routes: list | None = None):
+        """``moe_forward``: x (B, S, d) → (out (B, S, d), aux loss).
+        ``groups``: the reference's dispatch groups (None → 1, as the
+        reference without a mesh); the tokens split into G groups when N % G
+        == 0 and N >= G. ``routes``, if a list, gets each call's ``top_idx``
+        and ``keep`` (integer outputs the tests and the card's checks
+        compare)."""
+        B, S, d = x.shape
+        N = B * S
+        E, k = self.num_experts, self.top_k
+        groups = 1 if groups is None else groups
+        G = groups if N % groups == 0 and N >= groups else 1
+        Ng = N // G
+        xt = x.reshape(G, Ng, d)
+        r = route(self.router, xt, E, k, capacity_factor)
+        if routes is not None:
+            routes.append({"top_idx": r["top_idx"], "keep": r["keep"]})
+        C, keep, flat_e, pos = r["capacity"], r["keep"], r["flat_e"], r["pos"]
+        Nk = Ng * k
+        dev = x.device
+        tok = torch.arange(Ng, device=dev).repeat_interleave(k)            # (Nk,)
+        # dispatch: kept assignment → row e·C + pos of (E·C + Nk) rows; a
+        # dropped one → its own row E·C + a past the buffers
+        dest = torch.where(keep, flat_e * C + pos,
+                           E * C + torch.arange(Nk, device=dev)[None])      # (G, Nk)
+        g_idx = torch.arange(G, device=dev)[:, None].expand(G, Nk)
+        buf = x.new_zeros((G, E * C + Nk, d)).index_put((g_idx, dest), xt[:, tok])
+        buf = buf[:, :E * C].reshape(G, E, C, d)
+        h = (torch.nn.functional.silu(torch.einsum("gecd,edf->gecf", buf, self.gate))
+             * torch.einsum("gecd,edf->gecf", buf, self.up))
+        out_buf = torch.einsum("gecf,efd->gecd", h, self.down).reshape(G, E * C, d)
+        # combine: each assignment's output (a zero row for a dropped one)
+        # times its weight, a token's k of them added in k order
+        out_buf = torch.cat([out_buf, out_buf.new_zeros((G, 1, d))], dim=1)
+        src = torch.where(keep, flat_e * C + pos, torch.full_like(pos, E * C))
+        vals = out_buf[g_idx, src]                                         # (G, Nk, d)
+        w = (r["top_vals"].reshape(G, Nk).float() * keep.float()).to(x.dtype)
+        contrib = (vals * w[..., None]).reshape(G, Ng, k, d)
+        combined = contrib[:, :, 0]
+        for j in range(1, k):
+            combined = combined + contrib[:, :, j]
+        if self.shared is not None:
+            combined = combined + self.shared(xt)
+        return combined.reshape(B, S, d), r["aux"]
+
+
+def top_k(probs: torch.Tensor, k: int):
+    """``jax.lax.top_k`` over the last axis: the k largest, the lower index
+    first among equal values."""
+    vals, idx = torch.sort(probs, dim=-1, descending=True, stable=True)
+    return vals[..., :k], idx[..., :k]
+
+
+def route(router: torch.Tensor, xt: torch.Tensor, num_experts: int, k: int,
+          capacity_factor: float) -> dict:
+    """The reference's routing on ``xt`` (G, Ng, d): ``probs`` (G, Ng, E),
+    ``top_vals``/``top_idx`` (G, Ng, k) renormalised, the Switch ``aux``
+    loss, ``capacity``, and per assignment (G, Ng·k, token-major) its
+    expert ``flat_e``, position ``pos`` and ``keep`` (pos < capacity)."""
+    G, Ng, _ = xt.shape
+    E = num_experts
+    logits = xt.float() @ router
+    probs = torch.softmax(logits, dim=-1)
+    top_vals, top_idx = top_k(probs, k)
+    top_vals = top_vals / top_vals.sum(-1, keepdim=True)
+    me = probs.mean(dim=(0, 1))
+    one_hot_k = torch.nn.functional.one_hot(top_idx, E).float()            # (G,Ng,k,E)
+    ce = one_hot_k.sum(2).mean(dim=(0, 1))
+    aux = E * (me * ce).sum()
+    capacity = int(max(1, round(capacity_factor * Ng * k / E)))
+    flat_e = top_idx.reshape(G, Ng * k)
+    one_hot_e = torch.nn.functional.one_hot(flat_e, E)                     # int64
+    pos = ((one_hot_e.cumsum(1) - 1) * one_hot_e).sum(-1)                  # (G, Nk)
+    return {"probs": probs, "top_vals": top_vals, "top_idx": top_idx, "aux": aux,
+            "capacity": capacity, "flat_e": flat_e, "pos": pos, "keep": pos < capacity}

@@ -150,15 +150,22 @@ def key_tensor(keys, device=None) -> torch.Tensor:
     return t & _MASK
 
 
-def random_bits(key, shape: tuple[int, ...], device="cpu") -> torch.Tensor:
+def random_bits(key, shape: tuple[int, ...], device="cpu", *, start: int = 0,
+                stop: int | None = None) -> torch.Tensor:
     """``jax.random.bits(key, shape, uint32)`` as an int64 tensor of
     values in ``[0, 2**32)``. A numpy ``(2,)`` key draws on ``device``;
     a ``(..., 2)`` key tensor draws ``(..., *shape)`` on its own device,
-    each key's bits those of the single-key call."""
+    each key's bits those of the single-key call. With ``start``/``stop``
+    only the flat elements ``[start, stop)`` are drawn (a 1-D tensor per
+    key), bitwise that slice of the whole draw."""
     k = key_tensor(key) if isinstance(key, torch.Tensor) else key_tensor(key, device)
-    idx = torch.arange(math.prod(shape), dtype=torch.int64, device=k.device)
+    n = math.prod(shape)
+    whole = start == 0 and stop is None
+    idx = torch.arange(start, n if stop is None else stop, dtype=torch.int64,
+                       device=k.device)
     b1, b2 = _threefry2x32_torch(k[..., 0:1], k[..., 1:2], idx >> 32, idx & _MASK)
-    return b1.bitwise_xor_(b2).reshape(*k.shape[:-1], *shape)
+    bits = b1.bitwise_xor_(b2)
+    return bits.reshape(*k.shape[:-1], *shape) if whole else bits
 
 
 _I32_MIN, _I32_MAX = -(2**31), 2**31 - 1
@@ -200,7 +207,8 @@ def randint(key, shape: tuple[int, ...], minval: int, maxval: int,
 
 
 def uniform(key, shape: tuple[int, ...], minval: float = 0.0,
-            maxval: float = 1.0, device="cpu") -> torch.Tensor:
+            maxval: float = 1.0, device="cpu", *, start: int = 0,
+            stop: int | None = None) -> torch.Tensor:
     """``jax.random.uniform(key, shape, float32, minval, maxval)``: 23
     random mantissa bits under exponent 0, then ``f·(max−min) + min``.
 
@@ -209,8 +217,9 @@ def uniform(key, shape: tuple[int, ...], minval: float = 0.0,
     float32: the product of two float32 values is exact in float64, and
     the sum is exact too whenever ``|minval|`` is within 2**6 of
     ``maxval − minval`` (every use in this package), so the result is
-    the FMA's, bit for bit."""
-    bits = random_bits(key, shape, device)
+    the FMA's, bit for bit. ``start``/``stop`` draw a flat slice, as
+    :func:`random_bits` does."""
+    bits = random_bits(key, shape, device, start=start, stop=stop)
     one_bits = int(np.array(1.0, np.float32).view(np.uint32))
     f = ((bits >> 9) | one_bits).to(torch.int32).view(torch.float32) - 1.0
     lo = np.float32(minval)
@@ -221,12 +230,26 @@ def uniform(key, shape: tuple[int, ...], minval: float = 0.0,
     return torch.clamp_min(out, float(lo))
 
 
+#: Elements a single-key ``normal`` draws at a time: its int64 temporaries
+#: stay near 1 GiB however large the leaf (a full-width expert stack is
+#: 184.5 M floats).
+NORMAL_CHUNK = 1 << 25
+
+
 def normal(key, shape: tuple[int, ...], device="cpu") -> torch.Tensor:
     """``jax.random.normal(key, shape, float32)``: ``sqrt(2)·erfinv(u)``
     with ``u`` uniform on ``(nextafter(-1, 0), 1)``. The uniforms are
     bit-exact; ``erfinv`` is torch's, which differs from XLA's
-    polynomial in the last few ulps."""
-    lo = np.nextafter(np.float32(-1.0), np.float32(0.0), dtype=np.float32)
-    u = uniform(key, shape, float(lo), 1.0, device)
-    return torch.erfinv(u) * torch.tensor(np.float32(np.sqrt(2)),
-                                          dtype=torch.float32, device=device)
+    polynomial in the last few ulps. A single key draws in slices of
+    :data:`NORMAL_CHUNK` elements into one output (elementwise, so the
+    same values)."""
+    lo = float(np.nextafter(np.float32(-1.0), np.float32(0.0), dtype=np.float32))
+    sqrt2 = torch.tensor(np.float32(np.sqrt(2)), dtype=torch.float32, device=device)
+    n = math.prod(shape)
+    if isinstance(key, torch.Tensor) or n <= NORMAL_CHUNK:
+        return torch.erfinv(uniform(key, shape, lo, 1.0, device)) * sqrt2
+    out = torch.empty(n, dtype=torch.float32, device=device)
+    for a in range(0, n, NORMAL_CHUNK):
+        b = min(a + NORMAL_CHUNK, n)
+        out[a:b] = torch.erfinv(uniform(key, shape, lo, 1.0, device, start=a, stop=b)) * sqrt2
+    return out.reshape(shape)

@@ -975,3 +975,62 @@ def test_lm_train_step_on_the_card_matches_the_cpu_and_repeats(device, arch):
     assert a[0] == b[0]
     for path in a[2]:
         assert np.array_equal(a[1][path], b[1][path]) and np.array_equal(a[2][path], b[2][path])
+
+
+ZOO_ARCHS = ("qwen3-moe-30b-a3b", "deepseek-v2-lite-16b", "jamba-1.5-large-398b",
+             "xlstm-1.3b", "qwen2-vl-7b", "seamless-m4t-large-v2")
+
+
+@pytest.mark.parametrize("arch", ZOO_ARCHS)
+def test_zoo_train_step_on_the_card_matches_the_cpu_and_repeats(device, arch):
+    """The slice-14 archs (reduced) from one converted init, with their
+    patch embeddings or frames: one step's loss within rtol 1e-5 of the
+    CPU's and each gradient within 1e-3 of its largest |g|; with SGD the
+    parameters after the step within 1e-5 (xlstm-1.3b 2e-4: its
+    recurrences grow a last-ulp difference), scaled by max(1, max |p|);
+    a step with ``cfg.train_optimizer`` run twice on the card bitwise (the
+    MoE dispatch and combine take no float atomics)."""
+    from repro_torch import convert
+    from repro_torch.configs import get_config
+    from repro_torch.models import Model
+    from repro_torch.optim import get_optimizer
+    from repro_torch.tree import tree_paths
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = get_config(arch).reduced()
+    init = convert.to_jax_model_params(Model(cfg, prng.PRNGKey(0), device="cpu"))
+    rng = np.random.default_rng(0)
+    np_b = {"tokens": rng.integers(0, cfg.vocab_size, (2, 24), dtype=np.int32)}
+    np_b["labels"] = np_b["tokens"]
+    if cfg.frontend == "vision":
+        np_b["patch_embeds"] = rng.standard_normal((2, cfg.frontend_tokens, cfg.d_model),
+                                                   dtype=np.float32)
+    if cfg.encoder_layers:
+        np_b["frames"] = rng.standard_normal((2, 24, cfg.d_model), dtype=np.float32)
+
+    def run(dev, opt):
+        model = convert.from_jax_model_params(cfg, init, device=dev)
+        batch = {k: torch.from_numpy(v).to(dev) for k, v in np_b.items()}
+        names, params = zip(*model.named_parameters())
+        model.requires_grad_(True)
+        grads = torch.autograd.grad(model.loss_fn(batch), params)
+        grads = tree_paths(convert.to_jax_opt_state(model.param_tree(dict(zip(names, grads)))))
+        with torch.no_grad():
+            state = opt.init(model.param_tree())
+        _, loss = model.make_train_step(opt)(state, batch, 0)
+        return float(loss), grads, tree_paths(convert.to_jax_model_params(model))
+
+    tol = 2e-4 if arch == "xlstm-1.3b" else 1e-5
+    sgd = get_optimizer("sgd", lr=0.1)
+    card, cpu = run(device, sgd), run("cpu", sgd)
+    np.testing.assert_allclose(card[0], cpu[0], rtol=1e-5)
+    for path, g in cpu[1].items():
+        assert np.abs(card[1][path] - g).max() <= 1e-3 * np.abs(g).max(), path
+        scale = max(1.0, float(np.abs(cpu[2][path]).max()))
+        np.testing.assert_allclose(card[2][path], cpu[2][path], rtol=0, atol=tol * scale,
+                                   err_msg=path)
+    opt = get_optimizer(cfg.train_optimizer, lr=3e-3)
+    a, b = run(device, opt), run(device, opt)
+    assert a[0] == b[0]
+    for path in a[2]:
+        assert np.array_equal(a[1][path], b[1][path]) and np.array_equal(a[2][path], b[2][path])

@@ -55,7 +55,8 @@ def test_port_has_the_slice_modules():
               "repro_torch.analysis.contracts", "repro_torch.analysis.lint_rules",
               "repro_torch.analysis.__main__", "repro_torch.core", "repro_torch.core.async_trainer",
               "repro_torch.optim", "repro_torch.optim.optimizers", "repro_torch.tree",
-              "repro_torch.launch.train", "repro_torch.examples.async_embeddings_for_llm"):
+              "repro_torch.launch.train", "repro_torch.examples.async_embeddings_for_llm",
+              "repro_torch.models.moe", "repro_torch.models.ssm"):
         assert m in mods
 
 
@@ -144,6 +145,9 @@ def test_constructors_and_the_slice_entry_points_refuse_the_cpu_by_default(monke
         lambda: init_params(prng.PRNGKey(0), cfg),
         lambda: Model(llm, prng.PRNGKey(0)),
         lambda: init_cache(llm, 1, 4),
+        lambda: Model(configs.get_config("deepseek-v2-lite-16b").reduced(), prng.PRNGKey(0)),
+        lambda: init_cache(configs.get_config("seamless-m4t-large-v2").reduced(), 1, 4,
+                           enc_len=2),
         lambda: make_sync_epoch(cfg, table, 4),
         lambda: make_periodic_sync_epoch(cfg, table, 4, sync_every=2),
         lambda: train_sync_baseline(corpus, 50, SGNSConfig(vocab_size=0, dim=8), epochs=1),

@@ -29,6 +29,10 @@
   forward's and gradients' sums in another order), and each package
   resuming the other's checkpoint: both resumes from one checkpoint give
   the same losses (rtol 1e-5) and write the same ``.npz`` keys;
+* the LLM CLIs on an MoE (qwen3-moe-30b-a3b), an SSM (xlstm-1.3b) and the
+  encoder-decoder (seamless-m4t-large-v2), reduced: ``decode_llm`` prints
+  the reference CLI's first sequence; ``train`` (3 steps) its final and
+  first losses within their printed digit (and xlstm's AdamW rtol);
 * ``examples/async_embeddings_for_llm.py``: ``make_lm_batches`` bitwise and
   3 steps of ``train_lm`` from the reference's parameters against the
   reference's losses (rtol 1e-5). The whole example is not run here (the
@@ -444,3 +448,50 @@ def test_llm_example_batches_and_train_lm_match_the_reference():
                                           jax.tree.map(np.asarray, params))
     ours = ex.train_lm(model, corpus, steps=3)
     np.testing.assert_allclose(ours, ref.train_lm(jcfg, params, jcorpus, steps=3), rtol=1e-5)
+
+
+# ---------------------------------------------------------------------------
+# The LLM CLIs on the archs of slice 14: an MoE, an SSM, the encoder-decoder
+# ---------------------------------------------------------------------------
+ZOO_CLI_ARCHS = ("qwen3-moe-30b-a3b", "xlstm-1.3b", "seamless-m4t-large-v2")
+
+
+@pytest.mark.usefixtures("one_torch_thread")
+@pytest.mark.parametrize("arch", ZOO_CLI_ARCHS)
+def test_decode_llm_cli_prints_the_reference_tokens(arch):
+    """``python -m repro_torch.launch.decode_llm --arch A --reduced`` at the
+    reference CLI's defaults (batch 4, prompt 16, 32 new tokens): the same
+    shape line and the same first sequence (greedy tokens from the same
+    seed; the encoder-decoder's zero frames encoded first)."""
+    from repro.launch import decode_llm as jdecode
+    from repro_torch.launch import decode_llm as tdecode
+
+    ours = _run(tdecode.main, ["--arch", arch, "--reduced", "--device", "cpu"]).splitlines()
+    ref = _run(jdecode.main, ["--arch", arch, "--reduced"]).splitlines()
+    assert ours[0].startswith("generated (4, 32) tokens;")
+    assert ref[0].startswith("generated (4, 32) tokens;")
+    assert ours[1] == ref[1] and ours[1].startswith("first sequence: [")
+
+
+def _final_losses(text: str):
+    line = [ln for ln in text.splitlines() if ln.startswith("final loss")][-1]
+    final, first = line.removeprefix("final loss ").split(" (first ")
+    return float(final), float(first.rstrip(")"))
+
+
+@pytest.mark.usefixtures("one_torch_thread")
+@pytest.mark.parametrize("arch", ZOO_CLI_ARCHS)
+def test_train_cli_prints_the_reference_losses(arch):
+    """``python -m repro_torch.launch.train --arch A --reduced`` for 3 steps
+    of 2 × 16 tokens (the encoder-decoder with 16 zero frames): each
+    package from its own init (the same keys; ``normal`` differs in the
+    last ulps), so the printed 4-decimal losses agree within one unit of
+    their last digit, plus the launcher steps' rtol of
+    ``test_torch_arch_zoo.py`` (xlstm-1.3b's AdamW steps 1e-4: measured
+    3.1e-5 here)."""
+    from test_torch_arch_zoo import STEP_RTOL
+
+    argv = ["--arch", arch, "--reduced", "--steps", "3", "--batch", "2", "--seq", "16"]
+    ours = _final_losses(_run(tlm.main, argv + ["--device", "cpu"]))
+    ref = _final_losses(_run(jlm.main, argv))
+    np.testing.assert_allclose(ours, ref, rtol=STEP_RTOL.get(arch, 1e-5), atol=1e-4 + 1e-9)
