@@ -13,6 +13,7 @@
     python3 chip_smoke.py --phases build,dryrun,budget
     python3 chip_smoke.py --phases build,lm_train
     python3 chip_smoke.py --phases build,archs
+    python3 chip_smoke.py --phases build,sharding
 
 Phases:
 
@@ -242,6 +243,23 @@ Phases:
    in the output directory). None of the eight kernels launches (no arch
    here has a window). Independent of the other phases.
 
+19. ``sharding`` — the LLM sharding layer. ``launch.train.train`` on
+   smollm-360m at full width with ``lm_train``'s settings for 4 steps of 8
+   × 1,024 tokens, without a mesh and on ``make_smoke_mesh()`` (a 1 × 1
+   mesh, an NCCL group of one; parameters and AdamW state as DTensors):
+   the losses bitwise (else within rtol 1e-5). Then one step on the mesh
+   timed, one under ``torch.profiler`` (``with_flops``) and one counted by
+   ``launch.op_cost``: the matmul flops within 1 % of the profiler's, the
+   step no faster than the float32 roofline's largest term, the counted
+   peak bytes within ±20 % of ``torch.cuda.max_memory_allocated`` (less
+   what the process held before the step beyond its inputs), and
+   op_cost's bytes beside the profiler's device time by op group. Meanwhile
+   ``python -m repro_torch.launch.dryrun`` traces llama3-8b × ``train_4k``
+   on 16 × 16 and deepseek-v2-lite-16b × ``decode_32k`` on 2 × 16 × 16,
+   each in a process of its own (a fake group): both must trace; their rows
+   (GB a rank against 80, flops, bytes, collectives by kind, the dominant
+   term) are printed. None of the eight kernels launches.
+
 Each phase's wall is printed as it ends. It prints a ``{"kernels": [...]}``
 JSON line, then the card's name and power
 limit as ``nvidia-smi`` reports them, then ``{"ok": true, ...}`` last. Any
@@ -302,7 +320,7 @@ DECODE_LOGITS_TOL = 2e-3
 
 PHASES = ("build", "k1", "k2", "main", "multiproc", "sync", "merge", "serve", "cli", "random",
           "hbm", "pipe", "elastic", "contracts", "dryrun", "budget", "time", "profile",
-          "decode", "lm_train", "archs")
+          "decode", "lm_train", "archs", "sharding")
 REPLACES = {
     "sample_negatives": "src/repro/kernels/sgns_fused.py:197",
     "sgns_fused_step": "src/repro/kernels/sgns_fused.py:105",
@@ -378,6 +396,24 @@ ZOO_MAMBA_SEQ, ZOO_MAMBA_DECODE, ZOO_PROFILE_STEPS = 1024, 8, 8
 # the CPU tests' tolerances of the reduced archs (xlstm's recurrences grow
 # a last-ulp difference: tests/test_torch_arch_zoo.py)
 ZOO_ATOL = {"xlstm-1.3b": 2e-4}
+# The sharding phase: the smoke mesh (1 x 1, a group of one on the card) with
+# lm_train's settings for 4 steps, the mesh-less run's losses held to it; one
+# step's op_cost against the profiler (matmul flops) and the allocator (peak
+# bytes); the dry run's two cases, each a process of its own (a fake group).
+SHARD_TRAIN = dict(arch="smollm-360m", steps=4, batch=8, seq=1024, lr=3e-4)
+SHARD_FLOPS_RTOL, SHARD_PEAK_TOL = 0.01, 0.20
+SHARD_DRYRUNS = (("llama3-8b", "train_4k", False), ("deepseek-v2-lite-16b", "decode_32k", True))
+SHARD_DRYRUN_TIMEOUT_S = 600
+SHARD_MATMULS = ("aten::mm", "aten::addmm", "aten::bmm", "aten::baddbmm")
+SHARD_OP_GROUPS = (("matmuls", ("mm", "addmm", "bmm", "baddbmm")),
+                   ("copies", ("copy_", "_to_copy", "clone", "cat", "stack", "zeros_like",
+                               "fill_", "zero_")),
+                   ("indexing", ("embedding", "embedding_dense_backward", "index", "gather",
+                                 "scatter", "index_put", "index_put_", "slice_backward",
+                                 "select_backward")),
+                   ("reductions", ("sum", "mean", "logsumexp", "_log_softmax", "_softmax",
+                                   "amax", "_softmax_backward_data",
+                                   "_log_softmax_backward_data")))
 CLI_SENTENCES = 60_000
 EXAMPLES = (
     ("quickstart", [], ("trained 4 async sub-models", "alir_pca   similarity")),
@@ -1564,6 +1600,222 @@ def phase_lm_train(device) -> dict:
             "idle_share": summary["idle_share"], "repeat_bitwise": culprit is None,
             "culprit": culprit, "ckpt_bytes": ckpt_bytes, "loss_rel": loss_rel,
             "grad_rel": grad_rel, "example_launches": ex_launches}
+
+
+# ---------------------------------------------------------------------------
+# The LLM sharding layer: the smoke mesh on the card, the cost model against
+# the profiler and the allocator, the dry run on simulated meshes.
+# ---------------------------------------------------------------------------
+def _op_group(name: str) -> str:
+    name = name.split("::")[-1]
+    return next((g for g, names in SHARD_OP_GROUPS if name in names), "elementwise and other")
+
+
+def _leaf_matmul_flops(prof) -> float:
+    """The profiler's flops of the matmul-class events that ran a kernel on
+    the device and have no matmul-class event below them. DTensor's own
+    call of an op and the local op it dispatches are two events (the local
+    one is the work); and an op that remat's recompute stops before it
+    runs (torch's checkpoint ends its recompute at the last saved tensor)
+    is an event with flops but no kernel."""
+    def has_mm_child(e):
+        return any(c.name in SHARD_MATMULS or has_mm_child(c) for c in e.cpu_children)
+
+    def device_us(e):
+        return getattr(e, "device_time_total", None) or getattr(e, "cuda_time_total", 0)
+
+    return float(sum(e.flops or 0 for e in prof.events()
+                     if e.name in SHARD_MATMULS and device_us(e) > 0 and not has_mm_child(e)))
+
+
+def _start_dryruns(out: Path) -> list:
+    """``python -m repro_torch.launch.dryrun`` on each of SHARD_DRYRUNS, each
+    a process of its own (its fake group), all started at once: they trace
+    on the host while the card trains."""
+    import os
+
+    env = {**os.environ, "PYTHONPATH": str(ROOT / "src"), "OMP_NUM_THREADS": "2"}
+    procs = []
+    for arch, shape, multi_pod in SHARD_DRYRUNS:
+        tag = f"{arch}_{shape}{'_multipod' if multi_pod else ''}"
+        js, log_path = out / f"{tag}.json", out / f"{tag}.log"
+        js.unlink(missing_ok=True)
+        argv = [sys.executable, "-m", "repro_torch.launch.dryrun", "--arch", arch,
+                "--shape", shape, "--json", str(js)] + (["--multi-pod"] if multi_pod else [])
+        f = open(log_path, "w")
+        procs.append((tag, js, log_path, f, time.perf_counter(),
+                      subprocess.Popen(argv, stdout=f, stderr=subprocess.STDOUT, env=env,
+                                       cwd=str(ROOT))))
+    return procs
+
+
+def _finish_dryruns(procs) -> dict:
+    rows = {}
+    for tag, js, log_path, f, t0, p in procs:
+        try:
+            rc = p.wait(timeout=max(1.0, SHARD_DRYRUN_TIMEOUT_S - (time.perf_counter() - t0)))
+        except subprocess.TimeoutExpired:
+            p.kill()
+            p.wait()
+            rc = "timeout"
+        f.close()
+        wall = time.perf_counter() - t0
+        text = log_path.read_text()
+        log(f"[sharding] dry run {tag}: exit {rc}, {wall:.1f} s; its output:")
+        for line in text.splitlines():
+            if not line.startswith("[rank0]:W"):
+                log(f"[sharding]   | {line}")
+        if rc != 0:
+            raise RuntimeError(f"the dry run {tag} failed (exit {rc})")
+        row = json.loads(js.read_text())[0]
+        if "compute_s" not in row:
+            raise RuntimeError(f"the dry run {tag} made no roofline row: {row}")
+        rows[tag] = {**row, "wall_s": wall}
+    return rows
+
+
+def phase_sharding(device) -> dict:
+    """The LLM sharding layer (see the module doc, phase 19)."""
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.kernels import sgns_fused
+    from repro_torch.launch import op_cost
+    from repro_torch.launch import roofline as rl
+    from repro_torch.launch.mesh import make_smoke_mesh
+    from repro_torch.launch.train import synthetic_lm_batches, train
+    from repro_torch.optim import get_optimizer
+    from repro_torch.sharding import ctx as shctx
+    from repro_torch.sharding.rules import tree_data_specs, with_sharding
+
+    out = ROOT / "build" / "chip_smoke_sharding"
+    out.mkdir(parents=True, exist_ok=True)
+    procs = _start_dryruns(out)
+    try:
+        arch, steps, B, S = (SHARD_TRAIN[k] for k in ("arch", "steps", "batch", "seq"))
+        kw = dict(reduced=False, steps=steps, batch=B, seq=S, lr=SHARD_TRAIN["lr"],
+                  ckpt_dir=None, ckpt_every=10 ** 9, device=device)
+        gpu = nvidia_smi_line()
+
+        # 1. the smoke mesh: the same run with and without it
+        sgns_fused.reset_launch_counts()
+        t0 = time.perf_counter()
+        model, plain, opt_state = train(arch, **kw)
+        plain_s = time.perf_counter() - t0
+        del model, opt_state
+        torch.cuda.empty_cache()
+        mesh = make_smoke_mesh(device)
+        t0 = time.perf_counter()
+        model, sharded, opt_state = train(arch, mesh=mesh, **kw)
+        mesh_s = time.perf_counter() - t0
+        bitwise = sharded == plain
+        log(f"[sharding] {arch} at full width, {steps} steps of {B} x {S} tokens: without a "
+            f"mesh {plain} ({plain_s:.1f} s); on the 1 x 1 smoke mesh (DTensor parameters "
+            f"and AdamW state, NCCL group of one) {sharded} ({mesh_s:.1f} s); bitwise {bitwise}")
+        if not bitwise:
+            np.testing.assert_allclose(sharded, plain, rtol=LM_LOSS_RTOL)
+        placements = {str(p.placements) for p in model.parameters()}
+        log(f"[sharding] parameter placements on the smoke mesh: {sorted(placements)}")
+
+        # 2. one step against the profiler, the allocator and the roofline
+        cfg = model.cfg
+        step_fn = model.make_train_step(get_optimizer(cfg.train_optimizer,
+                                                      lr=SHARD_TRAIN["lr"]))
+        batches = []
+        for t in synthetic_lm_batches(cfg.vocab_size, B, S, 4):
+            b = {"tokens": torch.from_numpy(t).to(device)}
+            b["labels"] = b["tokens"]
+            batches.append(with_sharding(b, tree_data_specs(b, mesh), mesh))
+
+        def one_step(i, mode=None):
+            nonlocal opt_state
+            with shctx.use_mesh_constraints(mesh, mode=mode):
+                opt_state, loss = step_fn(opt_state, batches[i], steps + i)
+            float(loss.full_tensor())
+            torch.cuda.synchronize(device)
+
+        one_step(0)                                          # warm
+        torch.cuda.empty_cache()
+        held = torch.cuda.memory_allocated(device)           # the inputs, and what else lives
+        torch.cuda.reset_peak_memory_stats(device)
+        t0 = time.perf_counter()
+        one_step(1)
+        s_step = time.perf_counter() - t0
+        peak_alloc = torch.cuda.max_memory_allocated(device)
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                     with_flops=True) as prof:
+            one_step(2)
+        prof_mm = _leaf_matmul_flops(prof)
+        dev_by_group: dict = {}
+        for e in prof.key_averages():
+            us = getattr(e, "self_device_time_total", None)
+            if us is None:
+                us = e.self_cuda_time_total
+            if us:
+                g = _op_group(e.key)
+                dev_by_group[g] = dev_by_group.get(g, 0.0) + us
+        mode = op_cost.CostMode()
+        mode.track([p for p in model.parameters()])
+        mode.track([opt_state, batches[3]])
+        inputs = mode.cost.peak_bytes
+        t0 = time.perf_counter()
+        one_step(3, mode)
+        counted_s = time.perf_counter() - t0
+        cost = mode.cost
+        r = rl.analyze(arch, f"train {B}x{S}", cost, 1, dtype="float32")
+        flops_rel = abs(cost.matmul_flops - prof_mm) / prof_mm
+        # the allocator's peak with only the step's inputs held (the process
+        # also holds what earlier phases left), against op_cost's
+        peak_step = peak_alloc - held + inputs
+        peak_rel = (cost.peak_bytes - peak_step) / peak_step
+        log(f"[sharding] one step on the smoke mesh: {s_step:.4f} s ({gpu}); op_cost "
+            f"{cost.ops} ops, matmul flops {cost.matmul_flops:.6e} vs the profiler's "
+            f"{prof_mm:.6e} (rel {flops_rel:.3e}); all flops {cost.flops:.6e}, bytes "
+            f"{cost.bytes:.6e}; counted in {counted_s:.1f} s")
+        log(f"[sharding] roofline (float32 peak): compute {r.compute_s:.4f} s, memory "
+            f"{r.memory_s:.4f} s, collective {r.collective_s:.4f} s -> {r.dominant}; the "
+            f"measured step is {s_step / r.bound_s:.3f} x the bound")
+        log(f"[sharding] peak bytes: op_cost {cost.peak_bytes / 2**30:.3f} GiB ({inputs / 2**30:.3f} "
+            f"of inputs) vs torch.cuda.max_memory_allocated {peak_alloc / 2**30:.3f} GiB with "
+            f"{held / 2**30:.3f} held before the step: {peak_step / 2**30:.3f} GiB with the "
+            f"inputs alone (rel {peak_rel:+.4f})")
+        by_group: dict = {}
+        for name, b in cost.bytes_by_op.items():
+            g = _op_group(name)
+            by_group[g] = by_group.get(g, 0.0) + b
+        for g in sorted(set(by_group) | set(dev_by_group), key=lambda g: -by_group.get(g, 0)):
+            gb, us = by_group.get(g, 0.0), dev_by_group.get(g, 0.0)
+            log(f"[sharding]   {g:24s} op_cost {gb / 1e9:9.3f} GB "
+                f"({gb / rl.HBM_BW * 1e3:8.3f} ms at the HBM peak); profiler device "
+                f"{us / 1e3:9.3f} ms")
+        launches = {k: v for k, v in sgns_fused.LAUNCHES.items() if v}
+        if launches:
+            raise RuntimeError(f"the sharding phase launched a kernel: {launches}")
+        if flops_rel > SHARD_FLOPS_RTOL:
+            raise RuntimeError(f"op_cost's matmul flops are {flops_rel:.3e} off the profiler's")
+        if s_step < r.bound_s:
+            raise RuntimeError(f"the step ({s_step} s) beat its bound ({r.bound_s} s)")
+        if abs(peak_rel) > SHARD_PEAK_TOL:
+            raise RuntimeError(f"op_cost's peak bytes are {peak_rel:+.3f} off the allocator's")
+        del model, opt_state, step_fn, batches, prof
+        torch.cuda.empty_cache()
+    finally:
+        if dist.is_initialized():
+            dist.destroy_process_group()
+        dryruns = _finish_dryruns(procs)
+    for tag, row in dryruns.items():
+        log(f"[sharding] {tag}: {row['chips']} ranks, {row['hbm_gb_per_chip'] * 2**30 / 1e9:.3f} "
+            f"GB a rank (of 80: fits {row['fits']}), flops {row['flops_per_chip']:.4e}, bytes "
+            f"{row['bytes_per_chip']:.4e}, collectives {row['collective_ops']} "
+            f"({row['collective_bytes_per_chip']:.4e} B, dcn {row['dcn_bytes_per_chip']:.4e}), "
+            f"{row['dominant']}-bound, replicated where no rule: {row['fallbacks']}; counted "
+            f"on the host, {row['trace_s']:.1f} s to trace")
+    return {"losses": sharded, "bitwise": bitwise, "s_step": s_step,
+            "matmul_flops": cost.matmul_flops, "profiler_matmul_flops": prof_mm,
+            "flops_rel": flops_rel, "bound_s": r.bound_s, "peak_bytes": cost.peak_bytes,
+            "peak_alloc": peak_alloc, "peak_step": peak_step, "peak_rel": peak_rel,
+            "dryruns": dryruns}
 
 
 # ---------------------------------------------------------------------------
@@ -3392,7 +3644,7 @@ def phase_dryrun(device) -> dict:
         log(f"[dryrun] {case}: {r['device_us_per_step']:.1f} us/step on the device, bound "
             f"{r['bound_s'] / r['measured_s']:.3f} of it ({r['dominant']}); launches "
             f"{r['launches']}; collectives {r['collective_ops']}, "
-            f"{r['collective_bytes'] / 1e9:.4f} GB counted; wall {r['wall_s']:.2f} s ({gpu})")
+            f"{r['collective_bytes_per_chip'] / 1e9:.4f} GB counted; wall {r['wall_s']:.2f} s ({gpu})")
         if r["launches"] != want[case]:
             raise RuntimeError(f"{case}: launches {r['launches']}, expected {want[case]}")
         if c10d != colls.get(case, {}):
@@ -3877,6 +4129,9 @@ def main(argv=None) -> int:
     if "archs" in phases:
         torch.cuda.empty_cache()
         results["archs"] = run("archs", phase_archs, device)
+    if "sharding" in phases:
+        torch.cuda.empty_cache()
+        results["sharding"] = run("sharding", phase_sharding, device)
 
     if set(PHASES) - {"build", "profile"} <= set(phases):
         # launches: each kernel's count over its own path's training run

@@ -1,0 +1,319 @@
+"""Multi-pod dry run: trace every (arch × shape × mesh) case per rank on a
+simulated 256- or 512-rank mesh — the counterpart of ``repro.launch.dryrun``.
+
+The reference compiles each case for 512 placeholder host devices and
+reads ``memory_analysis()`` and ``cost_analysis()``. The port joins a
+**fake process group** of 256 (16 × 16) or 512 (2 × 16 × 16) ranks in this
+process (it sends nothing: this process plays rank 0) and runs the real
+step on DTensors whose local shards are ``meta`` tensors (shapes and dtypes,
+no storage; DTensor propagates its shapes on fake tensors of its own). Meta
+shards give the same counts as ``FakeTensorMode`` shards (llama3-8b ×
+``train_4k`` cut to 2 and 4 layers, on the CPU) at a third of the host
+time: meta ops dispatch in C++. For each case it builds the model on
+``meta``, places the parameters, the optimizer state (train), the batch
+(``Model.example_batch(shape, concrete=False)``) and the caches (decode)
+with :mod:`repro_torch.sharding.rules`' specs, runs ``make_train_step``
+with the arch's optimizer and the reference's microbatch halving, the
+prefill forward, or one decode step against a full-length cache, under
+:func:`repro_torch.sharding.ctx.use_mesh_constraints`, and prints per rank:
+the peak live bytes (against the card's 80 GB), :mod:`repro_torch.launch
+.op_cost`'s flops, bytes and collectives, and the roofline row. Every
+number is counted on the host, none measured on a device.
+
+The reference's decode program has no Pallas call (``repro.models`` never
+calls ``swa_decode``), so the dry run traces ``decode_step(...,
+swa_kernel=False)``: the plain masked attention.
+
+The fake group lives in its own process: run this module as a command.
+
+  python -m repro_torch.launch.dryrun --arch llama3-8b --shape train_4k
+  python -m repro_torch.launch.dryrun --arch all --shape all [--multi-pod] --json out.json
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import math
+import os
+import sys
+import time
+import traceback
+from dataclasses import replace
+
+import torch
+
+from repro_torch.configs import ARCH_IDS, SHAPES, get_config
+from repro_torch.configs.registry import config_for_shape, supports_shape
+from repro_torch.launch import op_cost
+from repro_torch.launch import roofline as rl
+from repro_torch.models import Model
+from repro_torch.optim import get_optimizer
+from repro_torch.sharding import ctx as shctx
+from repro_torch.sharding.rules import (
+    batch_axes, cache_spec, data_spec, local_shape, to_placements, tree_param_specs)
+from repro_torch.tree import tree_map
+
+CARD_BYTES = 80e9     # an H100's device memory
+
+
+def join_fake_group(world_size: int) -> None:
+    """Join a fake process group of ``world_size`` ranks as rank 0 (no
+    communication: its collectives only shape their outputs)."""
+    import torch.distributed as dist
+    from torch.testing._internal.distributed.fake_pg import FakeStore
+
+    dist.init_process_group("fake", store=FakeStore(), rank=0, world_size=world_size)
+
+
+class SkipCase(Exception):
+    pass
+
+
+def _meta_dtensor(t: torch.Tensor, spec: tuple, mesh):
+    """A DTensor of ``t``'s global shape and dtype placed by ``spec``, its
+    local shard a fresh ``meta`` tensor (a shape and a dtype, no storage)."""
+    from torch.distributed.tensor import DTensor
+
+    local = torch.empty(local_shape(tuple(t.shape), spec, mesh), dtype=t.dtype, device="meta")
+    return DTensor.from_local(local, mesh, to_placements(spec, mesh), run_check=False)
+
+
+def _shards(mesh) -> int:
+    sizes = dict(zip(mesh.mesh_dim_names, mesh.mesh.shape))
+    return math.prod(int(sizes[a]) for a in batch_axes(mesh))
+
+
+class Case:
+    """One case, built: the model with meta DTensor parameters, its step's
+    meta DTensor inputs, and :meth:`run`, which traces the step under a
+    :class:`~repro_torch.launch.op_cost.CostMode` and returns it."""
+
+    def __init__(self, kind, model, mesh, step, inputs):
+        self.kind, self.model, self.mesh = kind, model, mesh
+        self.step, self.inputs = step, inputs
+
+    def run(self, mode: op_cost.CostMode | None = None) -> op_cost.CostMode:
+        mode = op_cost.CostMode(pod_ranks=_pod_ranks(self.mesh)) if mode is None else mode
+        with shctx.use_mesh_constraints(self.mesh, mode=mode):
+            mode.track([p for p in self.model.parameters()])
+            mode.track(self.inputs)
+            self.step()
+        return mode
+
+
+def _pod_ranks(mesh):
+    names = tuple(mesh.mesh_dim_names)
+    if "pod" not in names:
+        return None
+    return mesh.size() // int(mesh.mesh.shape[names.index("pod")])
+
+
+def build_case(arch_id: str, shape, mesh, *, variant: str = "baseline", cfg=None):
+    """Returns ``(case, meta)`` for one (arch, shape, mesh) case: ``shape`` a
+    name of ``SHAPES`` (or an :class:`InputShape`), ``cfg`` the arch's
+    config unless given (a reduced one, say). Raises :class:`SkipCase`
+    where the reference skips."""
+    shape_name = shape if isinstance(shape, str) else shape.name
+    shape = SHAPES[shape] if isinstance(shape, str) else shape
+    cfg = get_config(arch_id) if cfg is None else cfg
+    ok, why = supports_shape(cfg, shape_name)
+    if not ok:
+        raise SkipCase(why)
+    cfg = config_for_shape(cfg, shape_name).with_overrides(dtype="bfloat16")
+    if variant != "baseline":
+        cfg = apply_variant(cfg, variant, shape_name)
+    model = Model(cfg, device="meta")
+    params_meta = model.param_tree()
+    meta = {
+        "arch": arch_id, "shape": shape_name, "variant": variant,
+        "params": rl.count_params(params_meta),
+        "active_params": rl.active_params(cfg, params_meta),
+        "model_flops": rl.model_flops_for(cfg, params_meta, shape),
+    }
+    if shape.kind == "train":
+        opt = get_optimizer(cfg.train_optimizer)
+        opt_meta = opt.init(params_meta)
+        batch_meta = model.example_batch(shape, concrete=False)
+        # the per-microbatch batch must stay divisible by the batch shards
+        # (pod × data), as the reference halves it for GSPMD
+        mb = cfg.train_microbatches
+        while mb > 1 and (shape.global_batch % mb or
+                          (shape.global_batch // mb) % _shards(mesh)):
+            mb //= 2
+        meta["microbatches"] = max(mb, 1)
+    elif shape.kind == "prefill":
+        batch_meta = model.example_batch(shape, concrete=False)
+    else:
+        B = shape.global_batch
+        cache_len = model.decode_cache_len(shape)
+        enc_len = shape.seq_len if cfg.encoder_layers else None
+        cache_meta = model.init_cache(B, cache_len, enc_len=enc_len)
+        meta["cache_len"] = cache_len
+    specs = model.param_specs(mesh, cfg.fsdp)
+    model.set_params({name: _meta_dtensor(model.get_parameter(name), spec, mesh)
+                      for name, spec in specs.items()})
+    if shape.kind == "train":
+        opt_state = tree_map(lambda t, s: _meta_dtensor(t, s, mesh), opt_meta,
+                             tree_param_specs(opt_meta, mesh, cfg.fsdp))
+        batch = {k: _meta_dtensor(v, data_spec(tuple(v.shape), mesh), mesh)
+                 for k, v in batch_meta.items()}
+        train_step = model.make_train_step(opt, microbatches=meta["microbatches"])
+        state = {"opt": opt_state}
+
+        def step():
+            state["opt"], _ = train_step(state["opt"], batch, 0)
+
+        inputs = [opt_state, batch]
+    elif shape.kind == "prefill":
+        batch = {k: _meta_dtensor(v, data_spec(tuple(v.shape), mesh), mesh)
+                 for k, v in batch_meta.items()}
+
+        def step():
+            with torch.no_grad():
+                model.forward_logits(batch)
+
+        inputs = [batch]
+    else:
+        cache = tree_map(lambda t: _meta_dtensor(t, cache_spec(tuple(t.shape), mesh), mesh),
+                         cache_meta)
+        token = _meta_dtensor(torch.empty((B, 1), dtype=torch.int32, device="meta"),
+                              data_spec((B, 1), mesh), mesh)
+        pos = shape.seq_len - 1
+
+        def step():
+            model.decode_step(cache, token, pos, swa_kernel=False)
+
+        inputs = [cache, token]
+    return Case(shape.kind, model, mesh, step, inputs), meta
+
+
+# ---------------------------------------------------------------------------
+# Variants for §Perf hillclimbing (beyond-paper optimizations).
+# ---------------------------------------------------------------------------
+def apply_variant(cfg, variant: str, shape_name: str):
+    if variant == "no_remat":
+        return cfg.with_overrides(remat=False)
+    if variant == "remat_per_layer":
+        return cfg.with_overrides(remat_per_layer=True)
+    if variant == "no_fsdp":          # pure TP × DP (no ZeRO-3 regather)
+        return cfg.with_overrides(fsdp=False)
+    if variant == "seq_mlstm":        # xlstm pre-optimization baseline
+        return cfg.with_overrides(
+            ssm=replace(cfg.ssm, mlstm_chunk=0, slstm_segment=0))
+    if variant == "no_slstm_segment":
+        return cfg.with_overrides(ssm=replace(cfg.ssm, slstm_segment=0))
+    if variant.startswith("mlstm_chunk_"):
+        return cfg.with_overrides(
+            ssm=replace(cfg.ssm, mlstm_chunk=int(variant.rsplit("_", 1)[1])))
+    if variant == "more_microbatch":
+        return cfg.with_overrides(
+            train_microbatches=cfg.train_microbatches * 2)
+    if variant == "less_microbatch":
+        return cfg.with_overrides(
+            train_microbatches=max(1, cfg.train_microbatches // 2))
+    if variant == "ungrouped_moe":   # pre-optimization MoE dispatch
+        return cfg.with_overrides(moe=replace(cfg.moe, groups=1))
+    if variant.startswith("capacity_"):
+        f = float(variant.split("_", 1)[1])
+        return cfg.with_overrides(moe=replace(cfg.moe, capacity_factor=f))
+    raise ValueError(f"unknown variant {variant!r}")
+
+
+# ---------------------------------------------------------------------------
+def run_case(arch_id: str, shape_name: str, *, multi_pod: bool,
+             variant: str = "baseline", verbose: bool = True, mesh=None) -> dict:
+    from repro_torch.launch.mesh import make_production_mesh
+
+    mesh = make_production_mesh(multi_pod=multi_pod) if mesh is None else mesh
+    chips = mesh.size()
+    t0 = time.perf_counter()
+    case, meta = build_case(arch_id, shape_name, mesh, variant=variant)
+    t1 = time.perf_counter()
+    mode = case.run()
+    t2 = time.perf_counter()
+    cost = mode.cost
+    r = rl.analyze(arch_id, shape_name, cost, chips, model_flops=meta["model_flops"],
+                   dtype="bfloat16")
+    row = r.row()
+    row.update(variant=variant, multi_pod=multi_pod,
+               params=meta["params"], active_params=meta["active_params"],
+               build_s=t1 - t0, trace_s=t2 - t1, ops=cost.ops,
+               fallbacks=dict(mode.fallbacks), fallback_reasons=dict(mode.reasons),
+               microbatches=meta.get("microbatches"),
+               fits=cost.peak_bytes <= CARD_BYTES)
+    if verbose:
+        mesh_name = "x".join(str(int(s)) for s in mesh.mesh.shape)
+        print(f"== {arch_id} × {shape_name} ({mesh_name}, variant={variant})")
+        print(f"   params={meta['params']/1e9:.2f}B "
+              f"active={meta['active_params']/1e9:.2f}B "
+              f"build={t1-t0:.1f}s trace={t2-t1:.1f}s ({cost.ops} ops a rank"
+              + (f", {meta['microbatches']} microbatches" if "microbatches" in meta else "")
+              + (", decode_step(swa_kernel=False)" if case.kind == "decode" else "") + ")")
+        print(f"   peak live bytes/rank (counted): {cost.peak_bytes / 1e9:.3f} GB of "
+              f"{CARD_BYTES / 1e9:.0f} GB → {'fits' if row['fits'] else 'DOES NOT FIT'}")
+        print(f"   op_cost: flops/rank={cost.flops:.3e} (matmul {cost.matmul_flops:.3e}) "
+              f"bytes/rank={cost.bytes:.3e}")
+        print(f"   collectives: {r.collectives.count_by_op} "
+              f"bytes/rank={r.collective_bytes_per_chip:.3e} dcn={r.dcn_bytes_per_chip:.3e}")
+        print(f"   replicated where DTensor had no rule: {dict(mode.fallbacks) or 'none'}")
+        for op, why in mode.reasons.items():
+            print(f"     {op}: {why}")
+        print(f"   roofline: compute={r.compute_s:.3e}s memory={r.memory_s:.3e}s"
+              f" collective={r.collective_s:.3e}s → {r.dominant}-bound; "
+              f"MODEL/counted flops={r.flops_utilization:.3f}")
+    return row
+
+
+def main(argv=None):
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--arch", default="all",
+                    help=f"one of {ARCH_IDS} or 'all'")
+    ap.add_argument("--shape", default="all",
+                    help=f"one of {tuple(SHAPES)} or 'all'")
+    ap.add_argument("--multi-pod", action="store_true")
+    ap.add_argument("--variant", default="baseline")
+    ap.add_argument("--json", default=None, help="append rows to this file")
+    args = ap.parse_args(argv)
+
+    import torch.distributed as dist
+
+    if not dist.is_initialized():
+        join_fake_group(512 if args.multi_pod else 256)
+    archs = ARCH_IDS if args.arch == "all" else (args.arch,)
+    shapes = tuple(SHAPES) if args.shape == "all" else (args.shape,)
+
+    rows = []
+    for a in archs:
+        for s in shapes:
+            try:
+                rows.append(run_case(a, s, multi_pod=args.multi_pod,
+                                     variant=args.variant))
+            except SkipCase as e:
+                print(f"== {a} × {s}: SKIP ({e})")
+                rows.append({"arch": a, "shape": s, "skipped": str(e),
+                             "variant": args.variant,
+                             "multi_pod": args.multi_pod})
+            except Exception:
+                print(f"== {a} × {s}: FAILED")
+                traceback.print_exc()
+                rows.append({"arch": a, "shape": s, "failed": True,
+                             "variant": args.variant,
+                             "multi_pod": args.multi_pod})
+    if args.json:
+        existing = []
+        if os.path.exists(args.json):
+            with open(args.json) as f:
+                existing = json.load(f)
+        with open(args.json, "w") as f:
+            json.dump(existing + rows, f, indent=1)
+    ok_rows = [r for r in rows if "compute_s" in r]
+    if ok_rows:
+        print()
+        print(rl.format_table(ok_rows))
+    failed = [r for r in rows if r.get("failed")]
+    sys.exit(1 if failed else 0)
+
+
+if __name__ == "__main__":
+    main()

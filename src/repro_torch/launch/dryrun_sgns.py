@@ -169,7 +169,7 @@ def run_async(case: str, n: int, steps: int, batch: int, device,
         ids = engine.sample(table, seeds[s], (batch, K)).to(torch.int32)
         nbytes += rl.step_bytes(centers[:, s].to(device), contexts[:, s].to(device), ids, d)
     flops = rl.sgns_model_flops(n * batch * steps, K, d)
-    r = rl.Roofline(f"sgns-{case}", f"steps{steps}", flops, nbytes, measured_s=device_s,
+    r = rl.Roofline(f"sgns-{case}", f"steps{steps}", 1, flops, nbytes, measured_s=device_s,
                     model_flops=flops)
     row = {**r.row(), "case": case, "engine": engine.describe(), "workers": n,
            "launches": launches, "device_us_per_step": _per_step_us(device_s, steps),
@@ -241,9 +241,9 @@ def run_sync(case: str, n: int, steps: int, batch: int, device) -> dict:
             extra = {"loss": float(losses.mean())}
     launches = {k: v for k, v in sgns_fused.LAUNCHES.items() if v}
     r = rl.Roofline(f"sgns-{case}",
-                    "iter1" if case == "merge_alir_iter" else f"steps{steps}", flops,
-                    nbytes, sum(coll.values()),
-                    counts, coll, device_s, rl.sgns_model_flops(pairs, K, d))
+                    "iter1" if case == "merge_alir_iter" else f"steps{steps}", 1, flops,
+                    nbytes, sum(coll.values()), rl.CollectiveStats(coll, counts),
+                    model_flops=rl.sgns_model_flops(pairs, K, d), measured_s=device_s)
     return {**r.row(), "case": case, "workers": n, "launches": launches,
             "device_us_per_step": _per_step_us(device_s, steps),
             "collective_bytes_per_step": sum(coll.values()) / max(steps, 1), **extra}

@@ -19,8 +19,12 @@ merge phase's gathers.
 * :func:`assemble_worker_array` — this process's ``(plan.num_local, ...)``
   block on its device (nothing is exchanged: each rank keeps its own).
 
-``make_production_mesh`` and ``make_smoke_mesh`` belong to the seed's LLM
-scaffolding (``ROADMAP.md`` queue 1 item 12) and are not ported.
+* :func:`make_production_mesh` — the reference's 16 × 16 ``("data",
+  "model")`` mesh (2 × 16 × 16 with ``"pod"``) as a ``DeviceMesh`` over the
+  default group that exists: a fake group of 256 or 512 ranks for the dry
+  run (:mod:`repro_torch.launch.dryrun`), or a real group on a cluster.
+* :func:`make_smoke_mesh` — a 1 × 1 ``("data", "model")`` mesh over one
+  device, in a group of one (the LLM trainer's ``mesh=``).
 """
 
 from __future__ import annotations
@@ -129,3 +133,48 @@ def assemble_worker_array(plan, local, device) -> torch.Tensor:
     if plan.process_count > 1:
         plan.validate_for_mesh()
     return t.to(device)
+
+
+def _mesh_device_type() -> str:
+    """The device type of a mesh over the default group: ``cpu`` for a fake
+    group (its tensors are fake: nothing is allocated, nothing is sent) or
+    a gloo one, ``cuda`` for NCCL."""
+    return "cuda" if dist.get_backend() == "nccl" else "cpu"
+
+
+def make_production_mesh(*, multi_pod: bool = False):
+    """The reference's production mesh: 16 × 16 = 256 ranks, ``("data",
+    "model")``; with ``multi_pod`` 2 × 16 × 16 = 512, ``("pod", "data",
+    "model")``. Built over the default process group, which must exist and
+    have that many ranks (it never creates one)."""
+    from torch.distributed.device_mesh import DeviceMesh
+
+    shape = (2, 16, 16) if multi_pod else (16, 16)
+    axes = ("pod", "data", "model") if multi_pod else ("data", "model")
+    n = int(np.prod(shape))
+    if not dist.is_initialized() or dist.get_world_size() != n:
+        raise RuntimeError(f"the production mesh needs a default process group of {n} ranks "
+                           f"(world size now {world()[1]}): join the cluster's, or a fake "
+                           f"group for a dry run")
+    return DeviceMesh(_mesh_device_type(), torch.arange(n).view(shape), mesh_dim_names=axes)
+
+
+def make_smoke_mesh(device=None):
+    """A 1 × 1 ``("data", "model")`` mesh over ``device`` (the GPU unless
+    ``"cpu"``): the default group if it has one rank, else a group of one
+    formed here (NCCL on a card, gloo on the CPU; an in-process store)."""
+    from torch.distributed.device_mesh import DeviceMesh
+
+    from repro_torch.device import resolve_device
+
+    dev = resolve_device(device)
+    if not dist.is_initialized():
+        if dev.type == "cuda":
+            torch.cuda.set_device(dev)
+        dist.init_process_group("nccl" if dev.type == "cuda" else "gloo",
+                                store=dist.HashStore(), rank=0, world_size=1)
+    elif dist.get_world_size() != 1:
+        raise RuntimeError(f"the smoke mesh needs a group of one; the default group has "
+                           f"{dist.get_world_size()} ranks")
+    return DeviceMesh(dev.type, torch.zeros((1, 1), dtype=torch.int64),
+                      mesh_dim_names=("data", "model"))

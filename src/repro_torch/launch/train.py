@@ -2,9 +2,14 @@
 port of ``repro.launch.train`` (seed scaffolding, see
 ``docs/SEED_SCAFFOLDING.md``).
 
-One device, no mesh (the reference's ``sharding/`` is not ported yet:
-``ROADMAP.md`` queue 1 item 12.3). It runs on the GPU unless
-``device="cpu"`` is passed. Checkpoints are the reference's: ``{"params":
+It runs on the GPU unless ``device="cpu"`` is passed. With ``mesh=`` (a
+``DeviceMesh`` with the reference's axis names: :func:`repro_torch.launch
+.mesh.make_smoke_mesh`, or a cluster's :func:`~repro_torch.launch.mesh
+.make_production_mesh`) the parameters, the optimizer state and each batch
+are DTensors placed by :mod:`repro_torch.sharding.rules`, and the run goes
+under :func:`repro_torch.sharding.ctx.use_mesh_constraints`, as the
+reference's; on a 1 × 1 mesh it gives the mesh-less run's losses.
+Checkpoints are the reference's: ``{"params":
 <its parameter tree>, "opt": <its optimizer-state tree>}`` at
 ``<ckpt-dir>/step_<N>.npz``, so either package resumes the other's. As the
 reference's, a resumed run restarts the token stream from its first batch
@@ -18,6 +23,7 @@ carries on).
 from __future__ import annotations
 
 import argparse
+import contextlib
 import time
 
 import numpy as np
@@ -67,18 +73,44 @@ def lm_batch(cfg, toks: torch.Tensor, seq: int) -> dict:
     return batch
 
 
+def _full(t):
+    """A DTensor's whole value on every rank (a plain tensor as it is)."""
+    return t.full_tensor() if hasattr(t, "full_tensor") else t
+
+
 def _save(path: str, model: Model, opt_state, step: int) -> None:
     with torch.no_grad():
-        save_checkpoint(path, {"params": model.param_tree(), "opt": opt_state}, step=step)
+        save_checkpoint(path, tree_map(_full, {"params": model.param_tree(), "opt": opt_state}),
+                        step=step)
+
+
+def shard_for_training(model: Model, opt_state, mesh):
+    """Place ``model``'s parameters and ``opt_state`` on ``mesh`` as
+    DTensors (:func:`repro_torch.sharding.rules.tree_param_specs`; a cycle
+    layer's parameter takes its stacked leaf's spec without the leading
+    ``None``). Every rank must hold the same values (a seeded init):
+    each keeps its own shard. Returns the placed optimizer state."""
+    from torch.distributed.tensor import distribute_tensor
+
+    from repro_torch.sharding.rules import to_placements, tree_param_specs, with_sharding
+
+    fsdp = model.cfg.fsdp
+    with torch.no_grad():
+        model.set_params({
+            name: distribute_tensor(model.get_parameter(name).data, mesh,
+                                    to_placements(spec, mesh), src_data_rank=None)
+            for name, spec in model.param_specs(mesh, fsdp).items()})
+        return with_sharding(opt_state, tree_param_specs(opt_state, mesh, fsdp), mesh)
 
 
 def train(arch: str, *, reduced: bool, steps: int, batch: int, seq: int,
-          lr: float, ckpt_dir: str | None, ckpt_every: int,
+          lr: float, ckpt_dir: str | None, ckpt_every: int, mesh=None,
           log_every: int = 10, resume: bool = False, device=None):
     """Train ``arch`` from ``PRNGKey(0)`` (or the latest checkpoint under
-    ``ckpt_dir`` with ``resume``) with ``cfg.train_optimizer``. Returns
-    ``(model, losses, opt_state)``: the trained model, the step losses as
-    floats, and the optimizer state in the reference's tree."""
+    ``ckpt_dir`` with ``resume``) with ``cfg.train_optimizer``, on ``mesh``
+    if one is given (see the module doc). Returns ``(model, losses,
+    opt_state)``: the trained model, the step losses as floats, and the
+    optimizer state in the reference's tree (DTensors on a mesh)."""
     dev = resolve_device(device)
     # The default, set explicitly: TF32 matmuls would cost the training
     # step its parity with the reference.
@@ -102,22 +134,33 @@ def train(arch: str, *, reduced: bool, steps: int, batch: int, seq: int,
             step0 = int(meta.get("step") or 0)
             print(f"resumed from {path} @ step {step0}")
 
+    run = contextlib.nullcontext()
+    if mesh is not None:
+        from repro_torch.sharding import ctx as shctx
+        from repro_torch.sharding.rules import tree_data_specs, with_sharding
+
+        opt_state = shard_for_training(model, opt_state, mesh)
+        run = shctx.use_mesh_constraints(mesh)
     mb = 1 if reduced else cfg.train_microbatches
     step_fn = model.make_train_step(opt, microbatches=mb)
     t0 = time.perf_counter()
     losses = []
     stream = synthetic_lm_batches(cfg.vocab_size, batch, seq, steps)
-    for i, toks in enumerate(stream, start=step0):
-        toks = torch.from_numpy(toks).to(dev)
-        opt_state, loss = step_fn(opt_state, lm_batch(cfg, toks, seq), i)
-        losses.append(float(loss))
-        if (i + 1) % log_every == 0:
-            dt = time.perf_counter() - t0
-            tok_s = (i + 1 - step0) * toks.numel() / dt
-            print(f"step {i+1:5d} loss {np.mean(losses[-log_every:]):.4f} "
-                  f"({tok_s:.0f} tok/s)")
-        if ckpt_dir and (i + 1) % ckpt_every == 0:
-            _save(f"{ckpt_dir}/step_{i+1}.npz", model, opt_state, i + 1)
+    with run:
+        for i, toks in enumerate(stream, start=step0):
+            toks = torch.from_numpy(toks).to(dev)
+            b = lm_batch(cfg, toks, seq)
+            if mesh is not None:
+                b = with_sharding(b, tree_data_specs(b, mesh), mesh)
+            opt_state, loss = step_fn(opt_state, b, i)
+            losses.append(float(_full(loss)))
+            if (i + 1) % log_every == 0:
+                dt = time.perf_counter() - t0
+                tok_s = (i + 1 - step0) * toks.numel() / dt
+                print(f"step {i+1:5d} loss {np.mean(losses[-log_every:]):.4f} "
+                      f"({tok_s:.0f} tok/s)")
+            if ckpt_dir and (i + 1) % ckpt_every == 0:
+                _save(f"{ckpt_dir}/step_{i+1}.npz", model, opt_state, i + 1)
     if ckpt_dir:
         _save(f"{ckpt_dir}/step_{step0+steps}.npz", model, opt_state, step0 + steps)
     return model, losses, opt_state

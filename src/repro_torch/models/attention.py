@@ -42,6 +42,7 @@ from torch import nn
 from repro_torch import prng
 from repro_torch.kernels.swa_decode import swa_decode
 from repro_torch.models.layers import apply_rope, dense_param, frozen, rope_angles
+from repro_torch.sharding import ctx as shctx
 
 NEG_INF = -1e30
 #: K7's window chunk on the decode path: the TPU kernel's default, or the
@@ -62,15 +63,19 @@ def _sdpa(q, k, v, mask):
     B, Sq, Hq, D = q.shape
     Hkv = k.shape[2]
     rep = Hq // Hkv
+    q, k, v = shctx.shard_attention(q, k, v)
     qf = q.reshape(B, Sq, Hkv, rep, D).float()
-    s = torch.einsum("bqhrd,bkhd->bhrqk", qf, k.float())
+    # scores (b, h, q, r, k): a query position ahead of its group, so that
+    # the batched matmul's merged (q, r) dim keeps a sharded q in blocks
+    s = torch.einsum("bqhrd,bkhd->bhqrk", qf, k.float())
     s = s / math.sqrt(D)
     if mask is not None:
-        mask = mask[None, None, None] if mask.dim() == 2 else mask[:, :, None]
+        mask = mask[None, None, :, None] if mask.dim() == 2 else mask[:, :, :, None]
         s = s + mask
     p = torch.softmax(s, dim=-1)
-    o = torch.einsum("bhrqk,bkhd->bqhrd", p, v.float())
-    return o.reshape(B, Sq, Hq, D).to(q.dtype)
+    o = torch.einsum("bhqrk,bkhd->bqhrd", p, v.float())
+    o = shctx.shard_like(o.reshape(B, Sq, Hq, D), q)
+    return shctx.shard_heads(o).to(q.dtype)
 
 
 def causal_mask(Sq: int, Sk: int, window: int | None = None, offset: int = 0,

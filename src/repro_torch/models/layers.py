@@ -17,6 +17,7 @@ import torch
 from torch import nn
 
 from repro_torch import prng
+from repro_torch.sharding import ctx as shctx
 
 
 # ---------------------------------------------------------------------------
@@ -155,10 +156,18 @@ def lm_loss(logits: torch.Tensor, labels: torch.Tensor,
     log-sum-exp in float32 over the whole (padded) vocabulary, minus the
     picked logit, the mask's mean with ``max(sum, 1)``. The reference picks
     the logit as a one-hot sum (for a vocabulary-sharded axis); the port
-    gathers it: a sum of one logit and zeros is that logit, bitwise."""
+    gathers it, and sums the select only under a mesh context
+    (:mod:`repro_torch.sharding.ctx`): a sum of one logit and zeros is that
+    logit, bitwise."""
     lg = logits.float()
     lse = torch.logsumexp(lg, dim=-1)
-    picked = lg.gather(-1, labels[..., None].long())[..., 0]
+    if shctx.enabled():
+        # on a mesh the reference's select: a gather along the sharded
+        # vocabulary (and its scatter backward) would gather the logits
+        iota = torch.arange(lg.shape[-1], device=lg.device)
+        picked = torch.where(iota == labels[..., None], lg, 0.0).sum(-1)
+    else:
+        picked = lg.gather(-1, labels[..., None].long())[..., 0]
     ll = picked - lse
     if mask is None:
         return -ll.mean()

@@ -29,6 +29,7 @@ from repro_torch.device import resolve_device
 from repro_torch.models import transformer as tf
 from repro_torch.models.layers import RMSNorm, dense_param, embed_init, frozen, lm_loss
 from repro_torch.optim import Optimizer
+from repro_torch.sharding import ctx as shctx
 from repro_torch.tree import tree_map
 
 # An RMSNorm's parameter is its ``scale``; the reference's tree holds the
@@ -103,6 +104,57 @@ class Model(nn.Module):
                                                 0, 1, cfg.encoder_layers),
                            "final_norm": enc["final_norm"]}
         return tree
+
+    def param_paths(self) -> dict:
+        """Each parameter's path in :meth:`param_tree` (keys, list indices
+        as strings): ``layers.{i}.…`` lies under ``("stack", "prefix",
+        str(i))`` or, in the cycle, ``("stack", "cycle", str(j))`` with its
+        leaf stacked over the cycles; the encoder's layers under ``("enc",
+        "stack", "cycle", "0")``. A norm's ``.scale`` is the norm's name."""
+        cfg = self.cfg
+        n_prefix, n_cycle = len(cfg.prefix_codes), len(cfg.cycle_codes)
+        norms = self._norms()
+        out = {}
+        for name, _ in self.named_parameters():
+            key = name
+            if name.endswith(_SCALE) and name[:-len(_SCALE)] in norms:
+                key = name[:-len(_SCALE)]
+            parts = key.split(".")
+            if parts[0] == "layers":
+                i = int(parts[1])
+                where = (("prefix", str(i)) if i < n_prefix else
+                         ("cycle", str((i - n_prefix) % n_cycle)))
+                parts = ["stack", *where, *parts[2:]]
+            elif parts[:2] == ["enc", "layers"]:
+                parts = ["enc", "stack", "cycle", "0", *parts[3:]]
+            out[name] = tuple(parts)
+        return out
+
+    def param_specs(self, mesh, fsdp: bool = True) -> dict:
+        """Each parameter's partition spec on ``mesh``
+        (:func:`repro_torch.sharding.rules.param_spec`): a cycle layer's
+        parameter takes its stacked leaf's spec without the leading
+        ``None``."""
+        from repro_torch.sharding.rules import param_spec
+
+        out = {}
+        for name, path in self.param_paths().items():
+            shape = tuple(self.get_parameter(name).shape)
+            if "cycle" in path:
+                out[name] = param_spec(path, (1,) + shape, mesh, fsdp=fsdp)[1:]
+            else:
+                out[name] = param_spec(path, shape, mesh, fsdp=fsdp)
+        return out
+
+    def set_params(self, values: dict) -> "Model":
+        """Replace parameters by new tensors (``name → tensor``: DTensors, say),
+        each keeping its ``requires_grad``."""
+        for name, t in values.items():
+            mod_name, _, leaf = name.rpartition(".")
+            mod = self.get_submodule(mod_name) if mod_name else self
+            old = mod._parameters[leaf]
+            mod._parameters[leaf] = nn.Parameter(t, requires_grad=old.requires_grad)
+        return self
 
     def load_param_tree(self, tree: dict) -> "Model":
         """Copy a tree in the reference's layout (numpy arrays or tensors,
@@ -183,10 +235,11 @@ class Model(nn.Module):
                 split = {k: v.reshape((microbatches, B // microbatches) + tuple(v.shape[1:]))
                          for k, v in batch.items()}
                 loss = torch.zeros((), dtype=torch.float32, device=self.embed.device)
-                grads = [torch.zeros(p.shape, dtype=torch.float32, device=p.device)
-                         for p in params]
+                grads = [torch.zeros_like(p, dtype=torch.float32) for p in params]
                 for i in range(microbatches):
-                    l, g = value_and_grad({k: v[i] for k, v in split.items()})
+                    # each chunk's batch back on the batch axes (the identity
+                    # without a mesh context), as GSPMD keeps the reference's
+                    l, g = value_and_grad({k: shctx.shard_batch(v[i]) for k, v in split.items()})
                     loss = loss + l
                     grads = [a + b for a, b in zip(grads, g)]
                 loss = loss / microbatches
@@ -200,16 +253,17 @@ class Model(nn.Module):
 
         return train_step
 
-    def example_batch(self, shape: InputShape, key=None) -> dict:
-        """Concrete inputs of ``shape``'s kind on the model's device, drawn as
-        the reference's are (``randint`` from ``key``, default
-        ``PRNGKey(0)``; tokens and labels from the same key; frames and
-        patches zeros): ``train`` ``{"tokens", "labels"}`` (B, S), with
-        ``frames`` (B, S, d) and B × max(S // 4, 8) tokens for an
-        encoder-decoder, ``patch_embeds`` (B, P, d) and S − P tokens for
-        vision; ``prefill`` the same without labels; the decode kinds
-        ``{"token" (B, 1), "pos": S − 1}`` (an int, as :meth:`decode_step`
-        takes it)."""
+    def example_batch(self, shape: InputShape, key=None, concrete: bool = True) -> dict:
+        """Inputs of ``shape``'s kind on the model's device, drawn as the
+        reference's are (``randint`` from ``key``, default ``PRNGKey(0)``;
+        tokens and labels from the same key; frames and patches zeros):
+        ``train`` ``{"tokens", "labels"}`` (B, S), with ``frames`` (B, S, d)
+        and B × max(S // 4, 8) tokens for an encoder-decoder,
+        ``patch_embeds`` (B, P, d) and S − P tokens for vision; ``prefill``
+        the same without labels; the decode kinds ``{"token" (B, 1), "pos":
+        S − 1}`` (an int, as :meth:`decode_step` takes it). With
+        ``concrete=False`` (the dry run's) the tensors are left unwritten
+        (``torch.empty``; on a ``meta`` model, shapes and dtypes alone)."""
         cfg = self.cfg
         B, S = shape.global_batch, shape.seq_len
         key = key if key is not None else prng.PRNGKey(0)
@@ -217,10 +271,12 @@ class Model(nn.Module):
         dt = getattr(torch, cfg.dtype)
 
         def toks(shape_):
+            if not concrete:
+                return torch.empty(shape_, dtype=torch.int32, device=dev)
             return prng.randint(key, shape_, 0, V, dev)
 
         def dense(shape_):
-            return torch.zeros(shape_, dtype=dt, device=dev)
+            return (torch.zeros if concrete else torch.empty)(shape_, dtype=dt, device=dev)
 
         if shape.kind in ("train", "prefill"):
             labels = shape.kind == "train"

@@ -25,6 +25,7 @@ from torch import nn
 
 from repro_torch import prng
 from repro_torch.models.layers import MLP, dense_param, frozen
+from repro_torch.sharding import ctx as shctx
 
 
 class MoE(nn.Module):
@@ -52,18 +53,21 @@ class MoE(nn.Module):
     def forward(self, x: torch.Tensor, capacity_factor: float = 1.25,
                 groups: int | None = None, routes: list | None = None):
         """``moe_forward``: x (B, S, d) → (out (B, S, d), aux loss).
-        ``groups``: the reference's dispatch groups (None → 1, as the
-        reference without a mesh); the tokens split into G groups when N % G
-        == 0 and N >= G. ``routes``, if a list, gets each call's ``top_idx``
+        ``groups``: the reference's dispatch groups (None → one a batch shard
+        of the enabled mesh context, else 1); the tokens split into G groups
+        when N % G == 0 and N >= G. The (G, E, C, d) buffers are pinned G →
+        data, E → model and the tokens to the batch axes, as the reference's
+        (:mod:`repro_torch.sharding.ctx`: the identity without a mesh). ``routes``, if a list, gets each call's ``top_idx``
         and ``keep`` (integer outputs the tests and the card's checks
         compare)."""
         B, S, d = x.shape
         N = B * S
         E, k = self.num_experts, self.top_k
-        groups = 1 if groups is None else groups
+        if groups is None:
+            groups = shctx.batch_shard_count() if shctx.enabled() else 1
         G = groups if N % groups == 0 and N >= groups else 1
         Ng = N // G
-        xt = x.reshape(G, Ng, d)
+        xt = shctx.shard_batch(x.reshape(G, Ng, d))
         r = route(self.router, xt, E, k, capacity_factor)
         if routes is not None:
             routes.append({"top_idx": r["top_idx"], "keep": r["keep"]})
@@ -77,10 +81,11 @@ class MoE(nn.Module):
                            E * C + torch.arange(Nk, device=dev)[None])      # (G, Nk)
         g_idx = torch.arange(G, device=dev)[:, None].expand(G, Nk)
         buf = x.new_zeros((G, E * C + Nk, d)).index_put((g_idx, dest), xt[:, tok])
-        buf = buf[:, :E * C].reshape(G, E, C, d)
+        buf = shctx.shard_group_experts(buf[:, :E * C].reshape(G, E, C, d))
         h = (torch.nn.functional.silu(torch.einsum("gecd,edf->gecf", buf, self.gate))
              * torch.einsum("gecd,edf->gecf", buf, self.up))
-        out_buf = torch.einsum("gecf,efd->gecd", h, self.down).reshape(G, E * C, d)
+        out_buf = shctx.shard_group_experts(torch.einsum("gecf,efd->gecd", h, self.down))
+        out_buf = out_buf.reshape(G, E * C, d)
         # combine: each assignment's output (a zero row for a dropped one)
         # times its weight, a token's k of them added in k order
         out_buf = torch.cat([out_buf, out_buf.new_zeros((G, 1, d))], dim=1)
@@ -91,6 +96,7 @@ class MoE(nn.Module):
         combined = contrib[:, :, 0]
         for j in range(1, k):
             combined = combined + contrib[:, :, j]
+        combined = shctx.shard_batch(combined)
         if self.shared is not None:
             combined = combined + self.shared(xt)
         return combined.reshape(B, S, d), r["aux"]

@@ -19,8 +19,12 @@ the cycle keys: a vmapped draw equals the per-key draw). Where the
 reference wraps the scan's body in ``jax.checkpoint`` (``cfg.remat``: each
 cycle; ``cfg.remat_per_layer``: each layer inside it), the forward wraps
 the same spans in ``torch.utils.checkpoint.checkpoint``; recomputing
-changes no value. The reference's ``sharding.ctx.shard_batch`` is a no-op
-without a mesh; the port runs on one device and has no counterpart.
+changes no value. The reference's ``sharding.ctx.shard_batch`` hooks sit
+at the same places, and each layer (the embedding and the head too) runs
+with its weights gathered over ``data`` (:func:`repro_torch.sharding.ctx
+.gathered_params`: the FSDP all-gather GSPMD inserts for the reference);
+both are the identity unless a mesh context is enabled and the tensors are
+DTensors.
 Caches are a list of per-layer dicts in layer order (``{"k", "v"}``, with
 ``"cross_k"``/``"cross_v"`` for ``C``; ``{"c_kv", "k_rope"}``; ``{"conv",
 "h"}``; ``{"C", "n", "m"}``; ``{"h", "c", "n", "m"}``), updated in place;
@@ -50,6 +54,7 @@ from repro_torch.models.moe import MoE
 from repro_torch.models.ssm import (
     MLSTM, SLSTM, Mamba, init_mamba_cache, init_mlstm_state, init_slstm_state,
 )
+from repro_torch.sharding import ctx as shctx
 
 
 # ---------------------------------------------------------------------------
@@ -240,6 +245,12 @@ def _add_aux(total, a):
     return total if a is None else total + a
 
 
+def _layer_then_shard(layer, x, ctx):
+    with shctx.gathered_params(layer):
+        x, a = layer(x, ctx)
+    return shctx.shard_batch(x), a
+
+
 def run_stack_forward(layers, cfg: ModelConfig, x: torch.Tensor, ctx: ForwardCtx,
                       n_prefix: int, n_cycle: int, n_cycles: int):
     """The prefix layers, then each cycle: with ``cfg.remat`` a cycle is
@@ -247,14 +258,15 @@ def run_stack_forward(layers, cfg: ModelConfig, x: torch.Tensor, ctx: ForwardCtx
     the scan's body), with ``cfg.remat_per_layer`` each layer inside it too
     (the two nest, as the reference's do). Returns (x, the summed aux)."""
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    x = shctx.shard_batch(x)
     for layer in layers[:n_prefix]:
-        x, a = layer(x, ctx)
+        x, a = _layer_then_shard(layer, x, ctx)
         aux = _add_aux(aux, a)
 
     def one_layer(layer, xx):
         if cfg.remat_per_layer:
-            return checkpoint(layer, xx, ctx, use_reentrant=False)
-        return layer(xx, ctx)
+            return checkpoint(_layer_then_shard, layer, xx, ctx, use_reentrant=False)
+        return _layer_then_shard(layer, xx, ctx)
 
     def body(xx, au, cycle):
         for layer in cycle:
@@ -291,7 +303,8 @@ def forward_logits(model, batch: dict, routes: list | None = None):
     cfg = model.cfg
     tokens = batch["tokens"]
     B, S = tokens.shape
-    x = torch.nn.functional.embedding(tokens, model.embed)
+    with shctx.gathered_params(model, recurse=False):
+        x = torch.nn.functional.embedding(tokens, model.embed)
     dev = x.device
     mask = torch.ones((B, S), dtype=torch.float32, device=dev)
     if cfg.encoder_layers:
@@ -310,7 +323,9 @@ def forward_logits(model, batch: dict, routes: list | None = None):
         x, aux = run_stack_forward(model.layers, cfg, x, ctx, len(cfg.prefix_codes),
                                    len(cfg.cycle_codes), cfg.resolved_num_cycles)
     x = model.final_norm(x)
-    return x @ model.head, aux, mask
+    with shctx.gathered_params(model, recurse=False):
+        logits = x @ model.head
+    return shctx.shard_batch(logits, model_dim=-1), aux, mask
 
 
 # ---------------------------------------------------------------------------
@@ -368,7 +383,8 @@ def decode_step(model, cache: list, token: torch.Tensor, pos: int, *,
     axes."""
     cfg = model.cfg
     B = token.shape[0]
-    x = torch.nn.functional.embedding(token, model.embed)
+    with shctx.gathered_params(model, recurse=False):
+        x = shctx.shard_batch(torch.nn.functional.embedding(token, model.embed))
     p1 = torch.full((B, 1), pos, dtype=torch.int32, device=x.device)
     if cfg.rope_kind == "mrope":
         rope = mrope_angles(p1[None].expand(3, B, 1), cfg.resolved_head_dim, cfg.rope_theta,
@@ -377,10 +393,15 @@ def decode_step(model, cache: list, token: torch.Tensor, pos: int, *,
         rope = rope_angles(p1, cfg.resolved_head_dim, cfg.rope_theta)
     ctx = Ctx(cfg=cfg, pos=pos, rope_cos_sin=rope, window=cfg.attention_window,
               swa_kernel=swa_kernel, routes=routes)
-    for layer, c in zip(model.layers, cache):
-        x = layer.decode(c, x, ctx)
+    n_prefix = len(cfg.prefix_codes)
+    for i, (layer, c) in enumerate(zip(model.layers, cache)):
+        with shctx.gathered_params(layer):
+            x = layer.decode(c, x, ctx)
+        if i >= n_prefix:       # the reference pins the scanned cycle's layers
+            x = shctx.shard_batch(x)
     x = model.final_norm(x)
-    return x @ model.head, cache
+    with shctx.gathered_params(model, recurse=False):
+        return x @ model.head, cache
 
 
 def prefill_encoder(model, frames: torch.Tensor, cache: list) -> list:
@@ -391,6 +412,7 @@ def prefill_encoder(model, frames: torch.Tensor, cache: list) -> list:
     for layer, c in zip(model.layers[len(model.cfg.prefix_codes):],
                         cache[len(model.cfg.prefix_codes):]):
         if layer.mixer_kind == "C":
-            kv = layer.cross.encode_kv(enc_out)
+            with shctx.gathered_params(layer.cross):
+                kv = layer.cross.encode_kv(enc_out)
             c["cross_k"], c["cross_v"] = kv["k"], kv["v"]
     return cache

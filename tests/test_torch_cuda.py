@@ -1034,3 +1034,135 @@ def test_zoo_train_step_on_the_card_matches_the_cpu_and_repeats(device, arch):
     assert a[0] == b[0]
     for path in a[2]:
         assert np.array_equal(a[1][path], b[1][path]) and np.array_equal(a[2][path], b[2][path])
+
+
+# ---------------------------------------------------------------------------
+# The LLM sharding layer on the card: the smoke mesh and the cost model
+# ---------------------------------------------------------------------------
+@pytest.fixture
+def smoke_mesh(device):
+    """``make_smoke_mesh()`` on the card (an NCCL group of one), gone after
+    the test."""
+    import torch.distributed as dist
+
+    from repro_torch.launch.mesh import make_smoke_mesh
+
+    if dist.is_initialized():
+        pytest.skip("a process group is already initialised in this process")
+    mesh = make_smoke_mesh(device)
+    yield mesh
+    dist.destroy_process_group()
+
+
+def _first_module_that_differs(arch, device, mesh) -> str:
+    """One loss of the reduced ``arch`` from the same init on the card, with
+    and without the mesh: the first module (in call order) whose output is
+    not bitwise the mesh-less one's, or "none"."""
+    from repro_torch.configs import get_config
+    from repro_torch.launch.train import shard_for_training
+    from repro_torch.models import Model
+    from repro_torch.optim import get_optimizer
+    from repro_torch.sharding import ctx as shctx
+    from repro_torch.sharding.rules import tree_data_specs, with_sharding
+
+    cfg = get_config(arch).reduced()
+    t = torch.randint(0, cfg.vocab_size, (4, 32), dtype=torch.int32,
+                      generator=torch.Generator().manual_seed(0)).to(device)
+    outs = []
+    for sharded in (False, True):
+        model = Model(cfg, prng.PRNGKey(0), device=device)
+        seen = []
+        for name, mod in model.named_modules():
+            mod.register_forward_hook(
+                lambda m, a, o, name=name: seen.append(
+                    (name, o if isinstance(o, torch.Tensor) else None)))
+        batch = {"tokens": t, "labels": t}
+        if sharded:
+            shard_for_training(model, get_optimizer("sgd").init(model.param_tree()), mesh)
+            batch = with_sharding(batch, tree_data_specs(batch, mesh), mesh)
+            with torch.no_grad(), shctx.use_mesh_constraints(mesh):
+                model.loss_fn(batch)
+            seen = [(n, o.full_tensor() if hasattr(o, "full_tensor") else o) for n, o in seen]
+        else:
+            with torch.no_grad():
+                model.loss_fn(batch)
+        outs.append(seen)
+    for (name, a), (_, b) in zip(*outs):
+        if a is not None and not torch.equal(a, b):
+            return name
+    return "none"
+
+
+@pytest.mark.parametrize("arch", ("smollm-360m", "deepseek-v2-lite-16b"))
+def test_lm_training_on_the_smoke_mesh_is_the_run_without(device, smoke_mesh, arch):
+    """Reduced LM training on the card with DTensor parameters and optimizer
+    state on the 1 × 1 mesh against the mesh-less run: bitwise, or, where a
+    DTensor decomposition reorders a sum, PR 23's card tolerance (loss rtol
+    1e-5, parameters 1e-5), with the first module that differs printed."""
+    from repro_torch.launch.train import train
+
+    kw = dict(reduced=True, steps=3, batch=4, seq=32, lr=3e-3, ckpt_dir=None,
+              ckpt_every=100, device=device)
+    plain_model, plain, _ = train(arch, **kw)
+    model, losses, _ = train(arch, mesh=smoke_mesh, **kw)
+    ours = dict(model.named_parameters())
+    bitwise = losses == plain and all(torch.equal(ours[n].full_tensor(), p)
+                                      for n, p in plain_model.named_parameters())
+    if not bitwise:
+        print(f"{arch}: not bitwise on the smoke mesh; losses {losses} vs {plain}; the first "
+              f"module that differs: {_first_module_that_differs(arch, device, smoke_mesh)}")
+    np.testing.assert_allclose(losses, plain, rtol=1e-5)
+    for name, p in plain_model.named_parameters():
+        torch.testing.assert_close(ours[name].full_tensor(), p, rtol=0, atol=1e-5)
+    if arch == "smollm-360m":
+        assert bitwise
+
+
+def test_op_cost_matmul_flops_are_the_profilers_on_the_card(device, smoke_mesh):
+    """One reduced training step on the smoke mesh under the profiler and
+    under ``op_cost``: the matmul flops of the events that ran a kernel
+    (the leaves under DTensor's calls) equal op_cost's count. (Peak bytes
+    are held to the allocator's at full width, in ``chip_smoke.py
+    sharding``: at this size the allocator's fixed costs dominate.)"""
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.launch import op_cost
+    from repro_torch.launch.train import train
+    from repro_torch.optim import get_optimizer
+    from repro_torch.sharding import ctx as shctx
+    from repro_torch.sharding.rules import tree_data_specs, with_sharding
+
+    mm_names = ("aten::mm", "aten::addmm", "aten::bmm", "aten::baddbmm")
+    model, _, opt_state = train("smollm-360m", reduced=True, steps=1, batch=4, seq=64,
+                                lr=3e-3, ckpt_dir=None, ckpt_every=100, device=device,
+                                mesh=smoke_mesh)
+    step = model.make_train_step(get_optimizer("adamw", lr=3e-3))
+    t = torch.randint(0, model.cfg.vocab_size, (4, 64), dtype=torch.int32,
+                      generator=torch.Generator().manual_seed(0)).to(device)
+    b = {"tokens": t, "labels": t}
+    batch = with_sharding(b, tree_data_specs(b, smoke_mesh), smoke_mesh)
+
+    def leaf_flops(prof):
+        def has_mm_child(e):
+            return any(c.name in mm_names or has_mm_child(c) for c in e.cpu_children)
+
+        def device_us(e):
+            return getattr(e, "device_time_total", None) or getattr(e, "cuda_time_total", 0)
+
+        return sum(e.flops or 0 for e in prof.events()
+                   if e.name in mm_names and device_us(e) > 0 and not has_mm_child(e))
+
+    with shctx.use_mesh_constraints(smoke_mesh):
+        opt_state, _ = step(opt_state, batch, 1)
+    torch.cuda.synchronize(device)
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                 with_flops=True) as prof:
+        with shctx.use_mesh_constraints(smoke_mesh):
+            opt_state, _ = step(opt_state, batch, 2)
+        torch.cuda.synchronize(device)
+    mode = op_cost.CostMode()
+    mode.track(list(model.parameters()))
+    mode.track([opt_state, batch])
+    with shctx.use_mesh_constraints(smoke_mesh, mode=mode):
+        opt_state, _ = step(opt_state, batch, 3)
+    assert mode.cost.matmul_flops == leaf_flops(prof) > 0

@@ -63,17 +63,18 @@ def test_every_case_runs_with_its_collectives(rows):
     rows, text = rows
     assert set(rows) == set(D.CASES)
     for case in D.ASYNC_ENGINES:
-        assert rows[case]["collective_ops"] == {} and rows[case]["collective_bytes"] == 0
+        assert rows[case]["collective_ops"] == {}
+        assert rows[case]["collective_bytes_per_chip"] == 0
         assert np.isfinite(rows[case]["loss"]) and rows[case]["workers"] == 2
     assert text.count("   vmem: ") == len(D.ASYNC_ENGINES)
     V, d = SMALL["vocab_size"], SMALL["dim"]
     assert rows["sync"]["collective_ops"] == {"c10d::allreduce_": 3 * 8}
-    assert rows["sync"]["collective_bytes"] == 8 * (2 * V * d * 4 + 4)
+    assert rows["sync"]["collective_bytes_per_chip"] == 8 * (2 * V * d * 4 + 4)
     assert rows["local_sgd_8"]["collective_ops"] == {"c10d::allreduce_": 2 * 1 + 1}
     assert rows["local_sgd_64"]["shape"] == "steps64"        # whole sync periods
-    assert rows["local_sgd_64"]["collective_bytes"] == 2 * V * d * 4 + 4 * 64
+    assert rows["local_sgd_64"]["collective_bytes_per_chip"] == 2 * V * d * 4 + 4 * 64
     assert rows["merge_alir_iter"]["collective_ops"] == {"c10d::_allgather_base_": 1}
-    assert rows["merge_alir_iter"]["collective_bytes"] == 2 * d * d * 4
+    assert rows["merge_alir_iter"]["collective_bytes_per_chip"] == 2 * d * d * 4
     # bytes per step: 1/k of the sync case's, as the reference's docstring says
     per = {c: rows[c]["collective_bytes_per_step"] for c in ("sync", "local_sgd_8")}
     assert per["local_sgd_8"] < per["sync"] / 7
@@ -95,10 +96,10 @@ def test_the_async_rows_count_the_step_bytes(rows):
     pairs = 2 * 64 * 8
     for case in D.ASYNC_ENGINES:
         r = rows[case]
-        assert r["flops"] == rl.sgns_model_flops(pairs, K, d)
+        assert r["flops_per_chip"] == rl.sgns_model_flops(pairs, K, d)
         # at least the ids and losses; at most every row of both tables each step
-        assert 8 * 2 * 64 * (12 + 8 * K) < r["bytes"] <= 8 * (2 * 2 * 2 * SMALL["vocab_size"]
-                                                               * d * 4 + 2 * 64 * 100)
+        assert 8 * 2 * 64 * (12 + 8 * K) < r["bytes_per_chip"] <= 8 * (
+            2 * 2 * 2 * SMALL["vocab_size"] * d * 4 + 2 * 64 * 100)
 
 
 def test_budget_rejects_an_async_case(monkeypatch):

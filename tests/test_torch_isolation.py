@@ -56,7 +56,10 @@ def test_port_has_the_slice_modules():
               "repro_torch.analysis.__main__", "repro_torch.core", "repro_torch.core.async_trainer",
               "repro_torch.optim", "repro_torch.optim.optimizers", "repro_torch.tree",
               "repro_torch.launch.train", "repro_torch.examples.async_embeddings_for_llm",
-              "repro_torch.models.moe", "repro_torch.models.ssm"):
+              "repro_torch.models.moe", "repro_torch.models.ssm",
+              "repro_torch.sharding.rules", "repro_torch.sharding.ctx",
+              "repro_torch.launch.dryrun", "repro_torch.launch.op_cost",
+              "repro_torch.launch.mesh", "repro_torch.launch.roofline"):
         assert m in mods
 
 

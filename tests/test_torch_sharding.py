@@ -1,0 +1,322 @@
+"""``repro_torch.sharding`` (rules, ctx) against ``repro.sharding`` on the CPU.
+
+* ``tests/test_infra.py``'s sharding cases, mirrored on the port;
+* ``param_spec``/``tree_param_specs`` equal to the reference's spec for
+  every leaf of every arch at full width — the port's ``param_tree`` on
+  ``meta`` against ``jax.eval_shape`` of the reference's init, plus the
+  ``adamw`` and ``adafactor`` states — on abstract meshes of 16 × 16 and
+  2 × 16 × 16, with ``fsdp`` on and off; and ``Model.param_specs`` (a cycle
+  layer's parameter: its stacked leaf's spec without the leading ``None``);
+* ``cache_spec`` equal on every leaf of each arch's reference cache for
+  ``decode_32k`` and ``long_500k``, and ``tree_cache_specs`` over the
+  port's per-layer caches;
+* ``to_placements``/``to_spec`` round trips;
+* ``ctx`` on a fake 4 × 4 mesh (a process of its own): the placements each
+  hook redistributes to equal the specs the reference's hooks pass to
+  ``with_sharding_constraint`` (captured by patching it in this test only).
+"""
+
+import json
+import math
+import os
+import subprocess
+import sys
+from pathlib import Path
+from types import SimpleNamespace
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+from jax.sharding import PartitionSpec as P
+
+from repro import configs as jconfigs
+from repro.models import Model as JaxModel
+from repro.optim import get_optimizer as jget_optimizer
+from repro.sharding import ctx as jctx
+from repro.sharding import rules as jrules
+from repro_torch import configs
+from repro_torch.configs.registry import config_for_shape
+from repro_torch.models import Model
+from repro_torch.optim import get_optimizer
+from repro_torch.sharding import rules
+from repro_torch.sharding.rules import (
+    abstract_mesh, cache_spec, data_spec, param_spec, to_placements, to_spec,
+    tree_cache_specs, tree_param_specs)
+
+ROOT = Path(__file__).resolve().parents[1]
+MESHES = {"16x16": ((16, 16), ("data", "model")),
+          "2x16x16": ((2, 16, 16), ("pod", "data", "model"))}
+
+
+def _ref_flat(spec_tree) -> dict:
+    """The reference's spec tree → {path: spec as a tuple}."""
+    flat, _ = jax.tree_util.tree_flatten_with_path(
+        spec_tree, is_leaf=lambda x: isinstance(x, P))
+    return {jrules._path_names(path): tuple(s) for path, s in flat}
+
+
+def _port_flat(spec_tree) -> dict:
+    out = {}
+    rules._map_with_path(lambda path, s: out.__setitem__(path, s), spec_tree)
+    return out
+
+
+# ------------------------------------------- tests/test_infra.py, mirrored
+@pytest.fixture(scope="module")
+def mesh16():
+    return abstract_mesh((16, 16), ("data", "model"))
+
+
+def test_param_spec_rules(mesh16):
+    assert param_spec(("embed",), (128256, 4096), mesh16) == ("model", "data")
+    assert param_spec(("stack", "cycle", "0", "attn", "wq"),
+                      (32, 4096, 4096), mesh16) == (None, "data", "model")
+    # non-divisible axes drop to replication: 15 heads → 960 still divides
+    assert param_spec(("attn", "wq"), (960, 960), mesh16) == ("data", "model")
+    # truly non-divisible: replicate that axis
+    assert param_spec(("attn", "wk"), (960, 28 * 11), mesh16) == ("data", None)
+    # expert params: expert-parallel
+    assert param_spec(("ffn", "gate"), (128, 2048, 768), mesh16) == ("model", "data", None)
+    # tiny 1-D params replicate
+    assert param_spec(("norm",), (1024,), mesh16) == (None,)
+    # optimizer state mirrors its parameter
+    assert param_spec(("m", "stack", "cycle", "0", "ffn", "down"),
+                      (32, 14336, 4096), mesh16) == (None, "model", "data")
+
+
+def test_data_and_cache_specs(mesh16):
+    assert data_spec((256, 4096), mesh16) == ("data", None)     # P(("data",), None)
+    assert data_spec((1, 128), mesh16) == (None, None)   # batch 1: replicate
+    # KV cache: batch over data, heads over model when divisible
+    assert cache_spec((128, 32768, 16, 128), mesh16)[0] in ("data", ("data",))
+    # batch-1 long-context cache: shard the sequence dim
+    assert cache_spec((1, 524288, 8, 128), mesh16)[1] == "data"
+
+
+def test_multipod_batch_axes():
+    mesh = abstract_mesh((2, 16, 16), ("pod", "data", "model"))
+    assert data_spec((256, 4096), mesh) == (("pod", "data"), None)
+
+
+# ------------------------------- every leaf of every arch, both packages
+@pytest.fixture(scope="module")
+def trees():
+    """arch → (the reference's param/opt shape trees, the port's meta trees)."""
+    return {}
+
+
+def _trees(trees, arch):
+    if arch not in trees:
+        jcfg = jconfigs.get_config(arch)
+        jparams = jax.eval_shape(JaxModel(jcfg).init, jax.random.PRNGKey(0))
+        model = Model(configs.get_config(arch), device="meta")
+        tparams = model.param_tree()
+        ref = {"params": jparams}
+        port = {"params": tparams}
+        for name in ("adamw", "adafactor"):
+            ref[name] = jax.eval_shape(jget_optimizer(name).init, jparams)
+            port[name] = get_optimizer(name).init(tparams)
+        trees[arch] = (ref, port, model)
+    return trees[arch]
+
+
+@pytest.mark.parametrize("arch", configs.ARCH_IDS)
+def test_param_specs_equal_the_reference_for_every_leaf(trees, arch):
+    ref, port, model = _trees(trees, arch)
+    for mesh_name, (sizes, names) in MESHES.items():
+        jmesh, tmesh = jrules.abstract_mesh(sizes, names), abstract_mesh(sizes, names)
+        for fsdp in (True, False):
+            for tree in ("params", "adamw", "adafactor"):
+                want = _ref_flat(jrules.tree_param_specs(ref[tree], jmesh, fsdp=fsdp))
+                got = _port_flat(tree_param_specs(port[tree], tmesh, fsdp=fsdp))
+                assert got == want, (arch, mesh_name, fsdp, tree)
+            # each parameter of the port's modules: its tree leaf's spec,
+            # a cycle layer's without the stacked dim
+            flat = _port_flat(tree_param_specs(port["params"], tmesh, fsdp=fsdp))
+            per_param = model.param_specs(tmesh, fsdp)
+            for name, path in model.param_paths().items():
+                want = flat[path][1:] if "cycle" in path else flat[path]
+                assert per_param[name] == want, (arch, name)
+
+
+@pytest.mark.parametrize("shape_name", ["decode_32k", "long_500k"])
+def test_cache_specs_equal_the_reference(shape_name):
+    shape = configs.SHAPES[shape_name]
+    for arch in configs.ARCH_IDS:
+        ok, _ = jconfigs.supports_shape(jconfigs.get_config(arch), shape_name)
+        if not ok:
+            continue
+        jcfg = jconfigs.config_for_shape(jconfigs.get_config(arch), shape_name)
+        jm = JaxModel(jcfg)
+        enc = shape.seq_len if jcfg.encoder_layers else None
+        L = jm.decode_cache_len(shape)
+        jcache = jax.eval_shape(lambda: jm.init_cache(shape.global_batch, L, enc_len=enc))
+        tcfg = config_for_shape(configs.get_config(arch), shape_name)
+        tcache = Model(tcfg, device="meta").init_cache(shape.global_batch, L, enc_len=enc)
+        for sizes, names in MESHES.values():
+            jmesh, tmesh = jrules.abstract_mesh(sizes, names), abstract_mesh(sizes, names)
+            want = _ref_flat(jrules.tree_cache_specs(jcache, jmesh))
+            # the same function on the same (stacked) shapes
+            for path, leaf in jax.tree_util.tree_flatten_with_path(jcache)[0]:
+                assert cache_spec(tuple(leaf.shape), tmesh) == \
+                    want[jrules._path_names(path)], (arch, path)
+            # the port's caches are per layer: each its own shape's spec
+            for layer in tree_cache_specs(tcache, tmesh):
+                for k, spec in layer.items():
+                    assert isinstance(spec, tuple)
+            for spec_layer, cache_layer in zip(tree_cache_specs(tcache, tmesh), tcache):
+                for k, t in cache_layer.items():
+                    assert spec_layer[k] == jrules.cache_spec(tuple(t.shape), jmesh)
+
+
+# ------------------------------------------------------ placements ↔ specs
+def _device_mesh(shape, names):
+    """A DeviceMesh object with no process group: enough for placements."""
+    return SimpleNamespace(mesh_dim_names=names, mesh=torch.zeros(shape))
+
+
+@pytest.mark.parametrize("spec,shape", [
+    ((("pod", "data"), None), (2, 4, 4)),
+    (("model", "data"), (2, 4, 4)),
+    ((None, "data", "model"), (2, 4, 4)),
+    ((None, None), (2, 4, 4)),
+    ((), (2, 4, 4)),
+    ((("data",), None), (4, 4)),
+    (("model", None, "data"), (4, 4)),
+])
+def test_to_placements_round_trips(spec, shape):
+    from torch.distributed.tensor import Replicate, Shard
+
+    names = ("pod", "data", "model")[-len(shape):]
+    mesh = _device_mesh(shape, names)
+    pl = to_placements(spec, mesh)
+    assert len(pl) == len(names)
+    for name, p in zip(names, pl):
+        dims = [i for i, e in enumerate(spec)
+                if e is not None and name in (e if isinstance(e, tuple) else (e,))]
+        assert p == (Shard(dims[0]) if dims else Replicate())
+    want = tuple(e[0] if isinstance(e, tuple) and len(e) == 1 else e for e in spec)
+    assert to_spec(pl, mesh, len(spec)) == want
+    assert to_placements(want, mesh) == pl
+    assert to_placements(to_spec(pl, mesh, len(spec)), mesh) == pl
+
+
+def test_to_placements_refuses_axes_out_of_order():
+    with pytest.raises(ValueError):
+        to_placements((("data", "pod"),), _device_mesh((2, 4, 4), ("pod", "data", "model")))
+
+
+# ------------------------------------------------ ctx on a fake 4 × 4 mesh
+CTX_CASES = [
+    ("shard_batch", (8, 32, 64), {}),
+    ("shard_batch", (6, 32, 64), {}),
+    ("shard_batch", (8, 32, 512), {"model_dim": -1}),
+    ("shard_batch", (2, 32, 6), {"model_dim": -1}),
+    ("shard_experts", (8, 16, 4), {}),
+    ("shard_experts", (6, 16, 4), {}),
+    ("shard_seq", (2, 64, 4), {}),
+    ("shard_seq", (2, 6, 4), {}),
+    ("shard_group_experts", (4, 8, 3, 16), {}),
+    ("shard_group_experts", (3, 8, 3, 16), {}),
+]
+CTX_MESHES = {"4x4": ((4, 4), ("data", "model")),
+              "2x2x4": ((2, 2, 4), ("pod", "data", "model"))}
+
+_CTX_CHILD = r"""
+import json, sys, torch
+import torch.distributed as dist
+from torch.distributed.device_mesh import DeviceMesh
+from torch.distributed.tensor import DTensor, Replicate
+from torch.testing._internal.distributed.fake_pg import FakeStore
+from repro_torch.sharding import ctx
+from repro_torch.sharding.rules import to_spec
+cases, meshes = json.loads(sys.argv[1]), json.loads(sys.argv[2])
+dist.init_process_group("fake", store=FakeStore(), rank=0, world_size=16)
+out = {}
+for mname, (sizes, names) in meshes.items():
+    mesh = DeviceMesh("cpu", torch.arange(16).view(sizes), mesh_dim_names=tuple(names))
+    rows = []
+    with ctx.use_mesh_constraints(mesh):
+        counts = [ctx.batch_shard_count(), ctx.data_axis_size(), ctx.enabled()]
+        for fn, shape, kw in cases:
+            x = DTensor.from_local(torch.zeros(shape), mesh, [Replicate()] * mesh.ndim,
+                                   run_check=False)
+            y = getattr(ctx, fn)(x, **kw)
+            rows.append([list(y.shape), [list(e) if isinstance(e, tuple) else e
+                                         for e in to_spec(y.placements, mesh, len(shape))]])
+        plain = ctx.shard_batch(torch.zeros(8, 4))
+        rows.append(type(plain).__name__)
+    counts.append(ctx.enabled())
+    out[mname] = {"rows": rows, "counts": counts}
+# views DTensor versions may refuse, done on the blocks: rank 0's block of
+# the view is the view's block of the whole tensor under the placements made
+from torch.distributed.tensor import Shard, distribute_tensor
+mesh = DeviceMesh("cpu", torch.arange(16).view(4, 4), mesh_dim_names=("data", "model"))
+views = []
+for shape, pl, new in (((64, 12), [Shard(0), Replicate()], (8, 8, 12)),
+                       ((8, 2, 96), [Shard(0), Shard(2)], (8, 2, 8, 12)),
+                       ((8, 2, 8, 12), [Shard(0), Shard(2)], (8, 2, 96)),
+                       ((8, 1, 32), [Replicate(), Shard(2)], (8, 32)),
+                       ((8, 2, 12), [Replicate(), Shard(2)], (8, 2, 2, 6)),
+                       ((8, 6), [Shard(1), Replicate()], (48,))):
+    g = torch.arange(float(torch.Size(shape).numel())).view(shape)
+    t = distribute_tensor(g, mesh, pl, src_data_rank=None)
+    v = ctx._block_view(t, new)
+    if v is None:
+        views.append(None)
+        continue
+    want = distribute_tensor(g.view(new), mesh, v.placements, src_data_rank=None).to_local()
+    views.append([str(v.placements), list(v.shape), bool(torch.equal(v.to_local(), want))])
+out["views"] = views
+print(json.dumps(out))
+"""
+
+
+def _norm(spec):
+    """A spec with one-name tuples unwrapped (``("data",)`` ≡ ``"data"``)."""
+    return tuple(e[0] if isinstance(e, (tuple, list)) and len(e) == 1 else
+                 tuple(e) if isinstance(e, list) else e for e in spec)
+
+
+def test_ctx_redistributes_to_the_reference_specs(monkeypatch):
+    env = {**os.environ, "PYTHONPATH": str(ROOT / "src")}
+    res = subprocess.run([sys.executable, "-c", _CTX_CHILD, json.dumps(CTX_CASES),
+                          json.dumps(CTX_MESHES)], capture_output=True, text=True,
+                         env=env, cwd=str(ROOT), timeout=300)
+    assert res.returncode == 0, res.stderr[-3000:]
+    got = json.loads(res.stdout.strip().splitlines()[-1])
+    captured = []
+    monkeypatch.setattr(jax.lax, "with_sharding_constraint",
+                        lambda x, spec: captured.append(tuple(spec)) or x)
+    for mname, (sizes, names) in CTX_MESHES.items():
+        jctx.enable(SimpleNamespace(axis_names=names, devices=np.empty(sizes)))
+        try:
+            counts = [jctx.batch_shard_count(), jctx.data_axis_size(), jctx.enabled()]
+            for (fn, shape, kw), (gshape, gspec) in zip(CTX_CASES, got[mname]["rows"]):
+                captured.clear()
+                getattr(jctx, fn)(jnp.zeros(shape), **kw)
+                want = captured[0] if captured else (None,) * len(shape)
+                assert gshape == list(shape)
+                assert _norm(gspec) == _norm(want), (mname, fn, shape, kw)
+        finally:
+            jctx.disable()
+        assert got[mname]["counts"] == counts + [False]
+        assert got[mname]["rows"][-1] == "Tensor"      # a plain tensor passes as it is
+    views = got["views"]
+    for v in views[:4]:
+        assert v is not None and v[2], v       # block views, rank 0's block right
+    assert views[0][1] == [8, 8, 12] and "Shard(dim=0)" in views[0][0]
+    assert views[1][0].count("Shard(dim=2)") == 1
+    assert views[4] is None            # 12 = 2 x 6 over 4 ways: not a block of the 2
+    assert views[5] is None            # a sharded inner dim of a flattening
+
+
+def test_ctx_is_the_identity_when_disabled():
+    from repro_torch.sharding import ctx
+
+    x = torch.zeros(8, 4)
+    assert not ctx.enabled()
+    for fn in (ctx.shard_batch, ctx.shard_experts, ctx.shard_seq, ctx.shard_group_experts):
+        assert fn(x) is x
