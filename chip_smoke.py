@@ -254,11 +254,16 @@ Phases:
    peak bytes within ±20 % of ``torch.cuda.max_memory_allocated`` (less
    what the process held before the step beyond its inputs), and
    op_cost's bytes beside the profiler's device time by op group. Meanwhile
-   ``python -m repro_torch.launch.dryrun`` traces llama3-8b × ``train_4k``
-   on 16 × 16 and deepseek-v2-lite-16b × ``decode_32k`` on 2 × 16 × 16,
-   each in a process of its own (a fake group): both must trace; their rows
-   (GB a rank against 80, flops, bytes, collectives by kind, the dominant
-   term) are printed. None of the eight kernels launches.
+   ``python -m repro_torch.launch.dryrun`` traces llama3-8b and
+   deepseek-v2-lite-16b × ``train_4k`` on 16 × 16 and deepseek-v2-lite-16b
+   × ``decode_32k`` on 2 × 16 × 16, and ``--rank-rule`` holds reduced
+   smollm-360m, deepseek-v2-lite-16b and llama3-8b to the rank rule on a
+   fake 4 × 4 group (the CPU test's check, on this host's torch), each in a
+   process of its own (a fake group): every dry run must trace and
+   replicate nothing where no rule placed it but the train step's
+   microbatch split, every rank rule must hold; their rows (GB a rank
+   against 80, flops, bytes, collectives by kind, the dominant term) and
+   the torch version are printed. None of the eight kernels launches.
 
 Each phase's wall is printed as it ends. It prints a ``{"kernels": [...]}``
 JSON line, then the card's name and power
@@ -402,7 +407,8 @@ ZOO_ATOL = {"xlstm-1.3b": 2e-4}
 # bytes); the dry run's two cases, each a process of its own (a fake group).
 SHARD_TRAIN = dict(arch="smollm-360m", steps=4, batch=8, seq=1024, lr=3e-4)
 SHARD_FLOPS_RTOL, SHARD_PEAK_TOL = 0.01, 0.20
-SHARD_DRYRUNS = (("llama3-8b", "train_4k", False), ("deepseek-v2-lite-16b", "decode_32k", True))
+SHARD_DRYRUNS = (("llama3-8b", "train_4k", False), ("deepseek-v2-lite-16b", "train_4k", False),
+                 ("deepseek-v2-lite-16b", "decode_32k", True))
 SHARD_DRYRUN_TIMEOUT_S = 600
 SHARD_MATMULS = ("aten::mm", "aten::addmm", "aten::bmm", "aten::baddbmm")
 SHARD_OP_GROUPS = (("matmuls", ("mm", "addmm", "bmm", "baddbmm")),
@@ -810,10 +816,11 @@ def phase_sync(device, main: dict) -> dict:
     del runs, p1, p2
     sync_pps = [batch * i["steps_per_epoch"] / i["train_s"] for i in (i1, i2)]
     async_pps = main["n"] * main["B"] / (main["train_s"] / main["steps"])
-    log(f"[sync] pairs/s: synchronous baseline {sync_pps[0]:.4e} / {sync_pps[1]:.4e} "
-        f"(10,240 x {steps} / train_s); asynchronous main path {async_pps:.4e} "
-        f"(n·B / step wall, {main['train_s']:.3f} s for {main['steps']} steps): "
-        f"{async_pps / sync_pps[0]:.3f}x")
+    log(f"[sync] pairs/s: synchronous baseline {sync_pps[1]:.4e} warm (its repeat; the "
+        f"first, cold run {sync_pps[0]:.4e}) (10,240 x {steps} / train_s); asynchronous "
+        f"main path {async_pps:.4e} (n·B / step wall, {main['train_s']:.3f} s for "
+        f"{main['steps']} steps): {async_pps / sync_pps[1]:.3f}x the warm baseline "
+        f"({async_pps / sync_pps[0]:.3f}x the cold run)")
 
     # its first steps against the same steps on the CPU
     inp = _sync_inputs(device)
@@ -1649,17 +1656,76 @@ def _start_dryruns(out: Path) -> list:
     return procs
 
 
-def _finish_dryruns(procs) -> dict:
-    rows = {}
-    for tag, js, log_path, f, t0, p in procs:
+def _start_rank_rules(out: Path) -> list:
+    """``python -m repro_torch.launch.dryrun --rank-rule`` on each arch of
+    ``RANK_RULE_ARCHS`` (reduced, a fake group of 16), each a process of its
+    own beside the dry runs: the CPU test of the rule, on this host's
+    torch."""
+    import os
+    from repro_torch.launch.dryrun import RANK_RULE_ARCHS
+
+    env = {**os.environ, "PYTHONPATH": str(ROOT / "src"), "OMP_NUM_THREADS": "1"}
+    procs = []
+    for arch in RANK_RULE_ARCHS:
+        log_path = out / f"rank_rule_{arch}.log"
+        f = open(log_path, "w")
+        procs.append((arch, log_path, f, time.perf_counter(), subprocess.Popen(
+            [sys.executable, "-m", "repro_torch.launch.dryrun", "--rank-rule", arch],
+            stdout=f, stderr=subprocess.STDOUT, env=env, cwd=str(ROOT))))
+    return procs
+
+
+def _end_procs(procs, kill: bool) -> dict:
+    """Waits on each process of ``procs`` (each tuple ends with its log
+    file, its start and its ``Popen``) until ``SHARD_DRYRUN_TIMEOUT_S``
+    after its start, or at once kills it where ``kill``; one past its time
+    is killed. Closes the logs. Returns ``{Popen: (exit code or "timeout",
+    seconds from its start to its end as waited)}``."""
+    rcs = {}
+    for *_, f, t0, p in procs:
         try:
-            rc = p.wait(timeout=max(1.0, SHARD_DRYRUN_TIMEOUT_S - (time.perf_counter() - t0)))
+            if kill:
+                p.kill()
+            left = SHARD_DRYRUN_TIMEOUT_S - (time.perf_counter() - t0)
+            rc = p.wait(timeout=max(1.0, left))
         except subprocess.TimeoutExpired:
             p.kill()
             p.wait()
             rc = "timeout"
+        rcs[p] = (rc, time.perf_counter() - t0)
         f.close()
-        wall = time.perf_counter() - t0
+    return rcs
+
+
+def _finish_rank_rules(procs, rcs: dict) -> dict:
+    """Each arch's cases, from the ended processes (:func:`_end_procs`);
+    raises where one misses the rule (the command's exit code) or made no
+    line."""
+    got = {}
+    for arch, log_path, f, t0, p in procs:
+        rc = rcs[p][0]
+        lines = [ln for ln in log_path.read_text().splitlines() if ln.startswith("{")]
+        if not lines:
+            raise RuntimeError(f"the rank rule of {arch} printed nothing (exit {rc})")
+        got[arch] = json.loads(lines[-1])
+        for kind, c in got[arch].items():
+            over = 16 * c["per_rank"] / c["unsharded"] - 1
+            log(f"[sharding] rank rule, reduced {arch} {kind} on 4 x 4: a rank "
+                f"{c['per_rank']:.6e} matmul flops x 16 = {16 * c['per_rank']:.6e} vs "
+                f"{c['unsharded']:.6e} without a mesh (rel {over:+.6e}; allowed above it: 3 x "
+                f"{c['excused']:.6e} excused = {3 * c['excused'] / c['unsharded']:.6e} of it); "
+                f"replicated where no rule: {c['fallbacks'] or 'none'}")
+        if rc != 0:
+            raise RuntimeError(f"reduced {arch} misses the rank rule (exit {rc})")
+    return got
+
+
+def _finish_dryruns(procs, rcs: dict) -> dict:
+    """Each dry run's row, from the ended processes (:func:`_end_procs`);
+    raises where one failed or made no roofline row."""
+    rows = {}
+    for tag, js, log_path, f, t0, p in procs:
+        rc, wall = rcs[p]
         text = log_path.read_text()
         log(f"[sharding] dry run {tag}: exit {rc}, {wall:.1f} s; its output:")
         for line in text.splitlines():
@@ -1691,7 +1757,9 @@ def phase_sharding(device) -> dict:
 
     out = ROOT / "build" / "chip_smoke_sharding"
     out.mkdir(parents=True, exist_ok=True)
+    log(f"[sharding] torch {torch.__version__} (the dry runs and the rank rule trace on it)")
     procs = _start_dryruns(out)
+    rule_procs = _start_rank_rules(out)
     try:
         arch, steps, B, S = (SHARD_TRAIN[k] for k in ("arch", "steps", "batch", "seq"))
         kw = dict(reduced=False, steps=steps, batch=B, seq=S, lr=SHARD_TRAIN["lr"],
@@ -1800,18 +1868,29 @@ def phase_sharding(device) -> dict:
             raise RuntimeError(f"op_cost's peak bytes are {peak_rel:+.3f} off the allocator's")
         del model, opt_state, step_fn, batches, prof
         torch.cuda.empty_cache()
+    except BaseException:
+        _end_procs(procs + rule_procs, kill=True)
+        raise
     finally:
         if dist.is_initialized():
             dist.destroy_process_group()
-        dryruns = _finish_dryruns(procs)
+    rcs = _end_procs(procs + rule_procs, kill=False)
+    dryruns = _finish_dryruns(procs, rcs)
+    rank_rule = _finish_rank_rules(rule_procs, rcs)
+    from repro_torch.launch.dryrun import microbatch_split_only
+
     for tag, row in dryruns.items():
-        log(f"[sharding] {tag}: {row['chips']} ranks, {row['hbm_gb_per_chip'] * 2**30 / 1e9:.3f} "
-            f"GB a rank (of 80: fits {row['fits']}), flops {row['flops_per_chip']:.4e}, bytes "
+        log(f"[sharding] {tag}: {row['chips']} ranks, {row['hbm_gb_per_chip'] * 2**30 / 1e9:.6f} "
+            f"GB a rank (of 80: fits {row['fits']}), flops {row['flops_per_chip']:.9e} (matmul "
+            f"{row['matmul_flops_per_chip']:.9e}), bytes "
             f"{row['bytes_per_chip']:.4e}, collectives {row['collective_ops']} "
             f"({row['collective_bytes_per_chip']:.4e} B, dcn {row['dcn_bytes_per_chip']:.4e}), "
             f"{row['dominant']}-bound, replicated where no rule: {row['fallbacks']}; counted "
             f"on the host, {row['trace_s']:.1f} s to trace")
-    return {"losses": sharded, "bitwise": bitwise, "s_step": s_step,
+        if not microbatch_split_only(row["fallbacks"], row.get("microbatches") or 1):
+            raise RuntimeError(f"the dry run {tag} replicated more than the microbatch split: "
+                               f"{row['fallbacks']} ({row['fallback_reasons']})")
+    return {"rank_rule": rank_rule, "losses": sharded, "bitwise": bitwise, "s_step": s_step,
             "matmul_flops": cost.matmul_flops, "profiler_matmul_flops": prof_mm,
             "flops_rel": flops_rel, "bound_s": r.bound_s, "peak_bytes": cost.peak_bytes,
             "peak_alloc": peak_alloc, "peak_step": peak_step, "peak_rel": peak_rel,

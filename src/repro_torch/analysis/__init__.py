@@ -24,3 +24,14 @@
 kernel studies (``pair_conflicts``, ``kernel_variants``,
 ``block_step_variants``, ``chain_phases``) run standalone.
 """
+
+import importlib
+
+__all__ = ["contracts", "dma_model", "lint_rules", "vmem", "workloads"]
+
+
+def __getattr__(name):
+    # the reference's submodule names, imported on first use
+    if name in __all__:
+        return importlib.import_module(f"{__name__}.{name}")
+    raise AttributeError(f"module {__name__!r} has no attribute {name!r}")

@@ -667,6 +667,11 @@ def merge_average(stacked: StackedModels, *, device=None):
     return _merge_average(stacked.to(resolve_device(device)))
 
 
+#: The pre-registry name of an incremental fold's result, kept as the
+#: reference keeps it: every merger now returns :class:`MergeResult`.
+FoldResult = MergeResult
+
+
 # ---------------------------------------------------------------------------
 # Name-dispatched merge for the pipeline driver.
 # ---------------------------------------------------------------------------

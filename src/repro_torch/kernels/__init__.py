@@ -20,4 +20,36 @@ with their plain torch versions and wrappers.
   layers' decode in ``repro_torch.models.attention``; ``ref`` holds its
   plain version.
 * ``build`` — ``nvcc`` build and ``ctypes`` loading of the sources.
+
+The package exports the names ``repro.kernels`` exports, each on its port
+counterpart (the Pallas dials ``interpret`` and ``block_b`` have none):
+``sgns_row_grads``, ``sgns_apply_step``, ``make_row_grad_fn`` (``ops``, over
+K3); ``sgns_fused_step``, ``counter_uniforms``, ``sample_negatives_fused``
+and ``fused_negative_ids`` (``sgns_fused``: K2, the draw's hash, K1 under
+the reference's ``(table, key, shape)`` sampler contract, the draw as a
+function of values); ``sgns_row_grads_ref`` and ``swa_decode_ref``
+(``ref``); ``swa_decode_kernel`` (``swa_decode``, K7).
 """
+
+import importlib
+
+# name -> submodule, imported on first use (the kernel modules import core)
+_EXPORTS = {"sgns_row_grads": "ops", "sgns_apply_step": "ops", "make_row_grad_fn": "ops",
+            "sgns_fused_step": "sgns_fused", "sample_negatives_fused": "sgns_fused",
+            "fused_negative_ids": "sgns_fused", "counter_uniforms": "sgns_fused",
+            "sgns_row_grads_ref": "ref", "swa_decode_ref": "ref",
+            "swa_decode_kernel": "swa_decode"}
+
+__all__ = list(_EXPORTS)
+
+
+def __getattr__(name):
+    if name in _EXPORTS:
+        value = getattr(importlib.import_module(f"{__name__}.{_EXPORTS[name]}"), name)
+        globals()[name] = value
+        return value
+    raise AttributeError(f"module {__name__!r} has no attribute {name!r}")
+
+
+def __dir__():
+    return sorted(set(globals()) | set(__all__))

@@ -53,3 +53,11 @@ def swa_decode_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     p = torch.softmax(s, dim=-1)
     out = torch.einsum("bgrw,bwgd->bgrd", p, v.float())
     return out.reshape(B, H, D).to(q.dtype)
+
+
+def swa_decode_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
+    """The reference's ``swa_decode_ref(q, k, v)``: q (B, H, D), k/v (B, W,
+    H, D) holding exactly the window → (B, H, D) in q's dtype, float32
+    scores. :func:`swa_decode_plain` at one chunk of the whole window (it
+    also takes ``H % Hkv == 0`` grouped KV heads)."""
+    return swa_decode_plain(q, k, v, chunk=k.shape[1])

@@ -241,6 +241,39 @@ def sample_negatives(seeds: torch.Tensor, prob: torch.Tensor,
     return out
 
 
+def _seed_of(key, device) -> torch.Tensor:
+    """One ``(2,)`` key — uint32 words, or a tensor of their bits or
+    values — as the ``(1, 2)`` int32 seed tensor the kernels take."""
+    if isinstance(key, torch.Tensor):
+        k = key.to(device=device, dtype=torch.int64).reshape(1, 2) & _MASK
+        return torch.where(k >= 1 << 31, k - (1 << 32), k).to(torch.int32)
+    return seed_tensor(np.asarray(key).reshape(1, 2), device)
+
+
+def fused_negative_ids(seed, prob: torch.Tensor, alias: torch.Tensor,
+                       shape: tuple[int, ...]) -> torch.Tensor:
+    """The reference's ``fused_negative_ids``: the kernels' negative draw as
+    a function of values, ``shape`` int32 ids from one alias table ``prob``,
+    ``alias`` ``(V,)`` under one ``(2,)`` ``seed``, two counters a draw,
+    row-major from 0 (:func:`alias_draw_from_counters`)."""
+    count = int(np.prod(shape, dtype=np.int64))
+    base = torch.arange(count, dtype=torch.int64, device=prob.device).reshape(1, count)
+    ids = alias_draw_from_counters(_seed_of(seed, prob.device), prob.reshape(1, -1),
+                                   alias.reshape(1, -1), base)
+    return ids.reshape(tuple(shape))
+
+
+def sample_negatives_fused(table: dict, key, shape: tuple[int, ...]) -> torch.Tensor:
+    """The reference's ``sample_negatives_fused(table, key, shape)``, the
+    samplers' ``fn(table, key, shape)`` contract, on K1: ``shape`` int32 ids
+    from one alias table ``{"prob", "alias"}`` ``(V,)`` under one ``(2,)``
+    key (its plain version on CPU tensors, the kernel on CUDA ones)."""
+    prob, alias = table["prob"], table["alias"]
+    seeds = _seed_of(key, prob.device)
+    return sample_negatives(seeds, prob.reshape(1, -1).contiguous(),
+                            alias.reshape(1, -1).contiguous(), tuple(shape))[0]
+
+
 def sgns_fused_step(params: dict, centers: torch.Tensor, contexts: torch.Tensor,
                     table: dict, seeds: torch.Tensor, lr: float, *,
                     negatives: int = 5):

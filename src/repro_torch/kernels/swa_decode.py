@@ -143,3 +143,11 @@ def swa_decode(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     _raise_on(err, "swa_decode")
     LAUNCHES["swa_decode"] += 1
     return out
+
+
+def swa_decode_kernel(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                      chunk: int = 512) -> torch.Tensor:
+    """The reference's ``swa_decode_kernel(q, k, v, *, chunk)`` (its
+    ``interpret`` dial has no counterpart): :func:`swa_decode`, K7 on CUDA
+    tensors and its plain version on CPU ones."""
+    return swa_decode(q, k, v, chunk=chunk)

@@ -28,6 +28,7 @@ The fake group lives in its own process: run this module as a command.
 
   python -m repro_torch.launch.dryrun --arch llama3-8b --shape train_4k
   python -m repro_torch.launch.dryrun --arch all --shape all [--multi-pod] --json out.json
+  python -m repro_torch.launch.dryrun --rank-rule deepseek-v2-lite-16b
 """
 
 from __future__ import annotations
@@ -51,7 +52,8 @@ from repro_torch.models import Model
 from repro_torch.optim import get_optimizer
 from repro_torch.sharding import ctx as shctx
 from repro_torch.sharding.rules import (
-    batch_axes, cache_spec, data_spec, local_shape, to_placements, tree_param_specs)
+    abstract_mesh, batch_axes, cache_spec, data_spec, local_shape, to_placements,
+    tree_param_specs)
 from repro_torch.tree import tree_map
 
 CARD_BYTES = 80e9     # an H100's device memory
@@ -221,6 +223,115 @@ def apply_variant(cfg, variant: str, shape_name: str):
 
 
 # ---------------------------------------------------------------------------
+# The rank rule: a rank's matmul flops x ranks = the unsharded count, but for
+# the matmuls of weights the specs keep whole on ``model``, which each of the
+# axis's ranks repeats.
+# ---------------------------------------------------------------------------
+#: The archs it is held on (dense, MoE + MLA, grouped attention 4:1) and its
+#: two cases, reduced on a fake 4 x 4 group: every dim divides.
+RANK_RULE_ARCHS = ("smollm-360m", "deepseek-v2-lite-16b", "llama3-8b")
+RANK_RULE_RANKS = 16
+RANK_RULE_RTOL = 0.01
+#: the most the repeats of the excused matmuls may add, a share of the
+#: unsharded count
+RANK_RULE_EXCUSED_MAX = 0.05
+
+
+def _rank_rule_shapes():
+    from repro_torch.configs.shapes import InputShape
+
+    return (InputShape("p", 32, 16, "prefill"), InputShape("t", 32, 16, "train"))
+
+
+def unsharded_matmul_flops(arch_id: str, kind: str, microbatches: int = 1) -> float:
+    """The matmul flops of the rank rule's ``kind`` case of reduced
+    ``arch_id`` traced on ``meta`` without a mesh."""
+    cfg = get_config(arch_id).reduced().with_overrides(dtype="bfloat16")
+    model = Model(cfg, device="meta")
+    shape = next(s for s in _rank_rule_shapes() if s.kind == kind)
+    batch = model.example_batch(shape, concrete=False)
+    with op_cost.CostMode() as mode:
+        if kind == "prefill":
+            with torch.no_grad():
+                model.forward_logits(batch)
+        else:
+            opt = get_optimizer(cfg.train_optimizer)
+            model.make_train_step(opt, microbatches=microbatches)(
+                opt.init(model.param_tree()), batch, 0)
+    return mode.cost.matmul_flops
+
+
+def excused_matmul_flops(arch_id: str, kind: str) -> float:
+    """The most that reduced ``arch_id``'s products with weights whole on
+    ``model`` cost unsharded in the rank rule's ``kind`` case: the matrices
+    whose spec on the rule's 4 x 4 mesh (:meth:`Model.param_specs`) names no
+    ``model`` axis — deepseek's latent and rope down-projections and its
+    router; none in the dense archs — each applied to every token, 2 flops
+    a weight, once in a prefill and at most four times in a train step (the
+    forward, its recomputation, the input's and the weight's gradients)."""
+    model = Model(get_config(arch_id).reduced(), device="meta")
+    side = math.isqrt(RANK_RULE_RANKS)
+    mesh = abstract_mesh((side, side), ("data", "model"))
+
+    def axes(spec):
+        return {a for e in spec if e is not None for a in (e if isinstance(e, tuple) else (e,))}
+
+    weights = sum(model.get_parameter(n).numel() for n, spec in model.param_specs(mesh).items()
+                  if model.get_parameter(n).dim() == 2 and "model" not in axes(spec))
+    shape = next(s for s in _rank_rule_shapes() if s.kind == kind)
+    return (1 if kind == "prefill" else 4) * 2 * shape.global_batch * shape.seq_len * weights
+
+
+def rank_rule(arch_id: str) -> dict:
+    """Reduced ``arch_id``'s prefill and train step on a fake group of 16
+    ranks (4 x 4), per case: a rank's matmul flops, the unsharded count,
+    the excused flops (:func:`excused_matmul_flops`), the microbatches and
+    the points replicated where no rule placed them (``fallbacks``). Joins
+    the fake group: run it in a process of its own (``--rank-rule``)."""
+    import torch.distributed as dist
+    from torch.distributed.device_mesh import DeviceMesh
+
+    if not dist.is_initialized():
+        join_fake_group(RANK_RULE_RANKS)
+    side = math.isqrt(RANK_RULE_RANKS)
+    mesh = DeviceMesh("cpu", torch.arange(RANK_RULE_RANKS).view(side, side),
+                      mesh_dim_names=("data", "model"))
+    cfg = get_config(arch_id).reduced()
+    out = {}
+    for shape in _rank_rule_shapes():
+        case, meta = build_case(arch_id, shape, mesh, cfg=cfg)
+        mode = case.run()
+        mb = meta.get("microbatches", 1)
+        out[shape.kind] = {"per_rank": mode.cost.matmul_flops, "microbatches": mb,
+                           "unsharded": unsharded_matmul_flops(arch_id, shape.kind, mb),
+                           "excused": excused_matmul_flops(arch_id, shape.kind),
+                           "fallbacks": dict(mode.fallbacks)}
+    return out
+
+
+def rank_rule_holds(c: dict) -> bool:
+    """One case of :func:`rank_rule`: a rank's matmul flops x 16 within
+    ``RANK_RULE_RTOL`` of the unsharded count, or above it by at most what
+    the excused products add when each of ``model``'s 4 ranks repeats them
+    (3 x their flops), that at most ``RANK_RULE_EXCUSED_MAX`` of the count;
+    nothing replicated but the microbatch split."""
+    u = c["unsharded"]
+    over = RANK_RULE_RANKS * c["per_rank"] - u
+    room = (math.isqrt(RANK_RULE_RANKS) - 1) * c["excused"]
+    return (-RANK_RULE_RTOL * u <= over <= room + RANK_RULE_RTOL * u
+            and room <= RANK_RULE_EXCUSED_MAX * u
+            and microbatch_split_only(c["fallbacks"], c["microbatches"]))
+
+
+def microbatch_split_only(fallbacks: dict, microbatches: int) -> bool:
+    """Whether ``fallbacks`` hold no more than the train step's microbatch
+    split of its two inputs, tokens and labels (``(B, S)`` → ``(mb, B/mb,
+    S)``: a split the batch shards do not divide, which stays replicated)."""
+    return not fallbacks or (microbatches > 1 and set(fallbacks) == {"aten.view.default"}
+                             and fallbacks["aten.view.default"] <= 2)
+
+
+# ---------------------------------------------------------------------------
 def run_case(arch_id: str, shape_name: str, *, multi_pod: bool,
              variant: str = "baseline", verbose: bool = True, mesh=None) -> dict:
     from repro_torch.launch.mesh import make_production_mesh
@@ -274,9 +385,17 @@ def main(argv=None):
     ap.add_argument("--multi-pod", action="store_true")
     ap.add_argument("--variant", default="baseline")
     ap.add_argument("--json", default=None, help="append rows to this file")
+    ap.add_argument("--rank-rule", default=None, metavar="ARCH",
+                    help="print the rank rule's cases of reduced ARCH as one JSON line "
+                         "(a fake group of 16) and exit 1 if one fails")
     args = ap.parse_args(argv)
 
     import torch.distributed as dist
+
+    if args.rank_rule:
+        got = rank_rule(args.rank_rule)
+        print(json.dumps(got))
+        sys.exit(0 if all(rank_rule_holds(c) for c in got.values()) else 1)
 
     if not dist.is_initialized():
         join_fake_group(512 if args.multi_pod else 256)

@@ -132,6 +132,7 @@ class GQA(nn.Module):
         q, k, v = x @ self.wq, x @ self.wk, x @ self.wv
         if self.bq is not None:
             q, k, v = q + self.bq, k + self.bk, v + self.bv
+        k, v = shctx.shard_kv_proj(k, self.n_kv), shctx.shard_kv_proj(v, self.n_kv)
         return (q.reshape(B, S, self.n_heads, self.head_dim),
                 k.reshape(B, S, self.n_kv, self.head_dim),
                 v.reshape(B, S, self.n_kv, self.head_dim))

@@ -22,8 +22,9 @@ Where GSPMD decides for the reference, the port decides here, once:
   at once;
 * :func:`gathered_params` gathers a layer's FSDP-sharded weights over
   ``data`` for the layer's use (the reference's per-use all-gather);
-* :func:`shard_attention`, :func:`shard_like` and :func:`shard_heads` pin
-  grouped attention, whose reshape DTensor cannot shard as GSPMD does.
+* :func:`shard_kv_proj`, :func:`shard_attention`, :func:`shard_like` and
+  :func:`shard_heads` pin grouped attention, whose reshapes DTensor cannot
+  shard as GSPMD does.
 """
 
 from __future__ import annotations
@@ -46,6 +47,7 @@ _aten = torch.ops.aten
 # row-parallel matmul and keep the weights sharded
 _MATMULS = (_aten.mm, _aten.bmm, _aten.addmm, _aten.baddbmm)
 _VIEWS = (_aten.view.default, _aten._unsafe_view.default, _aten.reshape.default)
+_INDEX_PUTS = (_aten.index_put.default, _aten.index_put_.default)
 
 
 class ShardedDispatch(TorchDispatchMode):
@@ -84,19 +86,27 @@ class ShardedDispatch(TorchDispatchMode):
             return DTensor.from_local(a, mesh, rep, run_check=False)
 
         args, kwargs = self._inside_dtensor(lambda: tree_map(replicated, (args, kwargs)))
+        # the port's own rules first: the same decision on every torch version
+        if func in _VIEWS:
+            out = self._inside_dtensor(lambda: _block_view(args[0], args[1], func))
+            if out is not None:
+                return out
+        if func in _INDEX_PUTS or func is _aten.index.Tensor:
+            out = self._inside_dtensor(lambda: _port_indexing(func, args, kwargs))
+            if out is not None:
+                return out
         if func.overloadpacket in _MATMULS:
             args, kwargs = self._inside_dtensor(lambda: tree_map(_reduced, (args, kwargs)))
         try:
-            return self._inside_dtensor(lambda: _reduce_masked(func(*args, **kwargs)))
+            plain_args, plain_kwargs, strided = self._inside_dtensor(
+                lambda: _unstride(func, args, kwargs))
+            return self._inside_dtensor(lambda: _restride(
+                _reduce_masked(func(*plain_args, **plain_kwargs)), strided))
         except (RuntimeError, NotImplementedError, IndexError) as e:
             # No rule for these placements, or a rule whose bookkeeping needs
             # data (under fake tensors). Replicated operands are always valid:
             # if the op fails on them too, that error is raised.
             reason = str(e).strip().splitlines()[0] if str(e).strip() else type(e).__name__
-        if func in _VIEWS:
-            out = self._inside_dtensor(lambda: _block_view(args[0], args[1]))
-            if out is not None:
-                return out
         name = str(func)
         self.fallbacks[name] = self.fallbacks.get(name, 0) + 1
         self.reasons.setdefault(name, reason[:200])
@@ -158,45 +168,511 @@ def _reshape_groups(a: list, b: list) -> list:
     return groups
 
 
-def _block_view(t, shape):
-    """``t`` (a DTensor) viewed as ``shape`` without moving data, where every
-    sharded dim is the first of more than one element in its reshape group
-    and the group's first such output dim divides by its shard count: the
-    blocks each rank holds are then blocks of that output dim (a reshape
-    keeps row-major order). ``None`` where that does not hold. Some
-    DTensor versions refuse such views (a split of a sharded dim)."""
-    from torch.distributed.tensor import DTensor, Shard
+def _strided(dim: int, split_factor: int):
+    from torch.distributed.tensor.placement_types import _StridedShard
 
-    a = list(t.shape)
-    b = list(shape)
+    return _StridedShard(dim, split_factor=split_factor)
+
+
+def _shard_of(p):
+    """``(dim, split_factor)`` of a ``Shard`` (factor 1) or ``_StridedShard``
+    placement; ``None`` for any other placement."""
+    from torch.distributed.tensor import Shard
+
+    if type(p) is Shard:
+        return p.dim, 1
+    if type(p).__name__ == "_StridedShard":
+        return p.dim, int(p.split_factor)
+    return None
+
+
+def _dim_digits(t):
+    """Each dim of DTensor ``t``'s global index as a row-major list of
+    digits ``[radix, owner, dim, kind]``: ``owner`` the mesh dim whose
+    coordinate the digit is (its radix that mesh dim's size), or ``None``
+    for a digit of the local block. Built by applying the placements in
+    mesh order, as DTensor does: ``Shard`` chunks the local extent,
+    ``_StridedShard(sf)`` chunks each of its ``sf`` pieces. ``kind`` marks
+    the two uneven cases (``torch.chunk``'s sizes): ``"chunk"``, a dim one
+    mesh dim shards unevenly (one digit, its local extent the rank's own),
+    and ``"whole"``, any other uneven dim (one digit, owned by the tuple of
+    its mesh dims, that only moves as a whole dim). ``None`` where a
+    placement is not a shard, replicate or partial one."""
+    digits = [[[n, None, d, None]] for d, n in enumerate(t.shape)]
+    sizes = t.device_mesh.shape       # no ops (its .mesh tensor is built by ops)
+    shards = {}
+    for m, p in enumerate(t.placements):
+        if p.is_replicate() or p.is_partial():
+            continue
+        if _shard_of(p) is None:
+            return None
+        shards.setdefault(_shard_of(p)[0], []).append(m)
+    local = t._local_tensor.shape
+    for d, ms in shards.items():
+        dd = digits[d]
+        for m in ms:
+            if not _split_digit(dd, m, int(sizes[m]), _shard_of(t.placements[m])[1], d):
+                if len(ms) == 1 and t.shape[d] > 1:
+                    digits[d] = [[t.shape[d], m, d, "chunk", local[d]]]
+                else:
+                    digits[d] = [[t.shape[d], tuple(ms), d, "whole"]]
+                break
+    return digits
+
+
+def _split_digit(dd: list, m: int, n: int, sf: int, d: int) -> bool:
+    """Mesh dim ``m`` (size ``n``) chunking dim ``d``'s digits ``dd`` in
+    place, after ``sf`` pieces of its local digits; False where the local
+    digits do not factor so."""
+    i, acc = 0, 1
+    while True:
+        while i < len(dd) and dd[i][1] is not None:
+            i += 1
+        if acc == sf:
+            break
+        if i == len(dd) or sf % acc:
+            return False
+        r, need = dd[i][0], sf // acc
+        if r <= need:
+            if need % r:
+                return False
+            acc *= r
+        else:
+            if r % need:
+                return False
+            dd[i:i + 1] = [[need, None, d, None], [r // need, None, d, None]]
+            acc = sf
+        i += 1
+    if i == len(dd):
+        if n != 1:
+            return False
+        dd.append([1, m, d, None])
+    elif dd[i][0] % n == 0:
+        dd[i:i + 1] = [[n, m, d, None], [dd[i][0] // n, None, d, None]]
+    else:
+        return False
+    return True
+
+
+def _view_placements(t, shape):
+    """The placements and the local shape that view DTensor ``t`` as
+    ``shape`` without moving data, or ``None``: the port's own view rule,
+    the same on every torch version. Each reshape group's digits
+    (:func:`_dim_digits`) are laid out over its output dims in row-major
+    order (a local digit may split; a mesh dim's may not; an uneven one
+    must end its output dim, or be all of it), and a mesh dim's placement
+    is read off its output dim: ``Shard`` where no digit still to be
+    chunked precedes its own, else ``_StridedShard`` with their product as
+    the split factor — what torch 2.13's ``_view_ops`` gives, also its
+    ``_StridedShard`` of factor 1 for a sharded non-first dim of a
+    flattening."""
+    from torch.distributed.tensor import Shard
+
+    a, b = list(t.shape), list(shape)
     if -1 in b:
         b[b.index(-1)] = math.prod(a) // math.prod(d for d in b if d != -1)
     if math.prod(a) != math.prod(b):
         return None
-    first = {}
-    for ins, outs in _reshape_groups(a, b):
-        big_in = [d for d in ins if a[d] > 1]
-        big_out = [d for d in outs if b[d] > 1]
-        if big_in and big_out:
-            first[big_in[0]] = big_out[0]
-    sizes = t.device_mesh.mesh.shape
-    placements, ways = [], {}
-    for md, p in enumerate(t.placements):
-        if isinstance(p, Shard):
-            if type(p) is not Shard or p.dim not in first:
-                return None
-            placements.append(Shard(first[p.dim]))
-            ways[first[p.dim]] = ways.get(first[p.dim], 1) * int(sizes[md])
-        else:
-            placements.append(p)
-    if any(b[d] % n for d, n in ways.items()):
+    digits = _dim_digits(t)
+    if digits is None:
         return None
-    local_shape = [d // ways.get(i, 1) for i, d in enumerate(b)]
-    local = t.to_local()
+    out_digits = [[] for _ in b]
+    flatten_first = {}       # output dim -> the first input dim of its flattening
+    for ins, outs in _reshape_groups(a, b):
+        seq = []         # adjacent local digits merged: any factoring of them is a layout
+        for x in (x for d in ins for x in digits[d] if x[0] != 1 or x[1] is not None):
+            if seq and x[1] is None and x[3] is None and seq[-1][1] is None \
+                    and seq[-1][3] is None:
+                seq[-1] = [seq[-1][0] * x[0]] + seq[-1][1:]
+            else:
+                seq.append(list(x))
+        big_in = [d for d in ins if a[d] > 1]
+        big_out = [o for o in outs if b[o] > 1]
+        if len(big_out) == 1 and len(big_in) > 1:
+            flatten_first[big_out[0]] = big_in[0]
+        for k, o in enumerate(outs):
+            acc, last = 1, k == len(outs) - 1
+            while seq and (acc < b[o] or (seq[0][0] == 1 and (last or b[o] == 1))):
+                x = seq[0]
+                r, own, kind = x[0], x[1], x[3]
+                if kind == "whole" and (acc != 1 or r != b[o]):
+                    return None
+                if acc * r <= b[o] and b[o] % (acc * r) == 0:
+                    if kind == "chunk" and acc * r != b[o]:
+                        return None
+                    out_digits[o].append(seq.pop(0))
+                    acc *= r
+                elif own is None and b[o] % acc == 0 and r % (b[o] // acc) == 0:
+                    need = b[o] // acc
+                    out_digits[o].append([need] + x[1:])
+                    seq[0] = [r // need] + x[1:]
+                    acc = b[o]
+                else:
+                    return None
+            if acc != b[o]:
+                return None
+        if seq:
+            return None
+    placements = []
+    for m, p in enumerate(t.placements):
+        if _shard_of(p) is None:
+            placements.append(p)
+            continue
+        o, k = next((o, k) for o, od in enumerate(out_digits) for k, x in enumerate(od)
+                    if x[1] == m or (isinstance(x[1], tuple) and m in x[1]))
+        od = out_digits[o]
+        if od[k][3] == "whole":          # the dim moved whole: its placements with it
+            placements.append(type(p)(o) if _shard_of(p)[1] == 1 else _strided(o, p.split_factor))
+            continue
+        sf = math.prod(x[0] for x in od[:k]
+                       if x[1] is None or (not isinstance(x[1], tuple) and x[1] > m))
+        strided = sf > 1 or flatten_first.get(o, od[k][2]) != od[k][2]
+        placements.append(_strided(o, sf) if strided else Shard(o))
+    local_shape = [math.prod(x[4] if x[3] == "chunk" else x[0] for x in od
+                             if x[1] is None or x[3] in ("chunk", "whole")) for od in out_digits]
+    if any(x[3] == "whole" for od in out_digits for x in od):
+        local_shape = [t._local_tensor.shape[od[0][2]] if od and od[0][3] == "whole" else n
+                       for od, n in zip(out_digits, local_shape)]
+    return placements, local_shape, b
+
+
+def _block_view(t, shape, func=_aten.reshape.default):
+    """``t`` viewed as ``shape`` by :func:`_view_placements`, its local
+    block reshaped in place of DTensor's rule; ``None`` where the rule has
+    no layout."""
+    got = _view_placements(t, shape)
+    if got is None:
+        return None
+    placements, local_shape, b = got
+    local = t._local_tensor
     if math.prod(local.shape) != math.prod(local_shape):
         return None
-    return DTensor.from_local(local.reshape(local_shape), t.device_mesh, placements,
-                              run_check=False)
+    try:            # the local op DTensor's own rule runs
+        out = func(local, local_shape)
+    except RuntimeError:
+        out = local.reshape(local_shape)
+    stride = _view_strides(list(t.shape), list(t.stride()), b) or _contiguous_strides(b)
+    return _wrap(out, t.device_mesh, placements, b, stride)
+
+
+def _view_strides(shape: list, stride: list, new: list):
+    """The strides of a view of a ``shape``/``stride`` tensor as ``new``
+    (ATen's ``computeStride``), or ``None`` where it has none."""
+    if math.prod(shape) == 0 or not shape:
+        return None
+    out = [0] * len(new)
+    view_d, base, t_numel, v_numel = len(new) - 1, stride[-1], 1, 1
+    for d in range(len(shape) - 1, -1, -1):
+        t_numel *= shape[d]
+        if d == 0 or (shape[d - 1] != 1 and stride[d - 1] != t_numel * base):
+            while view_d >= 0 and (v_numel < t_numel or new[view_d] == 1):
+                out[view_d] = v_numel * base
+                v_numel *= new[view_d]
+                view_d -= 1
+            if v_numel != t_numel:
+                return None
+            if d > 0:
+                base, t_numel, v_numel = stride[d - 1], 1, 1
+    return tuple(out) if view_d == -1 else None
+
+
+def _wrap(local, mesh, placements, shape, stride, strided: bool = True):
+    """A DTensor of ``local`` blocks with ``placements``, global ``shape``
+    and ``stride``; a ``_StridedShard`` among them keeps the meaning a view
+    gives it (its split factor's pieces, not a shard order), as DTensor's
+    own view rule marks it."""
+    from torch.distributed.tensor import DTensor
+    from torch.distributed.tensor._dtensor_spec import DTensorSpec, TensorMeta
+
+    meta = TensorMeta(torch.Size(shape), tuple(stride), local.dtype)
+    spec = (DTensorSpec(mesh, tuple(placements), tensor_meta=meta,
+                        use_strided_shard_as_shard_order=False)
+            if strided and any(_is_strided(p) for p in placements)
+            else DTensorSpec(mesh, tuple(placements), tensor_meta=meta))
+    return DTensor(local, spec, requires_grad=False)
+
+
+def _contiguous_strides(shape) -> tuple:
+    strides, acc = [], 1
+    for n in reversed(shape):
+        strides.append(acc)
+        acc *= n
+    return tuple(reversed(strides))
+
+
+def _gather_on(t, m: int):
+    """DTensor ``t`` made whole on mesh dim ``m`` (an all-gather there)."""
+    from torch.distributed.tensor import Replicate
+
+    if t.placements[m].is_replicate():
+        return t
+    with torch.no_grad():
+        return t.redistribute(t.device_mesh, [Replicate() if k == m else p
+                                              for k, p in enumerate(t.placements)])
+
+
+def _port_indexing(func, args, kwargs):
+    """Advanced indexing — ``index`` (a gather, ``self[indices]``) and
+    ``index_put``/``index_put_`` (``self[indices] = values``) — on the
+    blocks, the port's rule, mesh dim by mesh dim, the same on every torch
+    version (some have no rule for a ``None`` index, the backward of the
+    MoE dispatch's ``xt[:, tok]``, or for the MoE combine's ``(group,
+    slot)`` gather at decode):
+
+    * a mesh dim that shards the index tensors on one dim of their
+      broadcast: a gather's output is sharded there (whole indices cut
+      alike, ``self`` gathered where an indexed dim of it is sharded); a
+      write gathers its indices and values there and writes whole;
+    * one that shards ``self`` on a dim the indices slice (``None``) or
+      leave: the output follows it (a write's whole values cut alike), and
+      so does a write's whole ``self`` where the values are sharded on such
+      a dim;
+    * one on which everything is whole: ``self``'s last dim, if no index
+      addresses it and it divides, is cut there (no data moves), as torch
+      2.13's DTensor places these ops.
+
+    The indexed dims must be adjacent, the placements shards or replicas;
+    a ``self`` sharded on an indexed dim with whole indices (a
+    vocabulary-parallel lookup) and anything else is left to DTensor
+    (``None``)."""
+    from torch.distributed.tensor import DTensor, Replicate, Shard
+
+    put = func in _INDEX_PUTS
+    self_t, indices = args[0], list(args[1])
+    values = args[2] if put else None
+    accumulate = (args[3] if len(args) > 3 else kwargs.get("accumulate", False)) if put else None
+    if not isinstance(self_t, DTensor):
+        return None
+    mesh = self_t.device_mesh
+    where = [i for i, ix in enumerate(indices) if ix is not None]
+    if not where or where != list(range(where[0], where[-1] + 1)):
+        return None
+    idx = [indices[i] if isinstance(indices[i], DTensor) else
+           DTensor.from_local(indices[i], mesh, [Replicate()] * mesh.ndim, run_check=False)
+           for i in where]
+    operands = [self_t] + idx + ([values] if isinstance(values, DTensor) else [])
+    if any(not (p.is_replicate() or type(p) is Shard) for t in operands for p in t.placements):
+        return None
+    first, last = where[0], where[-1]
+    nb = max(t.dim() for t in idx)
+    bshape = torch.broadcast_shapes(*(t.shape for t in idx))
+    res = list(self_t.shape[:first]) + list(bshape) + list(self_t.shape[last + 1:])
+
+    def self_to_res(d):          # a dim of self the indices do not address → the result's
+        return None if first <= d <= last else d if d < first else d - (last - first + 1) + nb
+
+    def res_to_self(r):
+        return r if r < first else None if r < first + nb else r - nb + (last - first + 1)
+
+    voff = len(res) - values.dim() if put else 0
+    # a plan per mesh dim: ("gather", o) the indices sharded on result dim o;
+    # ("follow", r) self or the values sharded on result dim r; None whole
+    plan = []
+    for m in range(mesh.ndim):
+        ps = self_t.placements[m]
+        pv = values.placements[m] if put and isinstance(values, DTensor) else Replicate()
+        ix_dims = {first + p.dim + nb - t.dim() for t in idx for p in [t.placements[m]]
+                   if p.is_shard()}
+        if len(ix_dims) > 1:
+            return None
+        if ix_dims:
+            if ps.is_shard() and self_to_res(ps.dim) is not None:
+                return None
+            plan.append(("gather", ix_dims.pop()))
+        elif ps.is_shard():
+            r = self_to_res(ps.dim)
+            if r is None or (put and pv.is_shard() and pv.dim + voff != r):
+                return None                  # a lookup of a sharded dim: DTensor's
+            plan.append(("follow", r))
+        elif pv.is_shard():
+            if res_to_self(pv.dim + voff) is None or values.shape[pv.dim] != res[pv.dim + voff]:
+                return None
+            plan.append(("follow", pv.dim + voff))
+        else:
+            plan.append(None)
+    # where an operand is gathered, cut self's last dim first on the mesh dims
+    # where all is whole (less to move), as torch 2.13's DTensor does
+    gathers = any(p is not None and p[0] == "gather" and
+                  (put or self_t.placements[m].is_shard()) for m, p in enumerate(plan))
+    last_dim = self_t.dim() - 1
+    r_last = self_to_res(last_dim)
+    out_pl = [None] * mesh.ndim
+    for m, p in enumerate(plan):
+        if p is not None or func is _aten.index_put_.default or not gathers or \
+                r_last is None or self_t.shape[last_dim] % mesh.shape[m] or \
+                any(q.is_shard() and q.dim == last_dim for q in self_t.placements):
+            continue
+        self_t = _cut(self_t, m, last_dim)
+        if put and isinstance(values, DTensor) and 0 <= r_last - voff < values.dim() \
+                and values.shape[r_last - voff] > 1:
+            values = _cut(values, m, r_last - voff)
+        out_pl[m] = Shard(last_dim if put else r_last)
+    for m, p in enumerate(plan):
+        if self_t is None or values is None and put:
+            return None
+        if p is None:
+            out_pl[m] = out_pl[m] or Replicate()
+        elif p[0] == "gather":
+            if self_t.placements[m].is_shard():
+                self_t = _gather_on(self_t, m)
+            if put:
+                idx = [_gather_on(t, m) for t in idx]
+                if isinstance(values, DTensor):
+                    values = _gather_on(values, m)
+                out_pl[m] = Replicate()
+                continue
+            o = p[1]
+            idx = [_cut(t, m, o - first - (nb - t.dim()))
+                   if t.placements[m].is_replicate() and t.shape[o - first - (nb - t.dim())] > 1
+                   else t for t in idx]
+            out_pl[m] = Shard(o)
+        else:
+            r = p[1]
+            if self_t.placements[m].is_replicate():      # the values' blocks: self cut alike
+                self_t = _cut(self_t, m, res_to_self(r))
+            if put and isinstance(values, DTensor) and values.placements[m].is_replicate() \
+                    and 0 <= r - voff < values.dim() and values.shape[r - voff] > 1:
+                values = _cut(values, m, r - voff)
+            out_pl[m] = Shard(res_to_self(r)) if put else Shard(r)
+    if self_t is None or values is None and put or any(t is None for t in idx):
+        return None
+    if func is _aten.index_put_.default and tuple(out_pl) != tuple(args[0].placements):
+        return None
+    local_idx = [None] * len(indices)
+    for i, t in zip(where, idx):
+        local_idx[i] = t._local_tensor
+    if put:
+        vloc = values._local_tensor if isinstance(values, DTensor) else values
+        out = func(self_t._local_tensor, local_idx, vloc, accumulate)
+        if func is _aten.index_put_.default:
+            return args[0]
+        shape = self_t.shape
+    else:
+        out = func(self_t._local_tensor, local_idx)
+        shape = torch.Size(res)
+    return _wrap(out, mesh, out_pl, shape, _contiguous_strides(shape))
+
+
+def _is_strided(p) -> bool:
+    return type(p).__name__ == "_StridedShard"
+
+
+# ops whose output dims are their input's, moved or not, each rank's block
+# kept: a strided layout passes them as it is
+_STRUCTURAL = {_aten.detach.default, _aten.transpose.int, _aten.permute.default,
+               _aten.t.default, _aten.clone.default, _aten._to_copy.default,
+               _aten.alias.default}
+# a matmul's operands' strided dims (None: whole) where each rank's blocks
+# line up: the batch dims, the contracted dims, or one free dim with the
+# other operand whole
+_STRIDED_MATMULS = {_aten.bmm.default: ((0, 0), (2, 1), (1, None), (None, 2)),
+                    _aten.mm.default: ((1, 0), (0, None), (None, 1))}
+
+
+def _strided_aligned(func, tensors, m) -> bool:
+    """Whether ``func`` may run with the operands' ``_StridedShard`` on mesh
+    dim ``m`` taken as a ``Shard`` of the same dim (each rank's blocks line
+    up, whatever rows they hold)."""
+    dims = tuple(t.placements[m].dim if _is_strided(t.placements[m]) else None
+                 for t in tensors)
+    if func in _STRIDED_MATMULS:
+        return len(tensors) == 2 and dims in _STRIDED_MATMULS[func] and all(
+            _is_strided(p) or p.is_replicate() for p in (t.placements[m] for t in tensors))
+    if None in dims:
+        return False
+    if func in _STRUCTURAL:
+        return len(tensors) == 1
+    if torch.Tag.pointwise in func.tags:
+        nd = max(t.dim() for t in tensors)
+        out = [d + nd - t.dim() for d, t in zip(dims, tensors)]
+        return len(set(out)) == 1 and len({t.shape[d] for d, t in zip(dims, tensors)}) == 1
+    return False
+
+
+def _unstride(func, args, kwargs):
+    """Operands without ``_StridedShard`` placements, which DTensor versions
+    treat differently (a view's strided blocks, or a shard order): on a
+    mesh dim where every DTensor operand is strided alike and ``func``
+    keeps each rank's blocks together (:func:`_strided_aligned`), they are
+    relabelled ``Shard`` for DTensor and :func:`_restride` relabels the
+    outputs back; on any other mesh dim they are gathered there first.
+    Returns ``(args, kwargs, {mesh dim: split factor relabelled})``."""
+    from torch.distributed.tensor import DTensor, Replicate, Shard
+
+    tensors = [a for a in tree_leaves((args, kwargs)) if isinstance(a, DTensor)]
+    marked = {m for t in tensors for m, p in enumerate(t.placements) if _is_strided(p)}
+    if not marked:
+        return args, kwargs, {}
+    relabel, gather = {}, set()
+    for m in marked:
+        pls = [t.placements[m] for t in tensors]
+        sfs = {p.split_factor for p in pls if _is_strided(p)}
+        if len(sfs) == 1 and _strided_aligned(func, tensors, m):
+            relabel[m] = sfs.pop()
+        else:
+            gather.add(m)
+
+    def plain(a):
+        if not isinstance(a, DTensor):
+            return a
+        pl = list(a.placements)
+        if any(m in relabel for m in range(len(pl))):
+            pl = [Shard(p.dim) if m in relabel and _is_strided(p) else p
+                  for m, p in enumerate(pl)]
+            a = _wrap(a._local_tensor, a.device_mesh, pl, a.shape, a.stride(), strided=False)
+        if any(m in gather and _is_strided(p) for m, p in enumerate(pl)):
+            with torch.no_grad():
+                a = a.redistribute(a.device_mesh, [Replicate() if m in gather and
+                                                   _is_strided(p) else p
+                                                   for m, p in enumerate(pl)])
+        return a
+
+    args, kwargs = tree_map(plain, (args, kwargs))
+    return args, kwargs, relabel
+
+
+def _restride(out, relabel: dict):
+    """``out``'s placements on the relabelled mesh dims made strided again
+    (:func:`_unstride`); an output DTensor made whole there is refused."""
+    from torch.distributed.tensor import DTensor
+
+    if not relabel:
+        return out
+
+    def one(t):
+        if not isinstance(t, DTensor):
+            return t
+        pl = list(t.placements)
+        for m, sf in relabel.items():
+            if pl[m].is_shard():
+                pl[m] = _strided(pl[m].dim, sf)
+            elif not pl[m].is_partial():
+                raise RuntimeError("a strided layout was gathered under a relabelled shard")
+        return _wrap(t._local_tensor, t.device_mesh, pl, t.shape, t.stride())
+
+    return tree_map(one, out)
+
+
+def _cut(t, m: int, d: int):
+    """DTensor ``t``, whole on mesh dim ``m``, cut to ``Shard(d)`` there on
+    its own blocks (this rank's chunk of dim ``d``, within the chunks of the
+    mesh dims before ``m`` that shard it: no data moves); ``None`` where a
+    later mesh dim shards dim ``d`` already, or its blocks do not divide
+    evenly."""
+    from torch.distributed.tensor import Shard
+
+    if t is None:
+        return None
+    n = t.device_mesh.shape[m]
+    local = t._local_tensor
+    if any(_shard_of(p) and _shard_of(p)[0] == d and (k > m or type(p) is not Shard)
+           for k, p in enumerate(t.placements)) or local.shape[d] % n:
+        return None
+    size = local.shape[d] // n
+    coord = t.device_mesh.get_coordinate()
+    c = coord[m] if coord is not None else 0
+    pl = [Shard(d) if k == m else p for k, p in enumerate(t.placements)]
+    return _wrap(local.narrow(d, c * size, size), t.device_mesh, pl, t.shape, t.stride())
 
 
 def _reduced(t):
@@ -335,6 +811,24 @@ def shard_attention(q, k, v):
     elif Sq % m == 0 and Sq >= m:
         qspec[1] = "model"
     return _constrain(q, qspec), _constrain(k, kspec), _constrain(v, kspec)
+
+
+def shard_kv_proj(x, n_kv: int):
+    """A key or value projection ``(B, S, Hkv·D)`` before its split into
+    heads: the batch over the batch axes (when divisible) and, when the
+    model axis does not divide the KV heads, whole on it — the layout
+    :func:`shard_attention` gives the keys and values then — so that the
+    split into ``Hkv`` heads is a view of each rank's block (a shard of
+    the ``Hkv·D`` features over more ranks than heads is not). The
+    identity when the model axis divides the KV heads. The port's own
+    hook: the reference needs none."""
+    if not _STATE["enabled"] or n_kv % _size(("model",)) == 0:
+        return x
+    ba = _STATE["batch_axes"]
+    spec = [None] * x.ndim
+    if x.shape[0] % _size(ba) == 0 and x.shape[0] >= _size(ba):
+        spec[0] = ba
+    return _constrain(x, spec)
 
 
 def shard_heads(o):

@@ -79,6 +79,27 @@ def test_importing_every_port_module_loads_no_jax_or_repro():
     assert out.returncode == 0, out.stdout + out.stderr
 
 
+def test_the_package_exports_load_no_jax_or_repro():
+    """Every name the port's packages export (the reference's ``__all__``
+    of core, data, eval, kernels and analysis: ``tests/test_torch_api.py``),
+    each resolved in a fresh process, loads neither ``jax`` nor ``repro``."""
+    code = (
+        "import importlib, sys\n"
+        "for pkg in ('core', 'data', 'eval', 'kernels', 'analysis'):\n"
+        "    m = importlib.import_module('repro_torch.' + pkg)\n"
+        "    for name in m.__all__:\n"
+        "        getattr(m, name)\n"
+        "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
+        f"{FORBIDDEN!r})\n"
+        "print(bad)\n"
+        "sys.exit(1 if bad else 0)\n")
+    env = {"PYTHONPATH": str(ROOT / "src"), "PATH": "/usr/bin:/bin",
+           "JAX_PLATFORMS": "cpu"}
+    out = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True,
+                         env=env, cwd=str(ROOT), timeout=300)
+    assert out.returncode == 0, out.stdout + out.stderr
+
+
 @pytest.mark.parametrize("path", sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py"],
                          ids=lambda p: str(p.relative_to(ROOT)))
 def test_no_source_imports_jax_or_repro(path):

@@ -253,6 +253,7 @@ for mname, (sizes, names) in meshes.items():
 # views DTensor versions may refuse, done on the blocks: rank 0's block of
 # the view is the view's block of the whole tensor under the placements made
 from torch.distributed.tensor import Shard, distribute_tensor
+from torch.distributed.tensor.placement_types import _StridedShard
 mesh = DeviceMesh("cpu", torch.arange(16).view(4, 4), mesh_dim_names=("data", "model"))
 views = []
 for shape, pl, new in (((64, 12), [Shard(0), Replicate()], (8, 8, 12)),
@@ -260,7 +261,20 @@ for shape, pl, new in (((64, 12), [Shard(0), Replicate()], (8, 8, 12)),
                        ((8, 2, 8, 12), [Shard(0), Shard(2)], (8, 2, 96)),
                        ((8, 1, 32), [Replicate(), Shard(2)], (8, 32)),
                        ((8, 2, 12), [Replicate(), Shard(2)], (8, 2, 2, 6)),
-                       ((8, 6), [Shard(1), Replicate()], (48,))):
+                       ((8, 6), [Shard(1), Replicate()], (48,)),
+                       # deepseek's MLA einsums: (batch, heads) flattened for the
+                       # batched matmul, the batch on data (2 a rank), a head a
+                       # rank on model; then split back
+                       ((8, 4, 6, 5, 1), [Shard(0), Shard(1)], (32, 6, 5)),
+                       ((32, 6, 5), [Shard(0), _StridedShard(0, split_factor=2)],
+                        (8, 4, 6, 5, 1)),
+                       # llama3's grouped key/value gradients: (batch, sequence)
+                       # flattened with the sequence sharded on model; split back
+                       ((8, 16, 24), [Shard(0), Shard(1)], (128, 24)),
+                       ((128, 24), [Shard(0), _StridedShard(0, split_factor=2)],
+                        (8, 16, 24)),
+                       # a split of a sharded dim whose first output dim divides
+                       ((32, 24), [Shard(0), Shard(1)], (32, 4, 6))):
     g = torch.arange(float(torch.Size(shape).numel())).view(shape)
     t = distribute_tensor(g, mesh, pl, src_data_rank=None)
     v = ctx._block_view(t, new)
@@ -310,7 +324,91 @@ def test_ctx_redistributes_to_the_reference_specs(monkeypatch):
     assert views[0][1] == [8, 8, 12] and "Shard(dim=0)" in views[0][0]
     assert views[1][0].count("Shard(dim=2)") == 1
     assert views[4] is None            # 12 = 2 x 6 over 4 ways: not a block of the 2
-    assert views[5] is None            # a sharded inner dim of a flattening
+    for v in views[5:]:
+        assert v is not None and v[2], v       # strided or split blocks, rank 0's right
+    assert views[5][0] == "(_StridedShard(dim=0, sf=8), Replicate())"   # 6 over 4: uneven
+    assert views[6][0] == "(Shard(dim=0), _StridedShard(dim=0, sf=2))"
+    assert views[7][0] == "(Shard(dim=0), Shard(dim=1))" and views[7][1] == [8, 4, 6, 5, 1]
+    assert views[8][0] == "(Shard(dim=0), _StridedShard(dim=0, sf=2))"
+    assert views[9][0] == "(Shard(dim=0), Shard(dim=1))"
+    assert views[10][0] == "(Shard(dim=0), Shard(dim=1))"
+
+
+_INDEX_PUT_CHILD = r"""
+import json, torch
+import torch.distributed as dist
+from torch.distributed.device_mesh import DeviceMesh
+from torch.distributed.tensor import Replicate, Shard, distribute_tensor
+from torch.testing._internal.distributed.fake_pg import FakeStore
+from repro_torch import prng
+from repro_torch.configs import get_config
+from repro_torch.models.moe import MoE
+from repro_torch.sharding import ctx
+dist.init_process_group("fake", store=FakeStore(), rank=0, world_size=16)
+mesh = DeviceMesh("cpu", torch.arange(16).view(4, 4), mesh_dim_names=("data", "model"))
+cfg = get_config("deepseek-v2-lite-16b").reduced()
+m = cfg.moe
+moe = MoE(prng.PRNGKey(0), cfg.d_model, m.d_ff_expert, m.num_experts, m.top_k, torch.float32,
+          num_shared=m.num_shared)
+gen = torch.Generator().manual_seed(0)
+ruled = []
+rule = ctx._port_indexing
+
+
+def counted(func, args, kwargs):
+    out = rule(func, args, kwargs)
+    if func is not torch.ops.aten.index.Tensor:
+        ruled.append([out is not None, [a is None for a in args[1]]])
+    return out
+
+
+ctx._port_indexing = counted
+# the MoE's forward and backward, DTensor end to end
+x = torch.randn(8, 16, cfg.d_model, generator=gen)
+xd = distribute_tensor(x, mesh, [Shard(0), Replicate()]).requires_grad_(True)
+with ctx.use_mesh_constraints(mesh) as mode:
+    out, aux = moe(xd)
+    torch.autograd.grad(out.sum() + aux, xd)
+moe_fallbacks = dict(mode.fallbacks)
+# its dispatch's gather of each assignment's token, xt[:, tok] (G = 4 groups
+# of 32 tokens), and the gather's backward, the index_put with a None index:
+# real values, rank 0's blocks against the same computation without a mesh
+tok = torch.arange(32).repeat_interleave(m.top_k)
+xt = torch.randn(4, 32, cfg.d_model, generator=gen)
+gv = torch.randn(4, 32 * m.top_k, cfg.d_model, generator=gen)
+xp = xt.clone().requires_grad_(True)
+(gp,) = torch.autograd.grad(xp[:, tok], xp, gv)
+xtd = distribute_tensor(xt, mesh, [Shard(0), Replicate()]).requires_grad_(True)
+with ctx.use_mesh_constraints(mesh) as mode:
+    vd = xtd[:, tok]
+    (gd,) = torch.autograd.grad(vd, xtd, distribute_tensor(gv, mesh, vd.placements))
+want_v = distribute_tensor(xt[:, tok], mesh, vd.placements).to_local()
+want_g = distribute_tensor(gp, mesh, gd.placements).to_local()
+print(json.dumps({"moe_fallbacks": moe_fallbacks, "gather_fallbacks": dict(mode.fallbacks),
+                  "ruled": ruled, "grad": str(gd.placements),
+                  "vals_ok": bool(torch.equal(vd.to_local(), want_v)),
+                  "grad_ok": bool(torch.equal(gd.to_local(), want_g))}))
+"""
+
+
+def test_moe_index_put_runs_on_the_blocks():
+    """The MoE's ``index_put`` with a ``None`` index (the backward of its
+    dispatch's ``xt[:, tok]``) on a fake 4 x 4 group: reduced deepseek's
+    MoE forward and backward replicate nothing, the port's rule places every
+    such ``index_put`` (the buffer write, ``(group, slot)`` indices, stays
+    DTensor's), and on real values rank 0's block of the gathered
+    assignments and of their gradient is that block of the same computation
+    without a mesh, the gradient sharded over the groups."""
+    env = {**os.environ, "PYTHONPATH": str(ROOT / "src")}
+    res = subprocess.run([sys.executable, "-c", _INDEX_PUT_CHILD], capture_output=True,
+                         text=True, env=env, cwd=str(ROOT), timeout=300)
+    assert res.returncode == 0, res.stderr[-3000:]
+    got = json.loads(res.stdout.strip().splitlines()[-1])
+    assert got["moe_fallbacks"] == {} and got["gather_fallbacks"] == {}
+    none_index = [placed for placed, nones in got["ruled"] if nones[0]]
+    assert len(none_index) == 2 and all(none_index), got["ruled"]   # the MoE's, the gather's
+    assert got["vals_ok"] and got["grad_ok"], got
+    assert got["grad"] == "(Shard(dim=0), Replicate())"
 
 
 def test_ctx_is_the_identity_when_disabled():
