@@ -254,16 +254,21 @@ Phases:
    peak bytes within ±20 % of ``torch.cuda.max_memory_allocated`` (less
    what the process held before the step beyond its inputs), and
    op_cost's bytes beside the profiler's device time by op group. Meanwhile
-   ``python -m repro_torch.launch.dryrun`` traces llama3-8b and
-   deepseek-v2-lite-16b × ``train_4k`` on 16 × 16 and deepseek-v2-lite-16b
-   × ``decode_32k`` on 2 × 16 × 16, and ``--rank-rule`` holds reduced
+   ``python -m repro_torch.launch.dryrun`` traces the cases of
+   ``SHARD_DRYRUNS`` (llama3-8b, deepseek-v2-lite-16b, smollm-360m and
+   h2o-danube-1.8b × ``train_4k`` on 16 × 16, h2o also on 2 × 16 × 16,
+   jamba-1.5-large-398b × ``long_500k`` on 16 × 16 and deepseek ×
+   ``decode_32k`` on 2 × 16 × 16), and ``--rank-rule`` holds reduced
    smollm-360m, deepseek-v2-lite-16b and llama3-8b to the rank rule on a
    fake 4 × 4 group (the CPU test's check, on this host's torch), each in a
    process of its own (a fake group): every dry run must trace and
-   replicate nothing where no rule placed it but the train step's
-   microbatch split, every rank rule must hold; their rows (GB a rank
-   against 80, flops, bytes, collectives by kind, the dominant term) and
-   the torch version are printed. None of the eight kernels launches.
+   replicate nothing where no rule placed it, h2o's peak on 2 × 16 × 16
+   must not exceed its peak on 16 × 16 (the LM loss keeps the vocabulary
+   sharded), llama3's and deepseek's ``train_4k`` flops, matmul flops and
+   GB must equal ``SHARD_TORCH213`` (this tree's figures on torch 2.13)
+   within 1e-6, every rank rule must hold; their rows (GB a rank against
+   80, flops, bytes, collectives by kind, the dominant term) and the torch
+   version are printed. None of the eight kernels launches.
 
 Each phase's wall is printed as it ends. It prints a ``{"kernels": [...]}``
 JSON line, then the card's name and power
@@ -408,7 +413,19 @@ ZOO_ATOL = {"xlstm-1.3b": 2e-4}
 SHARD_TRAIN = dict(arch="smollm-360m", steps=4, batch=8, seq=1024, lr=3e-4)
 SHARD_FLOPS_RTOL, SHARD_PEAK_TOL = 0.01, 0.20
 SHARD_DRYRUNS = (("llama3-8b", "train_4k", False), ("deepseek-v2-lite-16b", "train_4k", False),
-                 ("deepseek-v2-lite-16b", "decode_32k", True))
+                 ("deepseek-v2-lite-16b", "decode_32k", True), ("smollm-360m", "train_4k", False),
+                 ("h2o-danube-1.8b", "train_4k", False), ("h2o-danube-1.8b", "train_4k", True),
+                 ("jamba-1.5-large-398b", "long_500k", False))
+# llama3-8b and deepseek-v2-lite-16b x train_4k on 16 x 16 with torch 2.13.0
+# (a CPU host), this tree: flops, matmul flops a rank and GB a rank (1e9
+# bytes) from `python -m repro_torch.launch.dryrun --arch A --shape train_4k
+# --json out.json` (its flops_per_chip, matmul_flops_per_chip,
+# hbm_gb_per_chip x 2**30 / 1e9). Every torch version must read them within
+# SHARD_TORCH_RTOL.
+SHARD_TORCH213 = {"llama3-8b_train_4k": (261973117950017.0, 261400299569152.0, 4.496741242),
+                  "deepseek-v2-lite-16b_train_4k": (123891921646129.0, 123337502097408.0,
+                                                    31.370273236)}
+SHARD_TORCH_RTOL = 1e-6
 SHARD_DRYRUN_TIMEOUT_S = 600
 SHARD_MATMULS = ("aten::mm", "aten::addmm", "aten::bmm", "aten::baddbmm")
 SHARD_OP_GROUPS = (("matmuls", ("mm", "addmm", "bmm", "baddbmm")),
@@ -1877,8 +1894,6 @@ def phase_sharding(device) -> dict:
     rcs = _end_procs(procs + rule_procs, kill=False)
     dryruns = _finish_dryruns(procs, rcs)
     rank_rule = _finish_rank_rules(rule_procs, rcs)
-    from repro_torch.launch.dryrun import microbatch_split_only
-
     for tag, row in dryruns.items():
         log(f"[sharding] {tag}: {row['chips']} ranks, {row['hbm_gb_per_chip'] * 2**30 / 1e9:.6f} "
             f"GB a rank (of 80: fits {row['fits']}), flops {row['flops_per_chip']:.9e} (matmul "
@@ -1887,9 +1902,24 @@ def phase_sharding(device) -> dict:
             f"({row['collective_bytes_per_chip']:.4e} B, dcn {row['dcn_bytes_per_chip']:.4e}), "
             f"{row['dominant']}-bound, replicated where no rule: {row['fallbacks']}; counted "
             f"on the host, {row['trace_s']:.1f} s to trace")
-        if not microbatch_split_only(row["fallbacks"], row.get("microbatches") or 1):
-            raise RuntimeError(f"the dry run {tag} replicated more than the microbatch split: "
+        if row["fallbacks"]:
+            raise RuntimeError(f"the dry run {tag} replicated where no rule placed it: "
                                f"{row['fallbacks']} ({row['fallback_reasons']})")
+        if tag in SHARD_TORCH213:
+            got = (row["flops_per_chip"], row["matmul_flops_per_chip"],
+                   row["hbm_gb_per_chip"] * 2**30 / 1e9)
+            rel = [g / w - 1 for g, w in zip(got, SHARD_TORCH213[tag])]
+            log(f"[sharding] {tag} against torch 2.13 (flops, matmul flops, GB): "
+                f"{[f'{r:+.3e}' for r in rel]}")
+            if max(abs(r) for r in rel) > SHARD_TORCH_RTOL:
+                raise RuntimeError(f"the dry run {tag} on torch {torch.__version__} reads "
+                                   f"{got}, not torch 2.13's {SHARD_TORCH213[tag]}")
+    h2o = [dryruns[f"h2o-danube-1.8b_train_4k{s}"]["hbm_gb_per_chip"] for s in ("", "_multipod")]
+    log(f"[sharding] h2o-danube-1.8b x train_4k GB a rank: 16 x 16 {h2o[0] * 2**30 / 1e9:.6f}, "
+        f"2 x 16 x 16 {h2o[1] * 2**30 / 1e9:.6f}")
+    if h2o[1] > h2o[0]:
+        raise RuntimeError("h2o-danube-1.8b x train_4k holds more a rank on 2 x 16 x 16 than on "
+                           "16 x 16")
     return {"rank_rule": rank_rule, "losses": sharded, "bitwise": bitwise, "s_step": s_step,
             "matmul_flops": cost.matmul_flops, "profiler_matmul_flops": prof_mm,
             "flops_rel": flops_rel, "bound_s": r.bound_s, "peak_bytes": cost.peak_bytes,

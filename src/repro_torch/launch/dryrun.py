@@ -29,6 +29,8 @@ The fake group lives in its own process: run this module as a command.
   python -m repro_torch.launch.dryrun --arch llama3-8b --shape train_4k
   python -m repro_torch.launch.dryrun --arch all --shape all [--multi-pod] --json out.json
   python -m repro_torch.launch.dryrun --rank-rule deepseek-v2-lite-16b
+  python -m repro_torch.launch.dryrun --arch h2o-danube-1.8b --shape train_4k \
+      --layers 1 --allocations 1
 """
 
 from __future__ import annotations
@@ -243,10 +245,12 @@ def _rank_rule_shapes():
     return (InputShape("p", 32, 16, "prefill"), InputShape("t", 32, 16, "train"))
 
 
-def unsharded_matmul_flops(arch_id: str, kind: str, microbatches: int = 1) -> float:
+def unsharded_matmul_flops(arch_id: str, kind: str, microbatches: int = 1,
+                           cfg=None) -> float:
     """The matmul flops of the rank rule's ``kind`` case of reduced
-    ``arch_id`` traced on ``meta`` without a mesh."""
-    cfg = get_config(arch_id).reduced().with_overrides(dtype="bfloat16")
+    ``arch_id`` (or of ``cfg``) traced on ``meta`` without a mesh."""
+    cfg = (get_config(arch_id).reduced() if cfg is None else cfg).with_overrides(
+        dtype="bfloat16")
     model = Model(cfg, device="meta")
     shape = next(s for s in _rank_rule_shapes() if s.kind == kind)
     batch = model.example_batch(shape, concrete=False)
@@ -261,15 +265,16 @@ def unsharded_matmul_flops(arch_id: str, kind: str, microbatches: int = 1) -> fl
     return mode.cost.matmul_flops
 
 
-def excused_matmul_flops(arch_id: str, kind: str) -> float:
+def excused_matmul_flops(arch_id: str, kind: str, cfg=None) -> float:
     """The most that reduced ``arch_id``'s products with weights whole on
     ``model`` cost unsharded in the rank rule's ``kind`` case: the matrices
     whose spec on the rule's 4 x 4 mesh (:meth:`Model.param_specs`) names no
     ``model`` axis — deepseek's latent and rope down-projections and its
     router; none in the dense archs — each applied to every token, 2 flops
     a weight, once in a prefill and at most four times in a train step (the
-    forward, its recomputation, the input's and the weight's gradients)."""
-    model = Model(get_config(arch_id).reduced(), device="meta")
+    forward, its recomputation, the input's and the weight's gradients).
+    ``cfg`` in place of the reduced config where given."""
+    model = Model(get_config(arch_id).reduced() if cfg is None else cfg, device="meta")
     side = math.isqrt(RANK_RULE_RANKS)
     mesh = abstract_mesh((side, side), ("data", "model"))
 
@@ -282,12 +287,13 @@ def excused_matmul_flops(arch_id: str, kind: str) -> float:
     return (1 if kind == "prefill" else 4) * 2 * shape.global_batch * shape.seq_len * weights
 
 
-def rank_rule(arch_id: str) -> dict:
+def rank_rule(arch_id: str, cfg=None) -> dict:
     """Reduced ``arch_id``'s prefill and train step on a fake group of 16
     ranks (4 x 4), per case: a rank's matmul flops, the unsharded count,
     the excused flops (:func:`excused_matmul_flops`), the microbatches and
-    the points replicated where no rule placed them (``fallbacks``). Joins
-    the fake group: run it in a process of its own (``--rank-rule``)."""
+    the points replicated where no rule placed them (``fallbacks``);
+    ``cfg`` in place of the reduced config where given. Joins the fake
+    group: run it in a process of its own (``--rank-rule``)."""
     import torch.distributed as dist
     from torch.distributed.device_mesh import DeviceMesh
 
@@ -296,15 +302,15 @@ def rank_rule(arch_id: str) -> dict:
     side = math.isqrt(RANK_RULE_RANKS)
     mesh = DeviceMesh("cpu", torch.arange(RANK_RULE_RANKS).view(side, side),
                       mesh_dim_names=("data", "model"))
-    cfg = get_config(arch_id).reduced()
+    cfg = get_config(arch_id).reduced() if cfg is None else cfg
     out = {}
     for shape in _rank_rule_shapes():
         case, meta = build_case(arch_id, shape, mesh, cfg=cfg)
         mode = case.run()
         mb = meta.get("microbatches", 1)
         out[shape.kind] = {"per_rank": mode.cost.matmul_flops, "microbatches": mb,
-                           "unsharded": unsharded_matmul_flops(arch_id, shape.kind, mb),
-                           "excused": excused_matmul_flops(arch_id, shape.kind),
+                           "unsharded": unsharded_matmul_flops(arch_id, shape.kind, mb, cfg),
+                           "excused": excused_matmul_flops(arch_id, shape.kind, cfg),
                            "fallbacks": dict(mode.fallbacks)}
     return out
 
@@ -314,48 +320,74 @@ def rank_rule_holds(c: dict) -> bool:
     ``RANK_RULE_RTOL`` of the unsharded count, or above it by at most what
     the excused products add when each of ``model``'s 4 ranks repeats them
     (3 x their flops), that at most ``RANK_RULE_EXCUSED_MAX`` of the count;
-    nothing replicated but the microbatch split."""
+    nothing replicated where no rule placed it."""
     u = c["unsharded"]
     over = RANK_RULE_RANKS * c["per_rank"] - u
     room = (math.isqrt(RANK_RULE_RANKS) - 1) * c["excused"]
     return (-RANK_RULE_RTOL * u <= over <= room + RANK_RULE_RTOL * u
             and room <= RANK_RULE_EXCUSED_MAX * u
-            and microbatch_split_only(c["fallbacks"], c["microbatches"]))
-
-
-def microbatch_split_only(fallbacks: dict, microbatches: int) -> bool:
-    """Whether ``fallbacks`` hold no more than the train step's microbatch
-    split of its two inputs, tokens and labels (``(B, S)`` → ``(mb, B/mb,
-    S)``: a split the batch shards do not divide, which stays replicated)."""
-    return not fallbacks or (microbatches > 1 and set(fallbacks) == {"aten.view.default"}
-                             and fallbacks["aten.view.default"] <= 2)
+            and not c["fallbacks"])
 
 
 # ---------------------------------------------------------------------------
+def watch_outputs(mode: op_cost.CostMode, keep) -> list:
+    """Records, in the list it returns, each tensor ``t`` that the rank's
+    ops (local or collective, not DTensor's shape propagation) output under
+    ``mode`` where ``keep(func, t, new)`` holds, ``new`` whether ``t`` is a
+    new storage (not a view's or an in-place op's): ``(op, shape, dtype,
+    bytes, live bytes after it)``."""
+    seen, local_op = [], mode.local_op
+
+    def watched(func, args, kwargs):
+        out = local_op(func, args, kwargs)
+        if not mode._paused:
+            outs = out if isinstance(out, (tuple, list)) else (out,)
+            alias = [r.alias_info is not None for r in func._schema.returns]
+            alias = alias if len(alias) == len(outs) else alias[:1] * len(outs)
+            for t, a in zip(outs, alias):
+                if isinstance(t, torch.Tensor) and keep(func, t, not (func.is_view or a)):
+                    seen.append((str(func), tuple(t.shape), str(t.dtype).split(".")[-1],
+                                 t.numel() * t.element_size(), mode._live))
+        return out
+
+    mode.local_op = watched
+    return seen
+
+
 def run_case(arch_id: str, shape_name: str, *, multi_pod: bool,
-             variant: str = "baseline", verbose: bool = True, mesh=None) -> dict:
+             variant: str = "baseline", verbose: bool = True, mesh=None,
+             layers: int | None = None, allocations_gb: float | None = None) -> dict:
+    """One case's roofline row (and its printout with ``verbose``):
+    ``layers`` cuts the arch's depth, ``allocations_gb`` lists the outputs
+    of at least that many GB (1e9 bytes) the rank's ops make."""
     from repro_torch.launch.mesh import make_production_mesh
 
     mesh = make_production_mesh(multi_pod=multi_pod) if mesh is None else mesh
     chips = mesh.size()
+    cfg = get_config(arch_id).with_overrides(num_layers=layers) if layers else None
     t0 = time.perf_counter()
-    case, meta = build_case(arch_id, shape_name, mesh, variant=variant)
+    case, meta = build_case(arch_id, shape_name, mesh, variant=variant, cfg=cfg)
     t1 = time.perf_counter()
-    mode = case.run()
+    mode = op_cost.CostMode(pod_ranks=_pod_ranks(mesh))
+    allocs = None if not allocations_gb else watch_outputs(
+        mode, lambda f, t, new: new and t.numel() * t.element_size() >= allocations_gb * 1e9)
+    case.run(mode)
     t2 = time.perf_counter()
     cost = mode.cost
     r = rl.analyze(arch_id, shape_name, cost, chips, model_flops=meta["model_flops"],
                    dtype="bfloat16")
     row = r.row()
-    row.update(variant=variant, multi_pod=multi_pod,
+    row.update(variant=variant, multi_pod=multi_pod, layers=layers,
                params=meta["params"], active_params=meta["active_params"],
                build_s=t1 - t0, trace_s=t2 - t1, ops=cost.ops,
-               fallbacks=dict(mode.fallbacks), fallback_reasons=dict(mode.reasons),
+               fallbacks=dict(mode.fallbacks),
+               fallback_reasons={op: dict(w) for op, w in mode.reasons.items()},
                microbatches=meta.get("microbatches"),
                fits=cost.peak_bytes <= CARD_BYTES)
     if verbose:
         mesh_name = "x".join(str(int(s)) for s in mesh.mesh.shape)
-        print(f"== {arch_id} × {shape_name} ({mesh_name}, variant={variant})")
+        cut = f", {layers} layers" if layers else ""
+        print(f"== {arch_id} × {shape_name} ({mesh_name}, variant={variant}{cut})")
         print(f"   params={meta['params']/1e9:.2f}B "
               f"active={meta['active_params']/1e9:.2f}B "
               f"build={t1-t0:.1f}s trace={t2-t1:.1f}s ({cost.ops} ops a rank"
@@ -368,11 +400,21 @@ def run_case(arch_id: str, shape_name: str, *, multi_pod: bool,
         print(f"   collectives: {r.collectives.count_by_op} "
               f"bytes/rank={r.collective_bytes_per_chip:.3e} dcn={r.dcn_bytes_per_chip:.3e}")
         print(f"   replicated where DTensor had no rule: {dict(mode.fallbacks) or 'none'}")
-        for op, why in mode.reasons.items():
-            print(f"     {op}: {why}")
+        for op, whys in mode.reasons.items():
+            for why, n in whys.items():
+                print(f"     {op} x {n}: {why}")
         print(f"   roofline: compute={r.compute_s:.3e}s memory={r.memory_s:.3e}s"
               f" collective={r.collective_s:.3e}s → {r.dominant}-bound; "
               f"MODEL/counted flops={r.flops_utilization:.3f}")
+        if allocs is not None:
+            print(f"   outputs of >= {allocations_gb} GB a rank (count × op shape dtype GB, "
+                  f"the most live after one):")
+            groups: dict = {}
+            for op, shape, dt, n, live in allocs:
+                g = groups.setdefault((op, shape, dt, n), [0, 0])
+                g[0], g[1] = g[0] + 1, max(g[1], live)
+            for (op, shape, dt, n), (k, live) in sorted(groups.items(), key=lambda i: -i[0][3]):
+                print(f"     {k} × {op} {shape} {dt} {n / 1e9:.3f} (live {live / 1e9:.3f})")
     return row
 
 
@@ -388,6 +430,10 @@ def main(argv=None):
     ap.add_argument("--rank-rule", default=None, metavar="ARCH",
                     help="print the rank rule's cases of reduced ARCH as one JSON line "
                          "(a fake group of 16) and exit 1 if one fails")
+    ap.add_argument("--layers", type=int, default=None,
+                    help="cut each arch to this many layers (full width)")
+    ap.add_argument("--allocations", type=float, default=None, metavar="GB",
+                    help="list the outputs of at least GB (1e9 bytes) a rank's ops make")
     args = ap.parse_args(argv)
 
     import torch.distributed as dist
@@ -407,7 +453,8 @@ def main(argv=None):
         for s in shapes:
             try:
                 rows.append(run_case(a, s, multi_pod=args.multi_pod,
-                                     variant=args.variant))
+                                     variant=args.variant, layers=args.layers,
+                                     allocations_gb=args.allocations))
             except SkipCase as e:
                 print(f"== {a} × {s}: SKIP ({e})")
                 rows.append({"arch": a, "shape": s, "skipped": str(e),

@@ -97,7 +97,8 @@ _MOVES = {
     _aten.expand_copy.default, _aten.permute_copy.default, _aten.transpose_copy.int,
     _aten.flip.default, _aten.roll.default, _aten.fill_.Scalar, _aten.zero_.default,
     _aten.zeros.default, _aten.ones.default, _aten.full.default, _aten.zeros_like.default,
-    _aten.ones_like.default, _aten.full_like.default, _aten.arange.default,
+    _aten.ones_like.default, _aten.full_like.default, _aten.new_zeros.default,
+    _aten.new_ones.default, _aten.new_full.default, _aten.arange.default,
     _aten.arange.start, _aten.arange.start_step, _aten.repeat_interleave.Tensor,
     _aten.repeat_interleave.self_int,
 }

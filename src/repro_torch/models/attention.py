@@ -132,7 +132,8 @@ class GQA(nn.Module):
         q, k, v = x @ self.wq, x @ self.wk, x @ self.wv
         if self.bq is not None:
             q, k, v = q + self.bq, k + self.bk, v + self.bv
-        k, v = shctx.shard_kv_proj(k, self.n_kv), shctx.shard_kv_proj(v, self.n_kv)
+        q = shctx.shard_head_proj(q, self.n_heads, over_positions=True)
+        k, v = shctx.shard_head_proj(k, self.n_kv), shctx.shard_head_proj(v, self.n_kv)
         return (q.reshape(B, S, self.n_heads, self.head_dim),
                 k.reshape(B, S, self.n_kv, self.head_dim),
                 v.reshape(B, S, self.n_kv, self.head_dim))
@@ -148,7 +149,8 @@ class GQA(nn.Module):
         q = apply_rope(q, cos, sin)
         k = apply_rope(k, cos, sin)
         o = _sdpa(q, k, v, causal_mask(S, S, window, device=x.device))
-        return o.reshape(B, S, self.n_heads * self.head_dim) @ self.wo
+        o = shctx.shard_o_proj(o.reshape(B, S, self.n_heads * self.head_dim), self.n_heads)
+        return o @ self.wo
 
     def decode(self, cache: dict, x: torch.Tensor, pos: int, *, rope_cos_sin, mask,
                window: int | None = None, swa_kernel: bool = True) -> torch.Tensor:

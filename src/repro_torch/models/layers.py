@@ -155,20 +155,15 @@ def lm_loss(logits: torch.Tensor, labels: torch.Tensor,
     labels (B, S) (the caller shifts). The reference's formulation: the
     log-sum-exp in float32 over the whole (padded) vocabulary, minus the
     picked logit, the mask's mean with ``max(sum, 1)``. The reference picks
-    the logit as a one-hot sum (for a vocabulary-sharded axis); the port
-    gathers it, and sums the select only under a mesh context
-    (:mod:`repro_torch.sharding.ctx`): a sum of one logit and zeros is that
-    logit, bitwise."""
+    the logit as a one-hot sum so that GSPMD keeps a vocabulary-sharded
+    axis sharded; the port gathers it, and on a mesh
+    (:mod:`repro_torch.sharding.ctx`) computes both terms from each rank's
+    vocabulary block (:func:`~repro_torch.sharding.ctx.vocab_parallel_ll`),
+    the bits of this formula on one rank."""
     lg = logits.float()
-    lse = torch.logsumexp(lg, dim=-1)
-    if shctx.enabled():
-        # on a mesh the reference's select: a gather along the sharded
-        # vocabulary (and its scatter backward) would gather the logits
-        iota = torch.arange(lg.shape[-1], device=lg.device)
-        picked = torch.where(iota == labels[..., None], lg, 0.0).sum(-1)
-    else:
-        picked = lg.gather(-1, labels[..., None].long())[..., 0]
-    ll = picked - lse
+    ll = shctx.vocab_parallel_ll(lg, labels) if shctx.enabled() else None
+    if ll is None:
+        ll = lg.gather(-1, labels[..., None].long())[..., 0] - torch.logsumexp(lg, dim=-1)
     if mask is None:
         return -ll.mean()
     m = mask.float()

@@ -232,8 +232,7 @@ class Model(nn.Module):
                 if B % microbatches:
                     raise ValueError(f"batch {B} does not split into {microbatches} "
                                      f"microbatches")
-                split = {k: v.reshape((microbatches, B // microbatches) + tuple(v.shape[1:]))
-                         for k, v in batch.items()}
+                split = {k: shctx.split_microbatches(v, microbatches) for k, v in batch.items()}
                 loss = torch.zeros((), dtype=torch.float32, device=self.embed.device)
                 grads = [torch.zeros_like(p, dtype=torch.float32) for p in params]
                 for i in range(microbatches):

@@ -33,6 +33,7 @@ from torch.utils.checkpoint import checkpoint
 
 from repro_torch import prng
 from repro_torch.models.layers import dense_param, frozen, rms_norm
+from repro_torch.sharding import ctx as shctx
 
 _EPS = 1e-6     # the reference's rms_norm default inside the xLSTM mixers
 
@@ -216,7 +217,7 @@ class SLSTM(nn.Module):
         B, S, d = x.shape
         st = init_slstm_state(B, self.n_heads, self.dh, x.device)
         carry = (st["h"], st["c"], st["n"], st["m"])
-        pre = x @ self.w_in + self.b
+        pre = shctx.shard_head_proj(x @ self.w_in + self.b, 4)      # (z, i, f, o)
         if segment and S % segment == 0 and S > segment:
             parts = []
             for s in range(S // segment):
@@ -232,7 +233,7 @@ class SLSTM(nn.Module):
     def decode(self, cache: dict, x: torch.Tensor) -> torch.Tensor:
         """``slstm_decode``: x (B, 1, d) → (B, 1, d); the state replaced."""
         B, _, d = x.shape
-        pre = x[:, 0] @ self.w_in + self.b
+        pre = shctx.shard_head_proj(x[:, 0] @ self.w_in + self.b, 4)
         new = self.step((cache["h"], cache["c"], cache["n"], cache["m"]), pre)
         cache.update(zip(("h", "c", "n", "m"), new))
         y = new[0].reshape(B, 1, d).to(x.dtype)
@@ -336,9 +337,8 @@ class MLSTM(nn.Module):
         (B, S, H), float32."""
         B, S, _ = xs.shape
         H, dh = self.n_heads, self.dh
-        q = (xs @ self.wq).reshape(B, S, H, dh).float()
-        k = (xs @ self.wk).reshape(B, S, H, dh).float()
-        v = (xs @ self.wv).reshape(B, S, H, dh).float()
+        q, k, v = (shctx.shard_head_proj(xs @ w, H).reshape(B, S, H, dh).float()
+                   for w in (self.wq, self.wk, self.wv))
         if_pre = (xs @ self.w_if).reshape(B, S, 2, H).float()
         return q, k, v, if_pre[:, :, 0], if_pre[:, :, 1]
 

@@ -12,9 +12,12 @@ every test without a mesh), each hook is the identity.
 
 Where GSPMD decides for the reference, the port decides here, once:
 
-* :class:`ShardedDispatch` (entered by :func:`use_mesh_constraints`) runs
-  every DTensor op through DTensor, plain tensors among its operands taken
-  as replicated; where DTensor has no rule for an op at its operands'
+* :class:`ShardedDispatch` (entered by :func:`use_mesh_constraints`)
+  applies the port's own rules first, the same decision on every torch
+  version — views, advanced indexing, pointwise operands, and ops it runs
+  on the blocks (one-operand pointwise ops, scans, scatters, pads) — then
+  runs the op through DTensor, plain tensors among its operands taken as
+  replicated; where DTensor has no rule for an op at its operands'
   placements, it redistributes them to ``Replicate`` (an all-gather, as
   GSPMD's would be) and runs the op again, counting each such point in
   ``fallbacks``; partial sums entering a matmul are reduced first, and
@@ -22,9 +25,12 @@ Where GSPMD decides for the reference, the port decides here, once:
   at once;
 * :func:`gathered_params` gathers a layer's FSDP-sharded weights over
   ``data`` for the layer's use (the reference's per-use all-gather);
-* :func:`shard_kv_proj`, :func:`shard_attention`, :func:`shard_like` and
-  :func:`shard_heads` pin grouped attention, whose reshapes DTensor cannot
-  shard as GSPMD does.
+* :func:`shard_head_proj`, :func:`shard_attention`, :func:`shard_like`,
+  :func:`shard_heads` and :func:`shard_o_proj` pin grouped attention and
+  the xLSTM's head splits, whose reshapes DTensor cannot shard as GSPMD
+  does;
+* :func:`vocab_parallel_ll` computes the LM loss's log-likelihood from
+  each rank's block of the vocabulary.
 """
 
 from __future__ import annotations
@@ -58,12 +64,14 @@ class ShardedDispatch(TorchDispatchMode):
     DTensors goes through DTensor with plain tensor operands made
     replicated DTensors; where DTensor has no rule for the operands'
     placements, they are redistributed to ``Replicate`` and the op runs
-    again, ``fallbacks[op name]`` counting each such point."""
+    again, ``fallbacks[op name]`` counting each such point and
+    ``reasons[op name][reason]`` each cause (the first line of the error
+    DTensor raised)."""
 
     def __init__(self):
         super().__init__()
         self.fallbacks: dict[str, int] = {}
-        self.reasons: dict[str, str] = {}     # op → the first line of its first error
+        self.reasons: dict[str, dict] = {}    # op → {first line of its error: points}
         self._inside = False
 
     def local_op(self, func, args, kwargs):
@@ -97,6 +105,17 @@ class ShardedDispatch(TorchDispatchMode):
                 return out
         if func.overloadpacket in _MATMULS:
             args, kwargs = self._inside_dtensor(lambda: tree_map(_reduced, (args, kwargs)))
+        elif func in _SCATTERS or func in _SCANS or func is _aten.constant_pad_nd.default:
+            rule = (_scan_on_blocks if func in _SCANS else
+                    _pad_on_blocks if func is _aten.constant_pad_nd.default else _scatter_on_blocks)
+            out = self._inside_dtensor(lambda: rule(func, args, kwargs))
+            if out is not None:
+                return out
+        elif torch.Tag.pointwise in func.tags:
+            out = self._inside_dtensor(lambda: _pointwise_on_blocks(func, args, kwargs))
+            if out is not None:
+                return out
+            args = self._inside_dtensor(lambda: _pointwise_operands(func, args, kwargs))
         try:
             plain_args, plain_kwargs, strided = self._inside_dtensor(
                 lambda: _unstride(func, args, kwargs))
@@ -109,11 +128,12 @@ class ShardedDispatch(TorchDispatchMode):
             reason = str(e).strip().splitlines()[0] if str(e).strip() else type(e).__name__
         name = str(func)
         self.fallbacks[name] = self.fallbacks.get(name, 0) + 1
-        self.reasons.setdefault(name, reason[:200])
+        why = self.reasons.setdefault(name, {})
+        why[reason[:200]] = why.get(reason[:200], 0) + 1
 
         def gathered(a):
             if isinstance(a, DTensor) and tuple(a.placements) != tuple(rep):
-                return a.redistribute(mesh, rep)
+                return _moved(a, rep)
             return a
 
         def local(t):
@@ -145,6 +165,21 @@ class ShardedDispatch(TorchDispatchMode):
                 return fn()
         finally:
             self._inside = False
+
+
+def _moved(t, placements):
+    """DTensor ``t`` redistributed to ``placements`` inside the dispatch
+    (below autograd, which records the op, not its operands' moves), from
+    an alias that does not require grad: DTensor 2.11 detaches in place the
+    output of a move of a tensor that requires grad under no grad (a
+    backward pass), an op it has no rule for. The alias keeps ``t``'s spec
+    (a ``detach`` op would rebuild it, and 2.11 would read a view's
+    ``_StridedShard`` as a shard order)."""
+    from torch.distributed.tensor import DTensor
+
+    if t.requires_grad:
+        t = DTensor(t._local_tensor, t._spec, requires_grad=False)
+    return t.redistribute(t.device_mesh, placements)
 
 
 def _reshape_groups(a: list, b: list) -> list:
@@ -406,9 +441,7 @@ def _gather_on(t, m: int):
 
     if t.placements[m].is_replicate():
         return t
-    with torch.no_grad():
-        return t.redistribute(t.device_mesh, [Replicate() if k == m else p
-                                              for k, p in enumerate(t.placements)])
+    return _moved(t, [Replicate() if k == m else p for k, p in enumerate(t.placements)])
 
 
 def _port_indexing(func, args, kwargs):
@@ -621,10 +654,8 @@ def _unstride(func, args, kwargs):
                   for m, p in enumerate(pl)]
             a = _wrap(a._local_tensor, a.device_mesh, pl, a.shape, a.stride(), strided=False)
         if any(m in gather and _is_strided(p) for m, p in enumerate(pl)):
-            with torch.no_grad():
-                a = a.redistribute(a.device_mesh, [Replicate() if m in gather and
-                                                   _is_strided(p) else p
-                                                   for m, p in enumerate(pl)])
+            a = _moved(a, [Replicate() if m in gather and _is_strided(p) else p
+                           for m, p in enumerate(pl)])
         return a
 
     args, kwargs = tree_map(plain, (args, kwargs))
@@ -675,13 +706,182 @@ def _cut(t, m: int, d: int):
     return _wrap(local.narrow(d, c * size, size), t.device_mesh, pl, t.shape, t.stride())
 
 
+_ADDITIVE = {_aten.add.Tensor, _aten.sub.Tensor}
+
+
+def _pointwise_on_blocks(func, args, kwargs):
+    """A pointwise op of one DTensor (its other arguments no tensors) with
+    no partial placement run on its block, the output placed as the
+    operand: what DTensor does where it has a rule for the op, the same on
+    every version (2.11 has none for some, ``softplus`` among them, and
+    runs their decompositions, each step an op). ``None`` where it does
+    not apply."""
+    from torch.distributed.tensor import DTensor
+
+    if len(args) < 1 or not isinstance(args[0], DTensor) or func._schema.is_mutable \
+            or any(isinstance(a, torch.Tensor) for a in tree_leaves((args[1:], kwargs))):
+        return None
+    t = args[0]
+    if any(p.is_partial() for p in t.placements) or len(func._schema.returns) != 1:
+        return None
+    out = func(t._local_tensor, *args[1:], **kwargs)
+    if not isinstance(out, torch.Tensor) or out.shape != t._local_tensor.shape:
+        return None
+    stride = t.stride() if out.stride() == t._local_tensor.stride() else _contiguous_strides(t.shape)
+    return _wrap(out, t.device_mesh, t.placements, t.shape, stride)
+
+
+def _linear_partial(p) -> bool:
+    return type(p).__name__ == "Partial" and p.reduce_op in ("sum", "avg")
+
+
+def _pointwise_operands(func, args, kwargs):
+    """The operands of a pointwise op of two DTensors placed so that every
+    torch version decides the op alike, mesh dim by mesh dim (``args``
+    unchanged where it does not apply). DTensor 2.11 follows one operand's
+    placements, by shard count, then rank, then order; 2.13 costs the
+    redistributions of each choice. The port keeps the Megatron layout, in
+    which activations stay whole on ``model`` between the row-parallel
+    reduction and the next column-parallel product:
+
+    * one operand sharded on a dim the other, replicated, spans: the
+      smaller operand is made to follow the larger — gathered if it is the
+      sharded one (the RMSNorm weight's product: 2.13 cut the activation),
+      else cut (no data moves);
+    * one operand sharded, the other a partial sum: the partial sum
+      reduce-scattered to the shard's dim (all-reduced where it broadcasts
+      there) — 2.11 has no rule for it (jamba's ``S(1) + P`` adds);
+    * one operand whole, the other a partial sum: the partial sum reduced
+      (the residual ``add``: 2.13 kept it partial; 2.11 reduces or keeps it
+      by the operands' order);
+    * two partial sums in any op but a sum or difference (where they stay
+      partial on every version): both reduced.
+
+    Partial sums and means count alike. In-place and out variants, strided
+    layouts and other partial kinds are left to DTensor."""
+    from torch.distributed.tensor import DTensor, Replicate, Shard
+
+    where = [i for i, a in enumerate(args) if isinstance(a, DTensor)]
+    if len(where) != 2 or kwargs or func._schema.is_mutable:
+        return args
+    ts = [args[i] for i in where]
+    if ts[0].device_mesh != ts[1].device_mesh or any(
+            not (p.is_replicate() or type(p) is Shard or _linear_partial(p))
+            for t in ts for p in t.placements):
+        return args
+    nd = len(torch.broadcast_shapes(ts[0].shape, ts[1].shape))
+    pl = [list(t.placements) for t in ts]
+
+    def spans(k, i):          # operand k's dim at broadcast dim i, None where it broadcasts
+        j = i - (nd - ts[k].dim())
+        return j if j >= 0 and ts[k].shape[j] > 1 else None
+
+    for m in range(ts[0].device_mesh.ndim):
+        p = [pl[0][m], pl[1][m]]
+        sharded = [k for k in (0, 1) if type(p[k]) is Shard]
+        partial = [k for k in (0, 1) if _linear_partial(p[k])]
+        if len(sharded) == 1:
+            s, o = sharded[0], 1 - sharded[0]
+            j = spans(o, p[s].dim + nd - ts[s].dim())
+            if p[o].is_replicate() and j is not None:
+                if ts[s].numel() < ts[o].numel():
+                    pl[s][m] = Replicate()
+                else:
+                    pl[o][m] = Shard(j)
+            elif partial:
+                pl[o][m] = Shard(j) if j is not None else Replicate()
+        elif len(partial) == 1 and not sharded or len(partial) == 2 and func not in _ADDITIVE:
+            for k in partial:
+                pl[k][m] = Replicate()
+    out = list(args)
+    for i, t, new in zip(where, ts, pl):
+        if new != list(t.placements):
+            out[i] = _moved(t, new)
+    return tuple(out)
+
+
+_SCATTERS = (_aten.scatter.src, _aten.scatter.value, _aten.scatter_add.default)
+
+
+def _scatter_on_blocks(func, args, kwargs):
+    """``scatter`` (``.src``, ``.value``, ``scatter_add``) of an index (and
+    source) sharded on dims other than the scattered one, run on the blocks:
+    a whole ``self`` is cut alike (no data moves), the op runs on each
+    rank's blocks and the output keeps their placements — the same on
+    every version (2.11's ``sort`` backward scatters into a plain ``zeros``
+    of the whole shape, and its DTensor gathers all three operands for a
+    scatter). ``None`` where it does not apply."""
+    from torch.distributed.tensor import DTensor, Shard
+
+    self_t, dim, index = args[0], args[1], args[2]
+    src = args[3] if len(args) > 3 and isinstance(args[3], DTensor) else None
+    if not isinstance(self_t, DTensor) or not isinstance(index, DTensor) \
+            or self_t.shape != index.shape or (src is not None and src.shape != index.shape):
+        return None
+    dim %= self_t.dim()
+    pl = list(index.placements)
+    if any(not (p.is_replicate() or type(p) is Shard and p.dim != dim) for p in pl) \
+            or (src is not None and list(src.placements) != pl) \
+            or any(not (q.is_replicate() or q == p) for p, q in zip(pl, self_t.placements)):
+        return None
+    if list(self_t.placements) != pl:
+        self_t = _moved(self_t, pl)
+    rest = (src._local_tensor,) if src is not None else tuple(args[3:])
+    out = func(self_t._local_tensor, dim, index._local_tensor, *rest, **kwargs)
+    return _wrap(out, self_t.device_mesh, pl, self_t.shape, _contiguous_strides(self_t.shape))
+
+
+_SCANS = (_aten.cumsum.default, _aten.cumprod.default, _aten.logcumsumexp.default,
+          _aten.cummax.default, _aten.cummin.default)
+
+
+def _scan_on_blocks(func, args, kwargs):
+    """A scan (``cumsum``, ``cummax``, …) along a dim no mesh dim shards,
+    nothing partial, run on the blocks, each output placed as the input
+    (2.11 has no rule for ``cummax``: the mLSTM's chunkwise stabiliser).
+    ``None`` where it does not apply."""
+    from torch.distributed.tensor import DTensor
+
+    t = args[0]
+    if not isinstance(t, DTensor):
+        return None
+    dim = args[1] % t.dim()
+    if any(not p.is_replicate() and (_shard_of(p) is None or _shard_of(p)[0] == dim)
+           for p in t.placements):
+        return None
+    out = func(t._local_tensor, *args[1:], **kwargs)
+    wrap = lambda o: _wrap(o, t.device_mesh, t.placements, t.shape, _contiguous_strides(t.shape))
+    return tuple(map(wrap, out)) if isinstance(out, (tuple, list)) else wrap(out)
+
+
+def _pad_on_blocks(func, args, kwargs):
+    """``constant_pad_nd`` on the blocks where no padded dim is sharded and
+    nothing is partial, the output placed as the input (2.11 has no rule
+    for it: the Mamba convolution's causal pad gathered the activation).
+    ``None`` where it does not apply."""
+    from torch.distributed.tensor import DTensor
+
+    t, pad = args[0], list(args[1])
+    if not isinstance(t, DTensor):
+        return None
+    padded = {t.dim() - 1 - i // 2 for i, n in enumerate(pad) if n}
+    if any(not p.is_replicate() and (p.is_partial() or _shard_of(p) is None
+                                     or _shard_of(p)[0] in padded) for p in t.placements):
+        return None
+    out = func(t._local_tensor, pad, *args[2:], **kwargs)
+    shape = list(t.shape)
+    for i in range(0, len(pad), 2):
+        shape[t.dim() - 1 - i // 2] += pad[i] + pad[i + 1]
+    return _wrap(out, t.device_mesh, t.placements, shape, _contiguous_strides(shape))
+
+
 def _reduced(t):
     """A DTensor's partial sums reduced (all-reduced to ``Replicate``)."""
     from torch.distributed.tensor import DTensor, Replicate
 
     if not isinstance(t, DTensor) or not any(p.is_partial() for p in t.placements):
         return t
-    return t.redistribute(t.device_mesh, tuple(Replicate() if p.is_partial() else p
+    return _moved(t, tuple(Replicate() if p.is_partial() else p
                                                for p in t.placements))
 
 
@@ -689,8 +889,7 @@ def _reduce_masked(out):
     """Outputs with a masked partial (DTensor's vocabulary-parallel
     ``embedding``/``gather``: each rank's rows, zeros elsewhere) reduced
     to ``Replicate`` on those mesh dims at once: DTensor keeps the mask of
-    the op that made it, and a later view (the loss's ``[..., 0]``) leaves
-    it the wrong shape."""
+    the op that made it, and a later view leaves it the wrong shape."""
     from torch.distributed.tensor import DTensor, Replicate
 
     def one(t):
@@ -698,7 +897,7 @@ def _reduce_masked(out):
             return t
         pl = tuple(Replicate() if type(p).__name__ == "_MaskPartial" else p
                    for p in t.placements)
-        return t if pl == tuple(t.placements) else t.redistribute(t.device_mesh, pl)
+        return t if pl == tuple(t.placements) else _moved(t, pl)
 
     return tree_map(one, out)
 
@@ -757,6 +956,26 @@ def shard_batch(x, model_dim: int | None = None):
     return _constrain(x, spec)
 
 
+def split_microbatches(x, n: int):
+    """``x`` (B, ...) split into ``n`` microbatches, ``(n, B/n, ...)``.
+    Where the batch shards do not divide the split (the reference's
+    ``(256@data) → (8, 32)``: a microbatch lies on 2 of 16 ranks), the
+    batch is gathered over the batch axes first and the split is a view of
+    the whole; each microbatch then goes back on the batch axes
+    (:func:`shard_batch`). Every version decides the same; the identity's
+    reshape without a mesh. The port's own hook: the reference's split is
+    GSPMD's. Its gather is the port's decision, not a point replicated where
+    no rule placed it, so the dry run counts none for it (``fallbacks``)."""
+    from torch.distributed.tensor import DTensor, Replicate
+
+    shape = (n, x.shape[0] // n) + tuple(x.shape[1:])
+    if _STATE["enabled"] and isinstance(x, DTensor) and _view_placements(x, shape) is None:
+
+        x = x.redistribute(x.device_mesh, [Replicate() if p.is_shard() and p.dim == 0 else p
+                                           for p in x.placements])
+    return x.reshape(shape)
+
+
 def shard_experts(x):
     """Constrain dim0 (experts) to the model axis (expert parallelism)."""
     if not _STATE["enabled"]:
@@ -813,28 +1032,59 @@ def shard_attention(q, k, v):
     return _constrain(q, qspec), _constrain(k, kspec), _constrain(v, kspec)
 
 
-def shard_kv_proj(x, n_kv: int):
-    """A key or value projection ``(B, S, Hkv·D)`` before its split into
-    heads: the batch over the batch axes (when divisible) and, when the
-    model axis does not divide the KV heads, whole on it — the layout
-    :func:`shard_attention` gives the keys and values then — so that the
-    split into ``Hkv`` heads is a view of each rank's block (a shard of
-    the ``Hkv·D`` features over more ranks than heads is not). The
-    identity when the model axis divides the KV heads. The port's own
-    hook: the reference needs none."""
-    if not _STATE["enabled"] or n_kv % _size(("model",)) == 0:
+def shard_head_proj(x, n: int, over_positions: bool = False):
+    """A projection ``(B, S, n·D)`` (or ``(B, n·D)``) before its split into
+    ``n`` heads (or gates): when the model axis does not divide ``n``, the
+    batch over the batch axes and, with ``over_positions``, the positions
+    over the model axis where it divides them (the layout
+    :func:`shard_attention` gives the queries then), else whole on it (the
+    layout it gives keys and values; a recurrence's inputs) — so that the
+    split is a view of each rank's block (a shard of the ``n·D`` features
+    over more ranks than heads, or over ranks that cut a head, is not).
+    The identity when the model axis divides ``n``. The port's own hook:
+    the reference needs none."""
+    m = _size(("model",))
+    if not _STATE["enabled"] or n % m == 0:
         return x
     ba = _STATE["batch_axes"]
     spec = [None] * x.ndim
     if x.shape[0] % _size(ba) == 0 and x.shape[0] >= _size(ba):
         spec[0] = ba
+    if over_positions and x.ndim > 2 and x.shape[1] % m == 0 and x.shape[1] >= m:
+        spec[1] = "model"
+    return _constrain(x, spec)
+
+
+def shard_o_proj(x, n_heads: int):
+    """Attention's output ``(B, S, H·D)`` entering the output projection,
+    when the model axis does not divide the heads: the batch over the
+    batch axes and the ``H·D`` features over the model axis (where it
+    divides them; else whole on it), the row-parallel layout. The output
+    comes over positions (:func:`shard_heads`), so this is an all-to-all,
+    and its backward returns the gradient to positions before the split
+    into heads, a view of each rank's block there (the projection's
+    backward cuts the features, which a head does not divide). Left whole,
+    every rank of the axis would repeat the projection's weight gradient.
+    The identity when the model axis divides the heads. The port's own
+    hook: the reference needs none."""
+    m = _size(("model",))
+    if not _STATE["enabled"] or n_heads % m == 0:
+        return x
+    ba = _STATE["batch_axes"]
+    spec = [None] * x.ndim
+    if x.shape[0] % _size(ba) == 0 and x.shape[0] >= _size(ba):
+        spec[0] = ba
+    if x.shape[-1] % m == 0:
+        spec[-1] = "model"
     return _constrain(x, spec)
 
 
 def shard_heads(o):
     """Attention's output ``(B, S, H, D)``: the batch over the batch axes,
-    the heads over the model axis when it divides them (else whole on it),
-    ready for the row-parallel output projection."""
+    the heads over the model axis when it divides them, ready for the
+    row-parallel output projection; else the positions over it, as
+    :func:`shard_attention` placed the queries (where it divides them;
+    else whole on it), for :func:`shard_o_proj`."""
     if not _STATE["enabled"]:
         return o
     ba, m = _STATE["batch_axes"], _size(("model",))
@@ -843,6 +1093,8 @@ def shard_heads(o):
         spec[0] = ba
     if o.shape[2] % m == 0:
         spec[2] = "model"
+    elif o.shape[1] % m == 0 and o.shape[1] >= m:
+        spec[1] = "model"
     return _constrain(o, spec)
 
 
@@ -855,6 +1107,90 @@ def shard_like(x, ref):
     if not _STATE["enabled"] or not isinstance(x, DTensor) or not isinstance(ref, DTensor):
         return x
     return x.redistribute(ref.device_mesh, ref.placements)
+
+
+class _VocabParallelLL(torch.autograd.Function):
+    """Each token's log-likelihood ``picked − logsumexp`` from its rank's
+    block of the logits, the vocabulary cut on the mesh dims ``vocab``
+    (:func:`vocab_parallel_ll`): forward and backward on the local blocks,
+    the (B, S) all-reduces between them the only collectives."""
+
+    @staticmethod
+    def forward(ctx, lg, labels, vocab, out_pl):
+        from torch.distributed.tensor import Partial, Replicate
+
+        mesh, pl = lg.device_mesh, list(lg.placements)
+        local, lab = lg._local_tensor, labels._local_tensor
+        V, Vb = lg.shape[-1], local.shape[-1]
+        coord = mesh.get_coordinate() or [0] * mesh.ndim
+        first = 0
+        for m in vocab:                 # this rank's first vocabulary row
+            first = first * mesh.shape[m] + coord[m]
+        first *= Vb
+
+        def reduced(t, op):
+            part = [Partial(op) if m in vocab else p for m, p in enumerate(out_pl)]
+            d = _wrap(t, mesh, part, tuple(lg.shape[:-1]) + tuple(t.shape[2:]),
+                      _contiguous_strides(tuple(lg.shape[:-1]) + tuple(t.shape[2:])))
+            return d.redistribute(mesh, [Replicate() if m in vocab else p
+                                         for m, p in enumerate(out_pl)])._local_tensor
+
+        # torch.logsumexp's own steps (its max made inf-safe, then the sum of
+        # exp(lg - max), its log plus the max): on one rank, its bits
+        mx = reduced(local.amax(-1, keepdim=True), "max")
+        mx = mx.masked_fill(mx.abs() == math.inf, 0)
+        lse = reduced((local - mx).exp_().sum(-1), "sum").log_().add_(mx[..., 0])
+        idx = lab.long() - first
+        inside = (idx >= 0) & (idx < Vb)
+        idx = idx.clamp(0, Vb - 1)[..., None]
+        picked = reduced(torch.where(inside, local.gather(-1, idx)[..., 0], 0.0), "sum")
+        ctx.saved = (local, lse, idx, inside, mesh, pl, lg.shape, lg.stride(), out_pl)
+        ll = picked - lse
+        return _wrap(ll, mesh, out_pl, lg.shape[:-1], _contiguous_strides(lg.shape[:-1]))
+
+    @staticmethod
+    def backward(ctx, g):
+        local, lse, idx, inside, mesh, pl, shape, stride, out_pl = ctx.saved
+        g = _moved(g, out_pl)._local_tensor
+        # logsumexp's backward (-g · exp(lg - lse)), then the pick's (+g at
+        # the label): the sum autograd forms without a mesh
+        d = (local - lse[..., None]).exp_().mul_(-g[..., None])
+        d.scatter_add_(-1, idx, torch.where(inside, g, -0.0)[..., None])
+        return _wrap(d, mesh, pl, shape, stride), None, None, None
+
+
+def vocab_parallel_ll(lg, labels):
+    """The LM loss's per-token log-likelihood ``picked − logsumexp(lg)``
+    (float32 logits ``lg`` (B, S, V), ``labels`` (B, S)) with the
+    vocabulary kept sharded, as GSPMD lays out the reference's select
+    (``repro.models.layers.lm_loss``): each rank's block gives its max, its
+    sum of ``exp(lg − max)`` and its share of the picked logit, each
+    all-reduced over the mesh dims that cut the vocabulary; the backward is
+    the block's softmax times ``−g`` plus ``g`` at the label. DTensor's own
+    rule for ``logsumexp`` gathers the whole vocabulary (and a clone of a
+    pod's batch on 2 x 16 x 16). The batch and sequence keep the logits'
+    shards, the labels placed alike; ``None`` where ``lg`` is not a DTensor
+    (the caller's plain formula). On one rank the bits are torch's
+    ``logsumexp`` and ``gather``'s. The port's own rule: the reference
+    needs none."""
+    from torch.distributed.tensor import DTensor, Replicate, Shard
+
+    if not isinstance(lg, DTensor):
+        return None
+    last = lg.dim() - 1
+    pl = [p if p.is_replicate() or type(p) is Shard else Replicate() for p in lg.placements]
+    vocab = [m for m, p in enumerate(pl) if p.is_shard() and p.dim == last]
+    if lg.shape[-1] % math.prod(lg.device_mesh.shape[m] for m in vocab):
+        pl = [Replicate() if m in vocab else p for m, p in enumerate(pl)]
+        vocab = []
+    if pl != list(lg.placements):
+        lg = lg.redistribute(lg.device_mesh, pl)
+    out_pl = [Replicate() if m in vocab else p for m, p in enumerate(pl)]
+    if not isinstance(labels, DTensor):
+        labels = DTensor.from_local(labels, lg.device_mesh,
+                                    [Replicate()] * lg.device_mesh.ndim, run_check=False)
+    labels = labels.redistribute(lg.device_mesh, out_pl)
+    return _VocabParallelLL.apply(lg, labels, tuple(vocab), out_pl)
 
 
 @contextmanager

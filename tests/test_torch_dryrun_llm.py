@@ -11,6 +11,11 @@ trainer on a mesh.
   its own): smollm-360m's train, prefill and decode, deepseek-v2-lite-16b's
   prefill and decode (its training step runs on the smoke mesh below); and
   the CLI's skip path;
+* the LM loss on a fake 4 × 4 and 2 × 4 × 4 group: reduced qwen1.5-0.5b's
+  train step holds no tensor as wide as the padded vocabulary, and adding
+  the pod lowers a rank's peak;
+* the CLI's ``--layers`` and ``--allocations`` on smollm-360m at full width,
+  on both production meshes;
 * ``train(mesh=make_smoke_mesh("cpu"))`` bitwise ``train(mesh=None)`` for a
   dense and an MoE reduced arch, and against the reference's
   ``train(mesh=make_smoke_mesh())`` from one step-0 checkpoint (PR 23's
@@ -149,9 +154,84 @@ def test_build_case_traces_every_kind_on_a_fake_mesh():
         assert name.split("/")[1] == c["kind"]
         # the embedding (V, d): V over model, d over data on 4 × 4
         assert c["local"] == [c["global"][0] // 4, c["global"][1] // 4], name
-        # only the microbatch split (4 MB of ids at full width) is replicated
-        assert set(c["fallbacks"]) <= {"aten.view.default"}, name
+        # nothing replicated where no rule placed it (the microbatch split
+        # is the port's own gather)
+        assert c["fallbacks"] == {}, name
     assert got["smollm-360m/train"]["microbatches"] == 1
+
+
+_LOSS_CHILD = r"""
+import json, torch
+from torch.distributed.device_mesh import DeviceMesh
+from repro_torch.configs import get_config
+from repro_torch.configs.shapes import InputShape
+from repro_torch.launch import dryrun
+dryrun.join_fake_group(32)
+cfg = get_config("qwen1.5-0.5b").reduced()
+Vp = cfg.padded_vocab
+out = {"vp": Vp}
+for name, sizes, names in (("4x4", (4, 4), ("data", "model")),
+                           ("2x4x4", (2, 4, 4), ("pod", "data", "model"))):
+    mesh = DeviceMesh("cpu", torch.arange(16 * (len(sizes) - 1)).view(sizes),
+                      mesh_dim_names=names)
+    case, meta = dryrun.build_case("qwen1.5-0.5b", InputShape("t", 16, 32, "train"), mesh,
+                                   cfg=cfg)
+    mode = dryrun.op_cost.CostMode(pod_ranks=dryrun._pod_ranks(mesh))
+    wide = dryrun.watch_outputs(mode, lambda f, t, new: t.dim() >= 2 and t.shape[-1] == Vp)
+    case.run(mode)
+    out[name] = {"peak": mode.cost.peak_bytes, "fallbacks": dict(mode.fallbacks),
+                 "wide": [[op, list(shape)] for op, shape, *_ in wide], "reduce": mode.cost.coll_counts.get("all-reduce", 0)}
+print(json.dumps(out))
+"""
+
+
+def test_the_lm_loss_keeps_the_vocabulary_sharded():
+    """Reduced qwen1.5-0.5b (a padded vocabulary of 512 over d = 128) takes
+    a train step on a fake 4 × 4 group and on 2 × 4 × 4 (a process of its
+    own): no op output of a rank, collective or local, spans the whole
+    padded vocabulary (DTensor's ``logsumexp`` gathered the logits, and its
+    backward expanded a pod's batch), nothing is replicated, and the 2 × 4 ×
+    4 rank's peak is at most the 4 × 4 rank's (half the batch a rank)."""
+    env = {**os.environ, "PYTHONPATH": str(ROOT / "src")}
+    res = subprocess.run([sys.executable, "-c", _LOSS_CHILD], capture_output=True, text=True,
+                         env=env, cwd=str(ROOT), timeout=600)
+    assert res.returncode == 0, res.stderr[-3000:]
+    got = json.loads(res.stdout.strip().splitlines()[-1])
+    assert got["vp"] == 512
+    for name in ("4x4", "2x4x4"):
+        c = got[name]
+        print(name, c["peak"], c["reduce"], c["wide"][:4])
+        assert c["wide"] == [] and c["fallbacks"] == {}, name
+        assert c["reduce"] > 0, name           # the loss's max, sum and pick
+    assert got["2x4x4"]["peak"] <= got["4x4"]["peak"]
+
+
+@pytest.mark.parametrize("multi_pod", [False, True], ids=["16x16", "2x16x16"])
+def test_the_cli_cuts_layers_and_lists_allocations(tmp_path, multi_pod):
+    """``--layers 1 --allocations 0.001`` on smollm-360m × ``decode_32k``
+    at full width (a process of its own, a fake group of 256 or 512): the
+    row says its cut and replicates nothing, and the listing names outputs
+    of at least 1 MB (1e6 bytes) a rank, largest first, none past the live
+    bytes counted after it."""
+    env = {**os.environ, "PYTHONPATH": str(ROOT / "src")}
+    out = tmp_path / "rows.json"
+    argv = [sys.executable, "-m", "repro_torch.launch.dryrun", "--arch", "smollm-360m",
+            "--shape", "decode_32k", "--layers", "1", "--allocations", "0.001",
+            "--json", str(out)] + (["--multi-pod"] if multi_pod else [])
+    res = subprocess.run(argv, capture_output=True, text=True, env=env, cwd=str(ROOT),
+                         timeout=300)
+    assert res.returncode == 0, res.stdout[-2000:] + res.stderr[-2000:]
+    (row,) = json.loads(out.read_text())
+    assert row["layers"] == 1 and row["fallbacks"] == {}
+    assert row["chips"] == (512 if multi_pod else 256)
+    assert ", 1 layers)" in res.stdout and "outputs of >= 0.001 GB a rank" in res.stdout
+    listed = res.stdout.split("outputs of >= 0.001 GB a rank")[1].split("\n\n")[0]
+    sizes = []
+    for line in listed.splitlines()[1:]:
+        gb, live = line.rsplit("(live ", 1)
+        sizes.append(float(gb.split()[-1]))
+        assert float(gb.split()[-1]) <= float(live.rstrip(")")) + 1e-9, line
+    assert sizes and min(sizes) >= 0.001 and sizes == sorted(sizes, reverse=True), listed
 
 
 def test_build_case_skips_where_the_reference_skips():

@@ -13,7 +13,14 @@
 * ``to_placements``/``to_spec`` round trips;
 * ``ctx`` on a fake 4 × 4 mesh (a process of its own): the placements each
   hook redistributes to equal the specs the reference's hooks pass to
-  ``with_sharding_constraint`` (captured by patching it in this test only).
+  ``with_sharding_constraint`` (captured by patching it in this test only);
+* ``ctx``'s rules on real values, four gloo processes on a 2 × 2 mesh: the
+  LM loss on a vocabulary cut over ``model`` against the reference's
+  ``lm_loss`` and its gradient, the pointwise operand rule's placements
+  and values (a shard and a partial sum, the RMSNorm weight's product, the
+  residual add), ops run on the blocks (a one-operand pointwise op, a pad,
+  a scatter into a whole ``zeros``), and the split of queries whose heads
+  ``model`` does not divide.
 """
 
 import json
@@ -418,3 +425,204 @@ def test_ctx_is_the_identity_when_disabled():
     assert not ctx.enabled()
     for fn in (ctx.shard_batch, ctx.shard_experts, ctx.shard_seq, ctx.shard_group_experts):
         assert fn(x) is x
+    assert ctx.shard_head_proj(x, 3) is x and ctx.shard_o_proj(x, 3) is x
+    assert ctx.split_microbatches(x, 2).shape == (2, 4, 4)
+
+
+# ------------------------------------------ ctx's rules on real values (gloo)
+_GLOO_CHILD = r"""
+import json, sys, numpy as np, torch
+import torch.distributed as dist
+from torch.distributed.device_mesh import DeviceMesh
+from torch.distributed.tensor import DTensor, Partial, Replicate, Shard, distribute_tensor
+from repro_torch.models.layers import lm_loss
+from repro_torch.sharding import ctx
+rank, store, npz = int(sys.argv[1]), sys.argv[2], sys.argv[3]
+dist.init_process_group("gloo", store=dist.FileStore(store, 4), rank=rank, world_size=4)
+mesh = DeviceMesh("cpu", torch.arange(4).view(2, 2), mesh_dim_names=("data", "model"))
+c = mesh.get_coordinate()
+gen = torch.Generator().manual_seed(0)
+aten = torch.ops.aten
+out = {}
+# the LM loss, the vocabulary cut over model
+logits = torch.randn(4, 6, 32, generator=gen) * 3
+labels = torch.randint(0, 32, (4, 6), generator=gen)
+mask = (torch.rand(4, 6, generator=gen) > 0.2).float()
+ld = distribute_tensor(logits, mesh, [Shard(0), Shard(2)]).requires_grad_(True)
+with ctx.use_mesh_constraints(mesh) as mode:
+    loss = lm_loss(ld, distribute_tensor(labels, mesh, [Shard(0), Replicate()]),
+                   distribute_tensor(mask, mesh, [Shard(0), Replicate()]))
+    (g,) = torch.autograd.grad(loss, ld)
+out["loss"] = [str(g.placements), dict(mode.fallbacks)]
+arrays = dict(logits=logits.numpy(), labels=labels.numpy(), mask=mask.numpy(),
+              loss=np.float32(loss.full_tensor().detach()), grad=g.full_tensor().detach().numpy())
+
+
+def partial(whole, k):      # model rank k of 2: half the value and a share of a zero sum
+    noise = torch.randn(whole.shape, generator=torch.Generator().manual_seed(7))
+    return whole / 2 + (k - 0.5) * noise
+
+
+def cut(t, d):              # this data rank's half of dim d
+    return t.chunk(2, d)[c[0]].contiguous()
+
+
+cases = {}
+# a shard and a partial sum: jamba's two kinds of S(1) + P add
+a, b = torch.randn(2, 8, 4, generator=gen), torch.randn(2, 8, 4, generator=gen)
+cases["shard_and_partial"] = (distribute_tensor(a, mesh, [Shard(1), Shard(2)]),
+                              DTensor.from_local(partial(b, c[1]), mesh, [Replicate(), Partial()]),
+                              a + b)
+a, b = torch.randn(2, 8, generator=gen), torch.randn(2, 8, generator=gen)
+cases["partial_and_nested_shard"] = (
+    DTensor.from_local(cut(partial(a, c[1]), 1), mesh, [Shard(1), Partial()], shape=a.shape,
+                       stride=a.stride()),
+    distribute_tensor(b, mesh, [Replicate(), Shard(1)]), a + b)
+# the RMSNorm weight's product and the residual add
+x, w = torch.randn(4, 6, 8, generator=gen), torch.randn(8, generator=gen)
+cases["norm_weight"] = (distribute_tensor(x, mesh, [Shard(0), Replicate()]),
+                        distribute_tensor(w, mesh, [Replicate(), Shard(0)]), x * w)
+y = torch.randn(4, 6, 8, generator=gen)
+cases["residual"] = (distribute_tensor(x, mesh, [Shard(0), Replicate()]),
+                     DTensor.from_local(cut(partial(y, c[1]), 0), mesh, [Shard(0), Partial()],
+                                        shape=y.shape, stride=y.stride()), x + y)
+for name, (p, q, want) in cases.items():
+    mul = name == "norm_weight"
+    with ctx.use_mesh_constraints(mesh) as mode:
+        pp, qq = ctx._pointwise_operands(aten.mul.Tensor if mul else aten.add.Tensor, (p, q), {})
+        r = p * q if mul else p + q
+    out[name] = [str(pp.placements), str(qq.placements), str(r.placements),
+                 float((r.full_tensor() - want).abs().max()), dict(mode.fallbacks)]
+# ops the port runs on the blocks: a pointwise op 2.11 decomposes, the
+# Mamba convolution's causal pad, the sort backward's scatter into a whole zeros
+x = torch.randn(4, 6, 8, generator=gen)
+idx = torch.argsort(torch.randn(4, 6, 8, generator=gen), dim=-1)
+blocks = {"softplus": (lambda t: torch.nn.functional.softplus(t),
+                       [distribute_tensor(x, mesh, [Shard(0), Shard(2)])]),
+          "pad": (lambda t: torch.nn.functional.pad(t, (0, 0, 3, 0)),
+                  [distribute_tensor(x, mesh, [Shard(0), Shard(2)])]),
+          "cummax": (lambda t: torch.cummax(t, dim=1).values,
+                     [distribute_tensor(x, mesh, [Shard(0), Shard(2)])]),
+          "scatter": (lambda z, i, v: z.scatter(-1, i, v),
+                      [torch.zeros(4, 6, 8), distribute_tensor(idx, mesh, [Shard(0), Shard(1)]),
+                       distribute_tensor(x, mesh, [Shard(0), Shard(1)])])}
+for name, (fn, operands) in blocks.items():
+    with ctx.use_mesh_constraints(mesh) as mode:
+        r = fn(*operands)
+    want = fn(*[t.full_tensor() if isinstance(t, DTensor) else t for t in operands])
+    out[name] = [str(r.placements), float((r.full_tensor() - want).abs().max()),
+                 dict(mode.fallbacks)]
+# queries whose heads model does not divide: 3 heads of 4 over 2 ranks
+q = torch.randn(4, 6, 12, generator=gen)
+with ctx.use_mesh_constraints(mesh) as mode:
+    qd = ctx.shard_head_proj(distribute_tensor(q, mesh, [Shard(0), Shard(2)]), 3, True)
+    v = qd.reshape(4, 6, 3, 4)
+want = distribute_tensor(q.view(4, 6, 3, 4), mesh, v.placements).to_local()
+out["query_heads"] = [str(qd.placements), str(v.placements),
+                      bool(torch.equal(v.to_local(), want)), dict(mode.fallbacks)]
+if rank == 0:
+    np.savez(npz, **arrays)
+    print(json.dumps(out))
+dist.destroy_process_group()
+"""
+
+
+@pytest.fixture(scope="module")
+def gloo_blocks(tmp_path_factory):
+    """Rank 0's results and arrays of :data:`_GLOO_CHILD` on four gloo
+    processes (a 2 × 2 ``("data", "model")`` mesh, a ``FileStore``)."""
+    d = tmp_path_factory.mktemp("gloo_blocks")
+    env = {**os.environ, "PYTHONPATH": str(ROOT / "src"), "OMP_NUM_THREADS": "1"}
+    procs = [subprocess.Popen([sys.executable, "-c", _GLOO_CHILD, str(r), str(d / "store"),
+                               str(d / "out.npz")], env=env, cwd=str(ROOT), text=True,
+                              stdout=subprocess.PIPE, stderr=subprocess.PIPE)
+             for r in range(4)]
+    outs = []
+    try:
+        for p in procs:
+            outs.append(p.communicate(timeout=300))
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    for p, (_, err) in zip(procs, outs):
+        assert p.returncode == 0, err[-3000:]
+    return json.loads(outs[0][0].strip().splitlines()[-1]), dict(np.load(d / "out.npz"))
+
+
+def test_lm_loss_on_a_vocabulary_cut_matches_the_reference(gloo_blocks):
+    """``lm_loss`` on logits whose vocabulary is cut over ``model``
+    (``ctx.vocab_parallel_ll``: each rank's block, the max, the sum and the
+    picked logit all-reduced) against the reference's ``lm_loss`` and its
+    ``jax.grad`` on the same values; the gradient keeps the vocabulary
+    sharded and nothing is replicated."""
+    from repro.models.layers import lm_loss as jlm_loss
+
+    got, arr = gloo_blocks
+    placements, fallbacks = got["loss"]
+    assert placements == "(Shard(dim=0), Shard(dim=2))" and fallbacks == {}
+    args = (jnp.asarray(arr["labels"]), jnp.asarray(arr["mask"]))
+    want, grad = jax.value_and_grad(lambda lg: jlm_loss(lg, *args))(jnp.asarray(arr["logits"]))
+    np.testing.assert_allclose(arr["loss"], np.asarray(want), rtol=1e-6)
+    np.testing.assert_allclose(arr["grad"], np.asarray(grad), atol=1e-6)
+
+
+POINTWISE_CASES = {
+    # name: (operands after the rule, the output)
+    "shard_and_partial": ("(Shard(dim=1), Shard(dim=2))",) * 3,
+    "partial_and_nested_shard": ("(Shard(dim=1), Shard(dim=1))",) * 3,
+    "norm_weight": ("(Shard(dim=0), Replicate())", "(Replicate(), Replicate())",
+                    "(Shard(dim=0), Replicate())"),
+    "residual": ("(Shard(dim=0), Replicate())",) * 3,
+}
+
+
+@pytest.mark.parametrize("case", sorted(POINTWISE_CASES))
+def test_pointwise_operands_are_placed_alike_on_every_version(gloo_blocks, case):
+    """``ctx._pointwise_operands`` on a 2 × 2 mesh, real values: a shard
+    and a partial sum (jamba's ``S(1) + P`` adds, which DTensor 2.11
+    replicates) reduce-scatter the partial sum to the shard's dim; the
+    RMSNorm weight, sharded on ``model``, is gathered beside the whole
+    activation (2.13 cut the activation); the residual add of a whole
+    operand and a partial sum reduces the partial sum (2.13 kept it). The
+    op then runs on those placements, its gathered result within 1e-6 of
+    the same op without a mesh, nothing replicated."""
+    got, _ = gloo_blocks
+    p, q, out, err, fallbacks = got[case]
+    assert (p, q, out) == POINTWISE_CASES[case]
+    assert err <= 1e-6 and fallbacks == {}
+
+
+BLOCK_CASES = {"softplus": "(Shard(dim=0), Shard(dim=2))",
+               "cummax": "(Shard(dim=0), Shard(dim=2))",
+               "pad": "(Shard(dim=0), Shard(dim=2))",
+               "scatter": "(Shard(dim=0), Shard(dim=1))"}
+
+
+@pytest.mark.parametrize("case", sorted(BLOCK_CASES))
+def test_ops_run_on_the_blocks_on_every_version(gloo_blocks, case):
+    """Ops the port runs on each rank's blocks on a 2 × 2 mesh, real
+    values, within 1e-6 of the op without a mesh (a vectorised ``softplus``
+    may round a block's tail otherwise), placed as their sharded operand
+    and nothing replicated: a pointwise op of one operand (``softplus``,
+    which DTensor 2.11 runs as its decomposition), a scan along an unsharded
+    dim (``cummax``: 2.11 has no rule), ``constant_pad_nd`` on an
+    unsharded dim (2.11 has no rule: jamba's causal convolution gathered
+    its activation) and ``scatter`` into a plain whole ``zeros`` (2.11's
+    ``sort`` backward; its DTensor gathers all three operands)."""
+    got, _ = gloo_blocks
+    placements, err, fallbacks = got[case]
+    assert placements == BLOCK_CASES[case] and err <= 1e-6 and fallbacks == {}
+
+
+def test_uneven_query_heads_split_on_the_blocks(gloo_blocks):
+    """Queries of 3 heads of 4 (12 features over a ``model`` axis of 2: 6 a
+    rank, a head and a half): ``ctx.shard_head_proj`` places the positions
+    over ``model``, the split into heads is a view of each rank's block,
+    rank 0's block equal to ``distribute_tensor`` of the whole split, and
+    nothing is replicated."""
+    got, _ = gloo_blocks
+    proj, split, equal, fallbacks = got["query_heads"]
+    assert proj == split == "(Shard(dim=0), Shard(dim=1))"
+    assert equal and fallbacks == {}
