@@ -187,9 +187,10 @@ Phases:
    query heads over 8 KV heads, window 4096, float32; weights from seed
    0): batch 4, a prompt of 4,096 tokens, 64 new ones. Every SWA layer's
    ring is full from the prompt's last token on, so K7 (``swa_decode``)
-   must launch 24 × 65 = 1,560 times. Then, from the same seed again,
-   the prompt, a snapshot of the caches, and 16 teacher-forced steps with
-   K7 and 16 with the plain masked attention from the snapshot: K7 held
+   must launch 24 × 65 = 1,560 times. Then, from a copy of serve's caches
+   taken as its last prompt step returns (the prompt is not decoded
+   twice), a snapshot of them, and 16 teacher-forced steps with K7 and 16
+   with the plain masked attention from the snapshot: K7 held
    against its plain version on every layer's real cache on the first 4
    steps (float32 and bfloat16), the two routes' logits within the
    reference's decode tolerance; and K7, its plain version and
@@ -266,7 +267,12 @@ Phases:
    must not exceed its peak on 16 × 16 (the LM loss keeps the vocabulary
    sharded), llama3's and deepseek's ``train_4k`` flops, matmul flops and
    GB must equal ``SHARD_TORCH213`` (this tree's figures on torch 2.13)
-   within 1e-6, every rank rule must hold; their rows (GB a rank against
+   within 1e-6, the two list their outputs of ``SHARD_ALLOC_GB`` or more
+   (``--allocations``): none of llama3's may be the whole ``(Vp, d)``
+   embedding table (its gradient stays on each rank's vocabulary block),
+   none of deepseek's an activation of the whole ``(G, E, C, d)`` MoE
+   buffer's size or of its ``E·C + Nk`` rows (each rank builds its block),
+   every rank rule must hold; their rows (GB a rank against
    80, flops, bytes, collectives by kind, the dominant term) and the torch
    version are printed. None of the eight kernels launches.
 
@@ -422,10 +428,13 @@ SHARD_DRYRUNS = (("llama3-8b", "train_4k", False), ("deepseek-v2-lite-16b", "tra
 # --json out.json` (its flops_per_chip, matmul_flops_per_chip,
 # hbm_gb_per_chip x 2**30 / 1e9). Every torch version must read them within
 # SHARD_TORCH_RTOL.
-SHARD_TORCH213 = {"llama3-8b_train_4k": (261973117950017.0, 261400299569152.0, 4.496741242),
-                  "deepseek-v2-lite-16b_train_4k": (123891921646129.0, 123337502097408.0,
-                                                    31.370273236)}
+SHARD_TORCH213 = {"llama3-8b_train_4k": (261969178286145.0, 261400299569152.0, 4.433474422),
+                  "deepseek-v2-lite-16b_train_4k": (123846356538321.0, 123337502097408.0,
+                                                    6.971944268)}
 SHARD_TORCH_RTOL = 1e-6
+# the two train_4k dry runs list their outputs of this many GB (1e9 bytes) or
+# more a rank, held to no whole embedding table or MoE buffer
+SHARD_ALLOC_GB = 0.5
 SHARD_DRYRUN_TIMEOUT_S = 600
 SHARD_MATMULS = ("aten::mm", "aten::addmm", "aten::bmm", "aten::baddbmm")
 SHARD_OP_GROUPS = (("matmuls", ("mm", "addmm", "bmm", "baddbmm")),
@@ -1666,6 +1675,8 @@ def _start_dryruns(out: Path) -> list:
         js.unlink(missing_ok=True)
         argv = [sys.executable, "-m", "repro_torch.launch.dryrun", "--arch", arch,
                 "--shape", shape, "--json", str(js)] + (["--multi-pod"] if multi_pod else [])
+        if f"{arch}_{shape}" in SHARD_TORCH213 and not multi_pod:
+            argv += ["--allocations", str(SHARD_ALLOC_GB)]
         f = open(log_path, "w")
         procs.append((tag, js, log_path, f, time.perf_counter(),
                       subprocess.Popen(argv, stdout=f, stderr=subprocess.STDOUT, env=env,
@@ -1755,6 +1766,31 @@ def _finish_dryruns(procs, rcs: dict) -> dict:
             raise RuntimeError(f"the dry run {tag} made no roofline row: {row}")
         rows[tag] = {**row, "wall_s": wall}
     return rows
+
+
+def _whole_blocks(dryruns: dict) -> dict:
+    """For llama3-8b's and deepseek-v2-lite-16b's ``train_4k`` rows: the
+    listed outputs (``--allocations``) that are the whole ``(Vp, d)``
+    embedding table, or an activation ``(..., d)`` of at least the whole
+    ``(G, E, C, d)`` MoE buffer's elements or with its ``E·C + Nk`` rows."""
+    from repro_torch.configs import SHAPES, get_config
+
+    out = {}
+    for tag in ("llama3-8b_train_4k", "deepseek-v2-lite-16b_train_4k"):
+        row = dryruns[tag]
+        cfg = get_config(tag.rsplit("_train_4k", 1)[0])
+        d, shape = cfg.d_model, SHAPES["train_4k"]
+        bad = [a for a in row["allocations"] if a[1] == [cfg.padded_vocab, d]]
+        if cfg.moe is not None:
+            m = cfg.moe
+            G = row["chips"] // 16                     # a group a batch shard
+            ng = shape.global_batch // row["microbatches"] * shape.seq_len // G
+            C = max(1, round(m.capacity_factor * ng * m.top_k / m.num_experts))
+            whole, rows = G * m.num_experts * C * d, m.num_experts * C + ng * m.top_k
+            bad += [a for a in row["allocations"] if len(a[1]) >= 3 and a[1][-1] == d
+                    and (math.prod(a[1]) >= whole or rows in a[1])]
+        out[tag] = bad
+    return out
 
 
 def phase_sharding(device) -> dict:
@@ -1914,6 +1950,11 @@ def phase_sharding(device) -> dict:
             if max(abs(r) for r in rel) > SHARD_TORCH_RTOL:
                 raise RuntimeError(f"the dry run {tag} on torch {torch.__version__} reads "
                                    f"{got}, not torch 2.13's {SHARD_TORCH213[tag]}")
+    for tag, why in _whole_blocks(dryruns).items():
+        log(f"[sharding] {tag}: outputs of >= {SHARD_ALLOC_GB} GB a rank "
+            f"{len(dryruns[tag]['allocations'])}, of a whole table or buffer: {why or 'none'}")
+        if why:
+            raise RuntimeError(f"the dry run {tag} holds whole blocks: {why}")
     h2o = [dryruns[f"h2o-danube-1.8b_train_4k{s}"]["hbm_gb_per_chip"] for s in ("", "_multipod")]
     log(f"[sharding] h2o-danube-1.8b x train_4k GB a rank: 16 x 16 {h2o[0] * 2**30 / 1e9:.6f}, "
         f"2 x 16 x 16 {h2o[1] * 2**30 / 1e9:.6f}")
@@ -2967,11 +3008,13 @@ def _decode_cfg():
 def phase_decode(device, profile: bool = False) -> dict:
     """The LLM decode path: ``serve`` at full width with every launch count
     set to 0 just before and read just after (K7 once per layer and
-    full-ring step, no other kernel); then the checks and K7's times on a
-    second prefill from the same seed (:func:`_decode_checks`)."""
+    full-ring step, no other kernel); then the checks and K7's times from
+    serve's own caches after the prompt, copied as its last prompt step
+    returns (:func:`_decode_checks`)."""
     import torch
     from repro_torch.kernels import sgns_fused
     from repro_torch.launch.decode_llm import serve
+    from repro_torch.models import Model
 
     cfg = _decode_cfg()
     B, P, N = DECODE["batch"], DECODE["prompt_len"], DECODE["new_tokens"]
@@ -2979,13 +3022,40 @@ def phase_decode(device, profile: bool = False) -> dict:
     expected = cfg.num_layers * (P + N - (ring - 1))
     torch.cuda.reset_peak_memory_stats(device)
     held_before = torch.cuda.memory_allocated(device)      # earlier phases' tensors
+    # the checks start from serve's own state after the prompt: the model and
+    # a copy of its caches, taken as the last prompt step returns. The copy's
+    # time and bytes are taken out of prefill_s and the peak, which measure
+    # serve alone
+    prefilled = {}
+    step = Model.decode_step
+
+    def snapshot_after_prompt(self, cache, token, pos, **kw):
+        out = step(self, cache, token, pos, **kw)
+        if pos == P - 1 and not prefilled:
+            torch.cuda.synchronize(device)
+            t1 = time.perf_counter()
+            held = torch.cuda.memory_allocated(device)
+            prefilled.update(model=self, peak_before=torch.cuda.max_memory_allocated(device),
+                             cache=[{k: t.clone() for k, t in c.items()} for c in cache])
+            torch.cuda.synchronize(device)
+            prefilled.update(bytes=torch.cuda.memory_allocated(device) - held,
+                             s=time.perf_counter() - t1)
+            torch.cuda.reset_peak_memory_stats(device)
+        return out
+
     sgns_fused.reset_launch_counts()
+    Model.decode_step = snapshot_after_prompt
     t0 = time.perf_counter()
-    gen, stats = serve(DECODE["arch"], batch=B, prompt_len=P, new_tokens=N,
-                       seed=DECODE["seed"], device=device)
+    try:
+        gen, stats = serve(DECODE["arch"], batch=B, prompt_len=P, new_tokens=N,
+                           seed=DECODE["seed"], device=device)
+    finally:
+        Model.decode_step = step
     wall = time.perf_counter() - t0
     launches = dict(sgns_fused.LAUNCHES)
-    peak = torch.cuda.max_memory_allocated(device) - held_before
+    peak = max(prefilled["peak_before"],
+               torch.cuda.max_memory_allocated(device) - prefilled["bytes"]) - held_before
+    stats["prefill_s"] -= prefilled["s"]
     n_params = sum(math.prod(s) for s in _param_shapes(cfg))
     weight_bytes = 4 * n_params
     ring_bytes = 4 * 2 * cfg.num_layers * B * ring * cfg.num_kv_heads * cfg.resolved_head_dim
@@ -2997,7 +3067,9 @@ def phase_decode(device, profile: bool = False) -> dict:
         f"({stats['decode_s'] / N * 1e3:.3f} ms/step), {stats['tok_per_s']:.1f} tok/s "
         f"(bound by bytes: {step_bound_ms:.3f} ms/step, {B / step_bound_ms * 1e3:.0f} "
         f"tok/s); wall with init {wall:.1f} s; peak device memory {peak / 2**30:.2f} GiB "
-        f"above the {held_before / 2**30:.2f} GiB held before")
+        f"above the {held_before / 2**30:.2f} GiB held before (the checks' copy of the "
+        f"caches, {prefilled['bytes'] / 2**30:.2f} GiB and {prefilled['s'] * 1e3:.1f} ms, "
+        f"taken out of both)")
     log(f"[decode] launches during serve: {launches}")
     if launches["swa_decode"] != expected:
         raise RuntimeError(f"expected {expected} launches of swa_decode "
@@ -3012,7 +3084,8 @@ def phase_decode(device, profile: bool = False) -> dict:
     out = {"launches": launches, "stats": stats, "peak_bytes": peak, "tokens": gen,
            "step_bound_ms": step_bound_ms}
     torch.cuda.empty_cache()
-    out.update(_decode_checks(device, gen, profile))
+    out.update(_decode_checks(device, gen, profile, prefilled.pop("model"),
+                              prefilled.pop("cache")))
     return out
 
 
@@ -3022,37 +3095,21 @@ def _param_shapes(cfg):
     return [tuple(p.shape) for p in Model(cfg, device="meta").parameters()]
 
 
-def _decode_checks(device, gen, profile: bool) -> dict:
-    """The prompt again from the same seed, a snapshot of the caches, then
-    ``DECODE_CHECK_STEPS`` steps fed the generated tokens, with K7 (K7 held
+def _decode_checks(device, gen, profile: bool, model, cache) -> dict:
+    """From serve's ``model`` and its ``cache`` after the prompt (a copy),
+    and a snapshot of it, ``DECODE_CHECK_STEPS`` steps fed the generated
+    tokens, with K7 (K7 held
     against its plain version on every layer's real cache on the first
     ``DECODE_KERNEL_CHECKS`` steps, float32 and bfloat16) and from the
     snapshot with the plain masked attention: the logits must agree. Then
     K7, its plain version and SDPA timed on layer 0's cache."""
-    import numpy as np
     import torch
-    from repro_torch import prng
     from repro_torch.kernels.swa_decode import swa_decode, swa_decode_plain
-    from repro_torch.models import Model
     from repro_torch.models import attention
 
     cfg = _decode_cfg()
-    B, P = DECODE["batch"], DECODE["prompt_len"]
-    ring = min(P + DECODE["new_tokens"], cfg.attention_window)
+    P = DECODE["prompt_len"]
     with torch.inference_mode():
-        t0 = time.perf_counter()
-        model = Model(cfg, prng.PRNGKey(DECODE["seed"]), device=device)
-        prompts = torch.from_numpy(np.random.default_rng(DECODE["seed"]).integers(
-            0, cfg.vocab_size, (B, P), dtype=np.int32)).to(device)
-        cache = model.init_cache(B, ring)
-        torch.cuda.synchronize(device)
-        t1 = time.perf_counter()
-        for i in range(P):
-            model.decode_step(cache, prompts[:, i:i + 1], i)
-        torch.cuda.synchronize(device)
-        t2 = time.perf_counter()
-        log(f"[decode] check run: init {t1 - t0:.1f} s, prompt again {t2 - t1:.1f} s "
-            f"({(t2 - t1) / P * 1e3:.3f} ms/step)")
         snapshot = [{k: t.clone() for k, t in c.items()} for c in cache]
 
         errs = {"float32": 0.0, "bfloat16": 0.0}

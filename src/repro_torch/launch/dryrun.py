@@ -18,7 +18,11 @@ prefill forward, or one decode step against a full-length cache, under
 :func:`repro_torch.sharding.ctx.use_mesh_constraints`, and prints per rank:
 the peak live bytes (against the card's 80 GB), :mod:`repro_torch.launch
 .op_cost`'s flops, bytes and collectives, and the roofline row. Every
-number is counted on the host, none measured on a device.
+number is counted on the host, none measured on a device. The loops that
+mirror the reference's scans run a few trips each and charge the others
+(:func:`repro_torch.launch.op_cost.counted_loops`, the same counts as the
+unrolled trace), as the reference's HLO walker multiplies a ``while`` body
+by its trips.
 
 The reference's decode program has no Pallas call (``repro.models`` never
 calls ``swa_decode``), so the dry run traces ``decode_step(...,
@@ -42,6 +46,7 @@ import os
 import sys
 import time
 import traceback
+from contextlib import nullcontext
 from dataclasses import replace
 
 import torch
@@ -97,9 +102,14 @@ class Case:
         self.kind, self.model, self.mesh = kind, model, mesh
         self.step, self.inputs = step, inputs
 
-    def run(self, mode: op_cost.CostMode | None = None) -> op_cost.CostMode:
+    def run(self, mode: op_cost.CostMode | None = None,
+            counted: bool = False) -> op_cost.CostMode:
+        """``counted``: each loop that mirrors a reference scan runs a few
+        trips and charges the rest (:func:`~repro_torch.launch.op_cost
+        .counted_loops`), which counts what the unrolled trace counts."""
         mode = op_cost.CostMode(pod_ranks=_pod_ranks(self.mesh)) if mode is None else mode
-        with shctx.use_mesh_constraints(self.mesh, mode=mode):
+        with shctx.use_mesh_constraints(self.mesh, mode=mode), (
+                op_cost.counted_loops(mode) if counted else nullcontext()):
             mode.track([p for p in self.model.parameters()])
             mode.track(self.inputs)
             self.step()
@@ -359,7 +369,11 @@ def run_case(arch_id: str, shape_name: str, *, multi_pod: bool,
              layers: int | None = None, allocations_gb: float | None = None) -> dict:
     """One case's roofline row (and its printout with ``verbose``):
     ``layers`` cuts the arch's depth, ``allocations_gb`` lists the outputs
-    of at least that many GB (1e9 bytes) the rank's ops make."""
+    of at least that many GB (1e9 bytes) the rank's ops make (also in the
+    row, ``allocations``). Each loop that mirrors a reference scan is
+    traced as a few trips with the rest charged
+    (:func:`~repro_torch.launch.op_cost.counted_loops`: the same counts as
+    the unrolled trace)."""
     from repro_torch.launch.mesh import make_production_mesh
 
     mesh = make_production_mesh(multi_pod=multi_pod) if mesh is None else mesh
@@ -371,7 +385,7 @@ def run_case(arch_id: str, shape_name: str, *, multi_pod: bool,
     mode = op_cost.CostMode(pod_ranks=_pod_ranks(mesh))
     allocs = None if not allocations_gb else watch_outputs(
         mode, lambda f, t, new: new and t.numel() * t.element_size() >= allocations_gb * 1e9)
-    case.run(mode)
+    case.run(mode, counted=True)
     t2 = time.perf_counter()
     cost = mode.cost
     r = rl.analyze(arch_id, shape_name, cost, chips, model_flops=meta["model_flops"],
@@ -384,6 +398,8 @@ def run_case(arch_id: str, shape_name: str, *, multi_pod: bool,
                fallback_reasons={op: dict(w) for op, w in mode.reasons.items()},
                microbatches=meta.get("microbatches"),
                fits=cost.peak_bytes <= CARD_BYTES)
+    if allocs is not None:
+        row["allocations"] = [[op, list(shape), dt, n] for op, shape, dt, n, _ in allocs]
     if verbose:
         mesh_name = "x".join(str(int(s)) for s in mesh.mesh.shape)
         cut = f", {layers} layers" if layers else ""

@@ -3,11 +3,12 @@
 
 The reference walks the compiled HLO: it multiplies ``while`` bodies by
 their trip counts, recurses into fusions, and charges HBM traffic at
-fusion boundaries. Torch has no HLO. Eager dispatch already unrolls every
-loop (the microbatches, remat's recompute, the recurrences), and every
-aten op is a launch of its own, so the counterpart is a model of the ops
-as they are dispatched, counted by a ``TorchDispatchMode``
-(:class:`CostMode`):
+fusion boundaries. Torch has no HLO. Eager dispatch unrolls every loop
+(the microbatches, remat's recompute, the recurrences), and every aten op
+is a launch of its own, so the counterpart is a model of the ops as they
+are dispatched, counted by a ``TorchDispatchMode`` (:class:`CostMode`);
+:func:`counted_loops`, which the dry run turns on, runs a few trips of
+each loop that mirrors a reference scan and charges the rest:
 
 * flops — ``torch.utils.flop_counter``'s formulas for the matmul-class ops
   (``mm``, ``addmm``, ``bmm``, ``baddbmm``, convolutions, SDPA), kept apart
@@ -31,7 +32,8 @@ counts are the **local** shards' ops and the collectives DTensor issues —
 a rank's work. (A mode entered around DTensor code without this would see
 global shapes: ``FlopCounterMode`` over a DTensor matmul counts the whole
 mesh's flops.) The ops DTensor runs on global-shape fake tensors to
-propagate shapes are not counted.
+propagate shapes, or to derive a rule through an op's decomposition, are
+not counted.
 
 The reference's HLO-text parser (``parse_module``, ``_OP_LINE``,
 ``HloCostModel``, ``top_collectives``) has no input in the port and is not
@@ -47,7 +49,7 @@ from dataclasses import dataclass, field
 
 import torch
 
-from repro_torch.sharding.ctx import ShardedDispatch
+from repro_torch.sharding.ctx import ShardedDispatch, _wrap
 
 _DTYPE_BYTES = {
     "pred": 1, "s2": 1, "u2": 1, "s4": 1, "u4": 1,
@@ -152,6 +154,30 @@ class Cost:
     @property
     def collective_bytes(self) -> float:
         return sum(self.coll_bytes.values())
+
+    def copy(self) -> "Cost":
+        return Cost(self.flops, self.bytes, dict(self.coll_bytes), dict(self.coll_counts),
+                    self.dcn_bytes, [], self.matmul_flops, self.peak_bytes, self.ops,
+                    dict(self.bytes_by_op))
+
+    def since(self, before: "Cost") -> "Cost":
+        """The work counted since ``before`` (a :meth:`copy` of this cost)."""
+        def diff(a, b):
+            out = {k: v - b.get(k, 0.0) for k, v in a.items()}
+            return {k: v for k, v in out.items() if v}
+
+        return Cost(self.flops - before.flops, self.bytes - before.bytes,
+                    diff(self.coll_bytes, before.coll_bytes),
+                    diff(self.coll_counts, before.coll_counts),
+                    self.dcn_bytes - before.dcn_bytes, [],
+                    self.matmul_flops - before.matmul_flops, 0.0, self.ops - before.ops,
+                    diff(self.bytes_by_op, before.bytes_by_op))
+
+    def work(self) -> tuple:
+        """The counted work, for comparing two spans: every sum but the peak."""
+        return (self.flops, self.matmul_flops, self.bytes, self.dcn_bytes, self.ops,
+                sorted(self.coll_bytes.items()), sorted(self.coll_counts.items()),
+                sorted(self.bytes_by_op.items()))
 
 
 def _tensors(x):
@@ -310,42 +336,53 @@ class CostMode(ShardedDispatch):
 
 
 # DTensor runs each new op once on global-shape fake tensors to propagate
-# its output's shape; those ops are no rank's work. The propagator's entry
-# is wrapped while a CostMode is on the stack so that it pauses counting.
-_PROPAGATE = ("_propagate_tensor_meta_non_cached", "_propagate_tensor_meta")
+# its output's shape, and (torch 2.13) derives the placements of an op it
+# has no rule for by running its decomposition on meta tensors; those ops
+# are no rank's work. Each such entry is wrapped while a CostMode is on the
+# stack so that it pauses counting: the first that exists of each group.
+_PROPAGATE = (("torch.distributed.tensor._sharding_prop", "ShardingPropagator",
+               ("_propagate_tensor_meta_non_cached", "_propagate_tensor_meta")),
+              ("torch.distributed.tensor._decompositions", "DecompShardingStrategy",
+               ("propagate_strategy",)))
 _ACTIVE: list = []
 
 
-def _patch_propagator(mode: CostMode) -> None:
-    from torch.distributed.tensor._sharding_prop import ShardingPropagator
+def _propagators():
+    import importlib
 
+    for module, cls, names in _PROPAGATE:
+        try:
+            owner = getattr(importlib.import_module(module), cls)
+        except (ImportError, AttributeError):
+            continue
+        name = next((n for n in names if n in owner.__dict__), None)
+        if name is not None:
+            yield owner, name
+
+
+def _patch_propagator(mode: CostMode) -> None:
     _ACTIVE.append(mode)
     if len(_ACTIVE) > 1:
         return
-    for name in _PROPAGATE:
-        orig = ShardingPropagator.__dict__.get(name)
-        if orig is None:
-            continue
+    for owner, name in _propagators():
+        orig = owner.__dict__[name]
 
         def wrapped(self, *a, __orig=orig, **k):
             with _pause_all():
                 return __orig(self, *a, **k)
 
         wrapped._repro_orig = orig
-        setattr(ShardingPropagator, name, wrapped)
-        break
+        setattr(owner, name, wrapped)
 
 
 def _unpatch_propagator(mode: CostMode) -> None:
-    from torch.distributed.tensor._sharding_prop import ShardingPropagator
-
     _ACTIVE.remove(mode)
     if _ACTIVE:
         return
-    for name in _PROPAGATE:
-        fn = ShardingPropagator.__dict__.get(name)
-        if fn is not None and hasattr(fn, "_repro_orig"):
-            setattr(ShardingPropagator, name, fn._repro_orig)
+    for owner, name in _propagators():
+        fn = owner.__dict__[name]
+        if hasattr(fn, "_repro_orig"):
+            setattr(owner, name, fn._repro_orig)
 
 
 @contextmanager
@@ -357,3 +394,370 @@ def _pause_all():
     finally:
         for m in _ACTIVE:
             m._paused -= 1
+
+
+# ---------------------------------------------------------------------------
+# Counted loops: the counterpart of the reference's ``while`` body counted
+# once and multiplied by its trip count.
+# ---------------------------------------------------------------------------
+#: loops of fewer trips run every trip
+COUNTED_MIN_TRIPS = 4
+# a skipped span's probe storage -> the finalizer that frees its phantom bytes
+_PHANTOMS: weakref.WeakKeyDictionary = weakref.WeakKeyDictionary()
+
+
+@contextmanager
+def counted_loops(mode: CostMode):
+    """Within the block, each loop of :func:`repro_torch.models.loops.trips`
+    (the layer cycles, the microbatches, Mamba's chunks, sLSTM's segments
+    and steps, mLSTM's chunks and steps) of ``n`` >= ``COUNTED_MIN_TRIPS``
+    trips runs trips 0, 1 and n − 1 and charges trips 2 … n − 2 to ``mode``
+    as copies of trip 1 — the dry run's mode; off by default, and never on
+    in a real run. What a traced step counts equals the unrolled trace:
+
+    * the forward work (flops, matmul flops, bytes, collectives by kind,
+      ops) of trip 1, added ``n − 3`` times where the skipped trips would
+      run (so a checkpoint's recompute charges them again);
+    * the backward work of trip 1 (remat's recompute in it), ``n − 3``
+      times at its end: trip 1, as every trip after the first in the
+      backward pass, adds its gradients to those of shared tensors;
+    * memory: the skipped trips' outputs and final carry are fresh tensors
+      of the templates' storage sizes, and the bytes each trip keeps (the
+      live bytes trip 1 adds) a phantom, live while autograd would hold the
+      skipped trips' saved tensors: it is tied to a probe tensor saved for
+      the backward pass (held by the graph, dropped by a checkpoint's
+      forward, held again by its recompute) and freed where the skipped
+      trips' backward would run, which then makes the gradients of their
+      carry and of their own parameters (``params``: the skipped cycles'
+      weights get gradients laid out as trip n − 1's, for the optimizer).
+      The live bytes at each trip boundary are the unrolled trace's, so
+      the peak is too: reached in a real trip, or in a skipped backward
+      window at trip 1's rise (:class:`_Backward`).
+
+    It hides no failure: trips whose parameters or carry differ in shape,
+    placement, dtype, layout or ``requires_grad``, a trip n − 1 whose
+    forward work, kept bytes or peak differ from trip 1's, or bytes kept
+    outside autograd raise ``RuntimeError``."""
+    from repro_torch.models import loops
+
+    def counted(body, carry, n, params):
+        return _CountedLoop(mode, body, n, params).run(carry)
+
+    with loops.counting(counted):
+        yield
+
+
+def _leaves(tree):
+    from torch.utils._pytree import tree_flatten
+
+    return tree_flatten(tree)
+
+
+def _local(t):
+    from torch.distributed.tensor import DTensor
+
+    return t._local_tensor if isinstance(t, DTensor) else t
+
+
+def _meta(t) -> tuple:
+    """What a stand-in of ``t`` needs: its DTensor spec (or None), its local
+    shape, stride, offset, storage bytes, dtype, device; and its
+    ``requires_grad`` (compared, not built)."""
+    from torch.distributed.tensor import DTensor
+
+    spec = ((t.device_mesh, tuple(t.placements), tuple(t.shape), tuple(t.stride()))
+            if isinstance(t, DTensor) else None)
+    loc = _local(t)
+    return (spec, tuple(loc.shape), tuple(loc.stride()), loc.storage_offset(),
+            loc.untyped_storage().nbytes(), loc.dtype, loc.device, t.requires_grad)
+
+
+def _signature(ts) -> list:
+    return [None if t is None else (str(m[0][1:]) if m[0] else None,) + m[1:]
+            for t in ts for m in [None if t is None else _meta(t)]]
+
+
+def _stand_in(meta):
+    """A fresh tensor of ``meta``'s layout on a storage of its size (its
+    allocation counted as live, no op charged)."""
+    spec, shape, stride, offset, nbytes, dtype, device, _ = meta
+    base = torch.empty(-(-nbytes // dtype.itemsize), dtype=dtype, device=device)
+    loc = base.as_strided(shape, stride, offset)
+    return loc if spec is None else _wrap(loc, spec[0], spec[1], spec[2], spec[3])
+
+
+class _Trip:
+    """One real trip's record: its forward work, the live bytes it adds and
+    its peak above its start."""
+
+    def __init__(self):
+        self.work = None
+        self.keep = self.peak = 0.0
+
+
+class _Backward:
+    """The backward pass of a counted loop, read by its markers. A trip's
+    gradients reach the trips before it through a marker on their outputs,
+    where they add up with the other gradients of those outputs (a y that
+    is also the carry): trip t's window runs from the start of its own
+    outputs' marker to the start of trip t − 1's, and holds its nodes and
+    that addition for trip t − 1's outputs — what each trip's backward
+    holds, unrolled. Trip 1's window, less the addition that the skipped
+    span's gradients made at trip 1's outputs (dispatched, not skipped), is
+    charged for the skipped trips. Trip n − 1, whose carry may have no
+    gradient, is no template: the skipped windows' peak is trip 1's peak
+    above its start, from the highest of their starts (linear between the
+    first skipped window's, where the span's backward starts, and trip
+    1's)."""
+
+    def __init__(self, mode, skip):
+        self.mode, self.skip = mode, skip
+        self.grads = None            # metadata of trip n − 1's input gradients
+        self.param_grads = []        # … and of its own parameters' gradients
+        self.handles = []            # the hooks that read them
+        self._after_skipped = self._window = self._added = None
+        self._span_start = None      # live bytes where the skipped windows start
+
+    def last_input(self, gs):        # trip n − 1's input gradients, before the span
+        self.grads = [None if g is None else _meta(g) for g in gs]
+
+    def skipped_start(self):
+        self._span_start = self.mode._live
+
+    def skipped_done(self):
+        self._after_skipped = self.mode.cost.copy()
+
+    def trip1_start(self, gs):
+        mode = self.mode
+        if self._after_skipped is not None:
+            self._added = mode.cost.since(self._after_skipped)
+        self._window = mode.cost.copy()
+        self._start, self._peak = mode._live, mode.cost.peak_bytes
+        mode.cost.peak_bytes = mode._live
+
+    def trip1_end(self, gs):
+        if self._window is None:
+            return
+        mode = self.mode
+        cost = mode.cost
+        rise = cost.peak_bytes - self._start
+        cost.peak_bytes = max(self._peak, cost.peak_bytes)
+        if self._span_start is not None:
+            step = (self._start - self._span_start) / self.skip
+            cost.peak_bytes = max(cost.peak_bytes,
+                                  max(self._span_start, self._start - step) + rise)
+        cost.add(cost.since(self._window), self.skip)
+        if self._added is not None:
+            cost.add(self._added, -1)
+        self._window = None
+
+
+class _Mark(torch.autograd.Function):
+    """The identity on a trip's tensors; its backward calls ``hook`` with
+    their gradients (at a trip's outputs: where the trip's backward starts,
+    the gradients of those outputs added up; at its input: once every node
+    of the trip has run, by the engine's order)."""
+
+    @staticmethod
+    def forward(ctx, hook, *ts):
+        ctx.set_materialize_grads(False)
+        ctx.hook = hook
+        return ts
+
+    @staticmethod
+    def backward(ctx, *gs):
+        ctx.hook(gs)
+        return (None, *gs)
+
+
+def _marked(tree, hook):
+    """``tree`` with its tensors that need gradients through one :class:`_Mark`
+    (a tensor twice stays one); ``hook`` gets the gradients of all its
+    tensor leaves, in order (None for one without)."""
+    from torch.utils._pytree import tree_unflatten
+
+    flat, spec = _leaves(tree)
+    uniq = list({id(t): t for t in flat
+                 if isinstance(t, torch.Tensor) and t.requires_grad}.values())
+    if not uniq:
+        return tree
+    pos = {id(t): k for k, t in enumerate(uniq)}
+    at = [pos.get(id(t)) if isinstance(t, torch.Tensor) else None for t in flat]
+    at = [a for a, t in zip(at, flat) if isinstance(t, torch.Tensor)]
+
+    def each(gs):
+        hook([None if k is None else gs[k] for k in at])
+
+    out = _Mark.apply(each, *uniq)
+    return tree_unflatten([out[pos[id(t)]] if id(t) in pos else t for t in flat], spec)
+
+
+class _Skipped(torch.autograd.Function):
+    """Trips 2 … n − 2: charges their forward work, returns stand-ins of
+    their outputs and of the carry after them, and saves ``probe`` (whose
+    storage the phantom of their kept bytes is tied to); its backward frees
+    the phantom and returns gradients laid out as trip n − 1's input
+    gradients and as the skipped trips' parameters."""
+
+    @staticmethod
+    def forward(ctx, loop, probe, *inputs):
+        ctx.set_materialize_grads(False)
+        ctx.loop = loop
+        ctx.save_for_backward(probe)
+        loop.mode.cost.add(loop.first.work, loop.skip)
+        return tuple(_stand_in(m) for m in loop.out_metas)
+
+    @staticmethod
+    def backward(ctx, *gs):
+        (probe,) = ctx.saved_tensors
+        loop = ctx.loop
+        loop.bwd.skipped_start()
+        fin = _PHANTOMS.pop(probe.untyped_storage(), None)
+        if fin is not None:
+            fin()
+        for h in loop.bwd.handles:
+            h.remove()
+        carry = loop.bwd.grads or [None] * len(loop.carry_metas)
+        # a parameter's gradient laid out as trip n − 1's same parameter's
+        # (a replicated weight's is a partial sum over the batch axes)
+        own = loop.bwd.param_grads
+        metas = list(carry) + [None if not m[-1] else own[k % len(own)] or m
+                               for k, m in enumerate(loop.param_metas)]
+        grads = tuple(None if m is None else _stand_in(m) for m in metas)
+        loop.bwd.skipped_done()
+        return (None, None) + grads
+
+
+class _CountedLoop:
+    def __init__(self, mode, body, n, params):
+        self.mode, self.body, self.n, self.params = mode, body, n, params
+        self.skip = n - 3
+
+    def run(self, box):
+        from torch.utils._pytree import tree_unflatten
+
+        n, body, mode = self.n, self.body, self.mode
+        carry = box.pop()
+        if n < COUNTED_MIN_TRIPS:
+            ys = []
+            for i in range(n):
+                carry, y = body(carry, i)
+                ys.append(y)
+            return carry, ys
+        if self.params is not None:
+            sigs = [_signature(self.params(i)) for i in range(n)]
+            if any(s != sigs[1] for s in sigs[1:]):
+                raise RuntimeError("counted loop: the trips' parameters differ")
+        self.bwd = bwd = _Backward(mode, self.skip)
+        carry, y = body(carry, 0)
+        needs = torch.is_grad_enabled() and any(
+            isinstance(t, torch.Tensor) and t.requires_grad for t in _leaves((carry, y))[0])
+        carry, y = _marked((carry, y), bwd.trip1_end)
+        ys = [y]
+        # trip 1, the template
+        self.first = _Trip()
+        live = mode._live
+        self.carry_in = _signature(_leaves(carry)[0])
+        carry, y = self._trip(carry, 1, self.first)
+        if not needs and torch.is_grad_enabled() and any(
+                isinstance(t, torch.Tensor) and t.requires_grad for t in _leaves((carry, y))[0]):
+            raise RuntimeError("counted loop: trip 1's outputs need gradients, trip 0's none")
+        carry, y = _marked((carry, y), bwd.trip1_start)
+        ys.append(y)
+        self.first.keep = mode._live - live
+        # trips 2 … n − 2
+        flat, spec = _leaves(carry)
+        if any(not isinstance(t, torch.Tensor) for t in flat):
+            raise RuntimeError("counted loop: a carry of tensors only")
+        if _signature(flat) != self.carry_in:
+            raise RuntimeError("counted loop: the carry changes from trip to trip")
+        yflat, yspec = _leaves(y)
+        # a y that is a carry tensor (sLSTM's h) is, after the last skipped
+        # trip, that trip's carry: the carry stand-in itself
+        alias = [next((j for j, c in enumerate(flat) if c is t), None) for t in yflat]
+        keys = [_local(t).untyped_storage()._cdata for t in flat + yflat
+                if isinstance(t, torch.Tensor)]
+        if len(set(keys)) != len(keys) - sum(a is not None for a in alias):
+            raise RuntimeError("counted loop: outputs that share a storage")
+        self.carry_metas = [_meta(t) for t in flat]
+        ymetas = [_meta(t) if isinstance(t, torch.Tensor) else None for t in yflat]
+        plan = [[("carry", alias[i]) if alias[i] is not None and k == self.skip - 1 else
+                 ("out", ymetas[i]) if ymetas[i] is not None else ("none", None)
+                 for i in range(len(yflat))] for k in range(self.skip)]
+        self.out_metas = self.carry_metas + [m for trip in plan for kind, m in trip
+                                             if kind == "out"]
+        own = [p for k in range(2, n - 1) for p in (self.params(k) if self.params else ())]
+        self.param_metas = [_meta(p) for p in own]
+        probe = torch.empty(0, dtype=torch.uint8, device="meta")
+        held = weakref.ref(probe)
+        stores = [weakref.ref(_local(t).untyped_storage()) for t in flat]
+        live = mode._live
+        outs = list(_Skipped.apply(self, probe, *flat, *own))
+        del probe, flat, carry, own, y
+        nc = len(self.carry_metas)
+        cflat, rest = outs[:nc], iter(outs[nc:])
+        # a carry tensor its own trip saves outlives the next trip: the last
+        # skipped trip's stand-in is kept until the span's backward, as the
+        # probe is (trip 1's own carry tells which: it is still stored)
+        kept = [t for t, st in zip(cflat, stores) if st() is not None]
+        carry = tree_unflatten(cflat, spec)
+        for trip in plan:
+            ys.append(tree_unflatten([cflat[m] if kind == "carry" else
+                                      next(rest) if kind == "out" else None
+                                      for kind, m in trip], yspec))
+        del outs, rest, cflat
+        phantom = live + self.skip * self.first.keep - mode._live
+        if phantom < 0 or (phantom and held() is None):
+            raise RuntimeError(f"counted loop: {phantom:+.0f} bytes of the skipped trips are "
+                               f"kept outside autograd")
+        if held() is not None:
+            st = held().untyped_storage()
+            mode._live += phantom
+            mode.cost.peak_bytes = max(mode.cost.peak_bytes, mode._live)
+
+            def release(n=phantom, kept=kept):
+                mode._free(n)
+                kept.clear()
+
+            _PHANTOMS[st] = weakref.finalize(st, release)
+        del kept
+        # trip n − 1, checked against trip 1; its parameters' gradients laid
+        # out as the skipped trips' will be
+        if self.params is not None and torch.is_grad_enabled():
+            last = self.params(n - 1)
+            bwd.param_grads = [None] * len(last)
+
+            def seen(k):
+                def hook(g):
+                    bwd.param_grads[k] = _meta(g)
+                return hook
+
+            bwd.handles = [p.register_hook(seen(k)) for k, p in enumerate(last)
+                           if p.requires_grad]
+            del last
+        self.last = _Trip()
+        live = mode._live
+        carry = _marked(carry, bwd.last_input)
+        carry, y = self._trip(carry, n - 1, self.last)
+        ys.append(y)
+        self.last.keep = mode._live - live
+        a, b = self.first, self.last
+        if (a.work.work(), a.keep, a.peak) != (b.work.work(), b.keep, b.peak):
+            raise RuntimeError(f"counted loop: trip {n - 1} differs from trip 1 "
+                               f"(kept {b.keep} vs {a.keep}, peak {b.peak} vs {a.peak})")
+        self.body = self.params = None
+        return carry, ys
+
+    def _trip(self, carry, i, rec):
+        """Trip ``i`` with its forward work and peak recorded in ``rec``."""
+        mode = self.mode
+        start, peak = mode._live, mode.cost.peak_bytes
+        mode.cost.peak_bytes = start
+        before = mode.cost.copy()
+        try:
+            carry, y = self.body(carry, i)
+        finally:
+            rec.peak = mode.cost.peak_bytes - start
+            mode.cost.peak_bytes = max(peak, mode.cost.peak_bytes)
+        rec.work = mode.cost.since(before)
+        return carry, y

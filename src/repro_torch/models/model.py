@@ -26,6 +26,7 @@ from repro_torch import prng
 from repro_torch.configs.base import ModelConfig
 from repro_torch.configs.shapes import InputShape
 from repro_torch.device import resolve_device
+from repro_torch.models import loops
 from repro_torch.models import transformer as tf
 from repro_torch.models.layers import RMSNorm, dense_param, embed_init, frozen, lm_loss
 from repro_torch.optim import Optimizer
@@ -233,14 +234,17 @@ class Model(nn.Module):
                     raise ValueError(f"batch {B} does not split into {microbatches} "
                                      f"microbatches")
                 split = {k: shctx.split_microbatches(v, microbatches) for k, v in batch.items()}
-                loss = torch.zeros((), dtype=torch.float32, device=self.embed.device)
-                grads = [torch.zeros_like(p, dtype=torch.float32) for p in params]
-                for i in range(microbatches):
+
+                def trip(carry, i):
                     # each chunk's batch back on the batch axes (the identity
                     # without a mesh context), as GSPMD keeps the reference's
+                    loss, grads = carry
                     l, g = value_and_grad({k: shctx.shard_batch(v[i]) for k, v in split.items()})
-                    loss = loss + l
-                    grads = [a + b for a, b in zip(grads, g)]
+                    return (loss + l, [a + b for a, b in zip(grads, g)]), None
+
+                box = [(torch.zeros((), dtype=torch.float32, device=self.embed.device),
+                        [torch.zeros_like(p, dtype=torch.float32) for p in params])]
+                (loss, grads), _ = loops.trips(trip, box, microbatches)
                 loss = loss / microbatches
                 grads = [g / microbatches for g in grads]
             with torch.no_grad():

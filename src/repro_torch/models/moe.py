@@ -13,9 +13,12 @@ Integer routing is reproduced exactly: ``top_k`` is a stable descending
 sort (``jax.lax.top_k`` puts the lower index first among equal
 probabilities; ``torch.topk`` does not promise an order), positions are an
 integer cumsum. No float atomics: every kept assignment owns its (expert,
-slot); a dropped one goes to a slot of its own past the buffer (the
-reference adds its zero contribution into the clipped slot, which changes
-nothing), and the combine adds a token's k contributions in k order.
+slot); the dropped ones go to one row past the buffer, which is cut off
+(the reference adds their zero contribution into the clipped slot, which
+changes nothing), and the combine reads a zero row for them and adds a
+token's k contributions in k order. :func:`expert_slots`, :func:`dispatch`
+and :func:`combine` take a block of the experts: all of them here, each
+rank's own under a mesh (``sharding.ctx.ExpertBlocks``).
 """
 
 from __future__ import annotations
@@ -57,7 +60,10 @@ class MoE(nn.Module):
         of the enabled mesh context, else 1); the tokens split into G groups
         when N % G == 0 and N >= G. The (G, E, C, d) buffers are pinned G →
         data, E → model and the tokens to the batch axes, as the reference's
-        (:mod:`repro_torch.sharding.ctx`: the identity without a mesh). ``routes``, if a list, gets each call's ``top_idx``
+        (:mod:`repro_torch.sharding.ctx`: the identity without a mesh); under
+        a mesh of more than one rank, each rank builds and reads only its
+        block (``ctx.ExpertBlocks``), as GSPMD lays out the reference's
+        vmapped scatter and gather. ``routes``, if a list, gets each call's ``top_idx``
         and ``keep`` (integer outputs the tests and the card's checks
         compare)."""
         B, S, d = x.shape
@@ -73,33 +79,75 @@ class MoE(nn.Module):
             routes.append({"top_idx": r["top_idx"], "keep": r["keep"]})
         C, keep, flat_e, pos = r["capacity"], r["keep"], r["flat_e"], r["pos"]
         Nk = Ng * k
-        dev = x.device
-        tok = torch.arange(Ng, device=dev).repeat_interleave(k)            # (Nk,)
-        # dispatch: kept assignment → row e·C + pos of (E·C + Nk) rows; a
-        # dropped one → its own row E·C + a past the buffers
-        dest = torch.where(keep, flat_e * C + pos,
-                           E * C + torch.arange(Nk, device=dev)[None])      # (G, Nk)
-        g_idx = torch.arange(G, device=dev)[:, None].expand(G, Nk)
-        buf = x.new_zeros((G, E * C + Nk, d)).index_put((g_idx, dest), xt[:, tok])
-        buf = shctx.shard_group_experts(buf[:, :E * C].reshape(G, E, C, d))
+        # under a mesh: each rank's (G/·, E/·, C, d) block (sharding.ctx)
+        blocks = shctx.expert_blocks(xt, flat_e, pos, keep, E, C, k)
+        if blocks is None:
+            dest = expert_slots(flat_e, pos, keep, 0, E, C)
+            buf = shctx.shard_group_experts(dispatch(xt, dest, k, E, C))
+        else:
+            buf = blocks.dispatch(xt)
         h = (torch.nn.functional.silu(torch.einsum("gecd,edf->gecf", buf, self.gate))
              * torch.einsum("gecd,edf->gecf", buf, self.up))
         out_buf = shctx.shard_group_experts(torch.einsum("gecf,efd->gecd", h, self.down))
-        out_buf = out_buf.reshape(G, E * C, d)
-        # combine: each assignment's output (a zero row for a dropped one)
-        # times its weight, a token's k of them added in k order
-        out_buf = torch.cat([out_buf, out_buf.new_zeros((G, 1, d))], dim=1)
-        src = torch.where(keep, flat_e * C + pos, torch.full_like(pos, E * C))
-        vals = out_buf[g_idx, src]                                         # (G, Nk, d)
         w = (r["top_vals"].reshape(G, Nk).float() * keep.float()).to(x.dtype)
-        contrib = (vals * w[..., None]).reshape(G, Ng, k, d)
-        combined = contrib[:, :, 0]
-        for j in range(1, k):
-            combined = combined + contrib[:, :, j]
+        combined = combine(out_buf, w, dest, k)[0] if blocks is None else blocks.combine(out_buf, w)
         combined = shctx.shard_batch(combined)
         if self.shared is not None:
             combined = combined + self.shared(xt)
         return combined.reshape(B, S, d), r["aux"]
+
+
+def expert_slots(flat_e, pos, keep, e0: int, El: int, C: int) -> torch.Tensor:
+    """Each assignment's row ``(G·Nk,)`` of the flattened ``(G·El·C + 1, d)``
+    buffer of experts ``e0 … e0 + El − 1`` (``(G, Nk)`` routes): its slot
+    ``(g, e − e0, pos)`` if it is kept and its expert lies in the block,
+    else the one row past the buffer (``e0 = 0``, ``El = E``: every expert)."""
+    G = flat_e.shape[0]
+    inside = keep & (flat_e >= e0) & (flat_e < e0 + El)
+    g = torch.arange(G, device=flat_e.device)[:, None] * (El * C)
+    return torch.where(inside, g + (flat_e - e0) * C + pos, G * El * C).reshape(-1)
+
+
+def dispatch(xt, dest, k: int, El: int, C: int):
+    """The ``(G, El, C, d)`` buffer of ``xt`` ``(G, Ng, d)``'s assignments
+    (token-major, k a token) written to their ``dest`` rows; the row past
+    the buffer, which takes the others, is dropped."""
+    G, Ng, d = xt.shape
+    tok = torch.arange(Ng, device=xt.device).repeat_interleave(k)        # (Ng·k,)
+    rows = xt.new_zeros((G * El * C + 1, d)).index_put((dest,), xt[:, tok].reshape(-1, d))
+    return rows[:-1].reshape(G, El, C, d)
+
+
+def dispatch_grad(g_buf, dest, k: int):
+    """:func:`dispatch`'s gradient for ``xt``: each assignment's row of
+    ``g_buf`` (a zero row past it), a token's k added."""
+    G, El, C, d = g_buf.shape
+    rows = torch.cat([g_buf.reshape(-1, d), g_buf.new_zeros((1, d))])[dest]
+    return rows.view(G, -1, k, d).sum(2)
+
+
+def combine(out_buf, w, dest, k: int):
+    """Each assignment's row of ``out_buf`` ``(G, El, C, d)`` (a zero row
+    where ``dest`` is past it: dropped, or of another block's expert) times
+    its weight ``w`` ``(G, Ng·k)``, a token's k of them added in k order:
+    ``(G, Ng, d)``, and the rows read ``(G·Ng·k, d)``."""
+    G, El, C, d = out_buf.shape
+    vals = torch.cat([out_buf.reshape(-1, d), out_buf.new_zeros((1, d))])[dest]
+    contrib = (vals * w.reshape(-1, 1)).reshape(G, -1, k, d)
+    combined = contrib[:, :, 0]
+    for j in range(1, k):
+        combined = combined + contrib[:, :, j]
+    return combined, vals
+
+
+def combine_grad(g, vals, w, dest, k: int, shape):
+    """:func:`combine`'s gradients from the output's ``g`` ``(G, Ng, d)``:
+    ``out_buf``'s ``shape`` ``(G, El, C, d)`` and ``w``'s ``(G, Ng·k)``."""
+    G, El, C, d = shape
+    tok = torch.arange(g.shape[1], device=g.device).repeat_interleave(k)
+    grows = g[:, tok].reshape(-1, d)                                     # (G·Ng·k, d)
+    gbuf = g.new_zeros((G * El * C + 1, d)).index_put((dest,), grows * w.reshape(-1, 1))
+    return gbuf[:-1].view(shape), (grows * vals).sum(-1).view(G, -1)
 
 
 def top_k(probs: torch.Tensor, k: int):

@@ -32,6 +32,7 @@ from torch.nn import functional as F
 from torch.utils.checkpoint import checkpoint
 
 from repro_torch import prng
+from repro_torch.models import loops
 from repro_torch.models.layers import dense_param, frozen, rms_norm
 from repro_torch.sharding import ctx as shctx
 
@@ -130,11 +131,14 @@ class Mamba(nn.Module):
         h0 = torch.zeros((B, self.d_inner, self.d_state), dtype=torch.float32,
                          device=x.device)
         if chunk and S % chunk == 0 and S > chunk:
-            ys = []
-            for c in range(S // chunk):
+            def trip(h, c):
                 sl = slice(c * chunk, (c + 1) * chunk)
-                y_c, h0 = _maybe_checkpoint(seg, xs[:, sl], dt[:, sl], B_[:, sl], C_[:, sl], h0)
-                ys.append(y_c)
+                y_c, h = _maybe_checkpoint(seg, xs[:, sl], dt[:, sl], B_[:, sl], C_[:, sl], h)
+                return h, y_c
+
+            box = [h0]
+            del h0
+            h0, ys = loops.trips(trip, box, S // chunk)
             y = torch.cat(ys, dim=1)
         else:
             y, _ = seg(xs, dt, B_, C_, h0)
@@ -202,12 +206,18 @@ class SLSTM(nn.Module):
         h_new = o_t * c_new / torch.clamp(torch.abs(n_new), min=1.0)
         return h_new, c_new, n_new, m_new
 
-    def _scan(self, carry, pre):
-        """Steps over pre's axis 1: (the last carry..., hs (B, c, H, dh))."""
-        hs = []
-        for t in range(pre.shape[1]):
-            carry = self.step(carry, pre[:, t])
-            hs.append(carry[0])
+    def _scan(self, pre, *carry):
+        """Steps over pre's axis 1 from the carry (h, c, n, m): (the last
+        carry..., hs (B, c, H, dh)). The carry comes as four tensors, which a
+        checkpoint saves as it saves any (a tuple it would hold by reference,
+        outside the saved-tensor hooks of an enclosing checkpoint)."""
+        def trip(c, t):
+            c = self.step(c, pre[:, t])
+            return c, c[0]
+
+        box = [carry]
+        del carry
+        carry, hs = loops.trips(trip, box, pre.shape[1])
         return (*carry, torch.stack(hs, dim=1))
 
     def forward(self, x: torch.Tensor, segment: int = 64) -> torch.Tensor:
@@ -219,15 +229,19 @@ class SLSTM(nn.Module):
         carry = (st["h"], st["c"], st["n"], st["m"])
         pre = shctx.shard_head_proj(x @ self.w_in + self.b, 4)      # (z, i, f, o)
         if segment and S % segment == 0 and S > segment:
-            parts = []
-            for s in range(S // segment):
-                *carry, hs_s = _maybe_checkpoint(self._scan, tuple(carry),
-                                                 pre[:, s * segment:(s + 1) * segment])
-                parts.append(hs_s)
+            def trip(c, s):
+                *c, hs_s = _maybe_checkpoint(self._scan, pre[:, s * segment:(s + 1) * segment],
+                                             *c)
+                return tuple(c), hs_s
+
+            box = [carry]
+            del carry
+            carry, parts = loops.trips(trip, box, S // segment)
             hs = torch.cat(parts, dim=1)
         else:
-            *_, hs = self._scan(carry, pre)
-        y = hs.reshape(B, S, d).to(x.dtype)
+            *_, hs = self._scan(pre, *carry)
+        # the heads merged, whole on a model axis that does not divide them
+        y = shctx.shard_head_proj(hs.reshape(B, S, d), self.n_heads).to(x.dtype)
         return rms_norm(y, self.norm, _EPS) @ self.out_proj
 
     def decode(self, cache: dict, x: torch.Tensor) -> torch.Tensor:
@@ -302,13 +316,14 @@ def mlstm_chunk_scan(q, k, v, i_pre, f_pre, chunk: int) -> torch.Tensor:
         return C_new, n_new, mc, h
 
     st = init_mlstm_state(B, H, dh, q.device)
-    C, n, m = st["C"], st["n"], st["m"]
-    hs = []
-    for c in range(S // chunk):
+
+    def trip(cnm, c):
         sl = slice(c * chunk, (c + 1) * chunk)
-        C, n, m, h = _maybe_checkpoint(chunk_body, C, n, m, q[:, sl], kn[:, sl], v[:, sl],
-                                       i_pre[:, sl], lf[:, sl])
-        hs.append(h)
+        *cnm, h = _maybe_checkpoint(chunk_body, *cnm, q[:, sl], kn[:, sl], v[:, sl],
+                                    i_pre[:, sl], lf[:, sl])
+        return tuple(cnm), h
+
+    _, hs = loops.trips(trip, [(st["C"], st["n"], st["m"])], S // chunk)
     return torch.cat(hs, dim=1)
 
 
@@ -352,13 +367,16 @@ class MLSTM(nn.Module):
             hs = mlstm_chunk_scan(q, k, v, i_pre, f_pre, chunk)
         else:
             st = init_mlstm_state(B, self.n_heads, self.dh, x.device)
-            carry, hs = (st["C"], st["n"], st["m"]), []
-            for t in range(S):
-                carry, h = mlstm_step(carry, (q[:, t], k[:, t], v[:, t], i_pre[:, t],
-                                              f_pre[:, t]), self.dh)
-                hs.append(h)
+
+            def trip(carry, t):
+                return mlstm_step(carry, (q[:, t], k[:, t], v[:, t], i_pre[:, t], f_pre[:, t]),
+                                  self.dh)
+
+            _, hs = loops.trips(trip, [(st["C"], st["n"], st["m"])], S)
             hs = torch.stack(hs, dim=1)
-        y = hs.reshape(B, S, self.di).to(x.dtype)
+        # the heads merged, whole on a model axis that does not divide them
+        # (the gradient back there before its split, a view of each block)
+        y = shctx.shard_head_proj(hs.reshape(B, S, self.di), self.n_heads).to(x.dtype)
         y = rms_norm(y, self.norm, _EPS) * F.silu(z)
         return y @ self.down
 

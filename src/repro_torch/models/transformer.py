@@ -13,7 +13,8 @@ constructor, its encoder :class:`Encoder`.
 
 The reference scans the cycle over stacked parameters (``lax.scan``);
 the port runs the same layers as a Python loop over an ``nn.ModuleList``,
-prefix first, then cycle by cycle, and draws each layer's weights from the
+prefix first, then cycle by cycle (:func:`repro_torch.models.loops.trips`,
+which the dry run counts), and draws each layer's weights from the
 key the reference's scan slice gets (``split`` trees, ``jax.vmap`` over
 the cycle keys: a vmapped draw equals the per-key draw). Where the
 reference wraps the scan's body in ``jax.checkpoint`` (``cfg.remat``: each
@@ -48,6 +49,7 @@ from torch.utils.checkpoint import checkpoint
 from repro_torch import prng
 from repro_torch.configs.base import ModelConfig
 from repro_torch.device import resolve_device
+from repro_torch.models import loops
 from repro_torch.models.attention import GQA, MLA, decode_mask, init_gqa_cache, init_mla_cache
 from repro_torch.models.layers import MLP, RMSNorm, mrope_angles, rope_angles
 from repro_torch.models.moe import MoE
@@ -274,10 +276,18 @@ def run_stack_forward(layers, cfg: ModelConfig, x: torch.Tensor, ctx: ForwardCtx
             au = _add_aux(au, a)
         return xx, au
 
-    for c in range(n_cycles):
-        cycle = layers[n_prefix + c * n_cycle:n_prefix + (c + 1) * n_cycle]
-        x, aux = (checkpoint(body, x, aux, cycle, use_reentrant=False) if cfg.remat
-                  else body(x, aux, cycle))
+    def cycle_of(c):
+        return layers[n_prefix + c * n_cycle:n_prefix + (c + 1) * n_cycle]
+
+    def trip(carry, c):
+        xx, au = carry
+        return (checkpoint(body, xx, au, cycle_of(c), use_reentrant=False) if cfg.remat
+                else body(xx, au, cycle_of(c))), None
+
+    box = [(x, aux)]
+    del x, aux
+    (x, aux), _ = loops.trips(trip, box, n_cycles,
+                              params=lambda c: list(cycle_of(c).parameters()))
     return x, aux
 
 

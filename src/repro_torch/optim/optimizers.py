@@ -29,6 +29,7 @@ from typing import Callable
 import numpy as np
 import torch
 
+from repro_torch.sharding import ctx as shctx
 from repro_torch.tree import tree_map, tree_unzip
 
 
@@ -117,11 +118,14 @@ def adafactor(lr: float = 1e-2, eps: float = 1e-30,
             g32 = g.float()
             g2 = g32 * g32 + eps
             if _factored(p.shape):
-                vr = beta * s["vr"] + one_minus_beta * g2.mean(-1)
-                vc = beta * s["vc"] + one_minus_beta * g2.mean(-2)
+                # under a mesh, in the layout of the gradient's reductions
+                # (sharding.ctx.placed_as; the identity without one)
+                row, col = g2.mean(-1), g2.mean(-2)
+                vr = beta * shctx.placed_as(s["vr"], row) + one_minus_beta * row
+                vc = beta * shctx.placed_as(s["vc"], col) + one_minus_beta * col
                 r = vr / torch.clamp(vr.mean(-1, keepdim=True), min=1e-30)
                 u = g32 / (torch.sqrt(r)[..., None] * torch.sqrt(vc)[..., None, :] + 1e-30)
-                ns = {"vr": vr, "vc": vc}
+                ns = {"vr": shctx.placed_as(vr, s["vr"]), "vc": shctx.placed_as(vc, s["vc"])}
             else:
                 v = beta * s["v"] + one_minus_beta * g2
                 u = g32 / (torch.sqrt(v) + 1e-30)

@@ -15,7 +15,9 @@ Where GSPMD decides for the reference, the port decides here, once:
 * :class:`ShardedDispatch` (entered by :func:`use_mesh_constraints`)
   applies the port's own rules first, the same decision on every torch
   version — views, advanced indexing, pointwise operands, and ops it runs
-  on the blocks (one-operand pointwise ops, scans, scatters, pads) — then
+  on the blocks (one-operand pointwise ops, scans, scatters, pads, flips,
+  ``log_sigmoid_backward``, the embedding's gradient on each rank's
+  vocabulary block) — then
   runs the op through DTensor, plain tensors among its operands taken as
   replicated; where DTensor has no rule for an op at its operands'
   placements, it redistributes them to ``Replicate`` (an all-gather, as
@@ -30,7 +32,11 @@ Where GSPMD decides for the reference, the port decides here, once:
   the xLSTM's head splits, whose reshapes DTensor cannot shard as GSPMD
   does;
 * :func:`vocab_parallel_ll` computes the LM loss's log-likelihood from
-  each rank's block of the vocabulary.
+  each rank's block of the vocabulary;
+* :class:`ExpertBlocks` builds and reads the MoE's dispatch buffers on each
+  rank's (group, expert) block;
+* :func:`placed_as` puts Adafactor's factored statistics in the layout of
+  their gradient's reductions.
 """
 
 from __future__ import annotations
@@ -103,11 +109,20 @@ class ShardedDispatch(TorchDispatchMode):
             out = self._inside_dtensor(lambda: _port_indexing(func, args, kwargs))
             if out is not None:
                 return out
+        if func is _aten.embedding_dense_backward.default:
+            out = self._inside_dtensor(lambda: _embedding_backward_on_blocks(args, kwargs))
+            if out is not None:
+                return out
+        if func in _ELEMENTWISE:
+            out = self._inside_dtensor(lambda: _elementwise_on_blocks(func, args, kwargs))
+            if out is not None:
+                return out
         if func.overloadpacket in _MATMULS:
             args, kwargs = self._inside_dtensor(lambda: tree_map(_reduced, (args, kwargs)))
-        elif func in _SCATTERS or func in _SCANS or func is _aten.constant_pad_nd.default:
+        elif func in _SCATTERS or func in _SCANS or func in _ALONG_DIMS:
             rule = (_scan_on_blocks if func in _SCANS else
-                    _pad_on_blocks if func is _aten.constant_pad_nd.default else _scatter_on_blocks)
+                    _pad_on_blocks if func is _aten.constant_pad_nd.default else
+                    _flip_on_blocks if func is _aten.flip.default else _scatter_on_blocks)
             out = self._inside_dtensor(lambda: rule(func, args, kwargs))
             if out is not None:
                 return out
@@ -116,6 +131,9 @@ class ShardedDispatch(TorchDispatchMode):
             if out is not None:
                 return out
             args = self._inside_dtensor(lambda: _pointwise_operands(func, args, kwargs))
+            out = self._inside_dtensor(lambda: _broadcast_on_blocks(func, args, kwargs))
+            if out is not None:
+                return out
         try:
             plain_args, plain_kwargs, strided = self._inside_dtensor(
                 lambda: _unstride(func, args, kwargs))
@@ -586,6 +604,69 @@ def _port_indexing(func, args, kwargs):
     return _wrap(out, mesh, out_pl, shape, _contiguous_strides(shape))
 
 
+def _block_start(mesh, dims, block: int) -> int:
+    """This rank's first index along a tensor dim cut into blocks of
+    ``block`` over the mesh dims ``dims`` (in mesh order, the first
+    outermost, as DTensor chunks a dim several mesh dims shard)."""
+    coord = mesh.get_coordinate() or [0] * mesh.ndim
+    first = 0
+    for m in dims:
+        first = first * mesh.shape[m] + coord[m]
+    return first * block
+
+
+def _embedding_backward_on_blocks(args, kwargs):
+    """``embedding_dense_backward`` of the vocabulary-parallel lookup on the
+    blocks, the port's rule (DTensor's makes each rank's gradient the whole
+    ``(V, d)`` table, a partial sum over the batch axes). The forward's
+    output was reduced to whole on the mesh dims that cut the vocabulary,
+    so the gradient and the indices come whole there: on each such mesh
+    dim (of more than one rank, dividing V) the output is cut on the
+    vocabulary rows, each rank scatter-adding only the tokens of its own
+    block (the others to a row past it, dropped); a mesh dim that shards
+    the indices and the gradient on one batch dim makes it a partial sum,
+    one that shards the gradient's features alone cuts its columns. The
+    result is the layout GSPMD gives the reference's scatter-add; the
+    partial sums are reduce-scattered to the FSDP shard where the gathered
+    weight's gradient returns to the parameter. ``None`` (DTensor's rule)
+    where it does not apply."""
+    from torch.distributed.tensor import DTensor, Partial, Shard
+
+    grad, idx, V = args[0], args[1], int(args[2])
+    pad = args[3] if len(args) > 3 else kwargs.get("padding_idx", -1)
+    freq = args[4] if len(args) > 4 else kwargs.get("scale_grad_by_freq", False)
+    if freq or not isinstance(grad, DTensor) or not isinstance(idx, DTensor):
+        return None
+    mesh = grad.device_mesh
+    out_pl, vocab = [], []
+    for m in range(mesh.ndim):
+        pg, pi = grad.placements[m], idx.placements[m]
+        if pg.is_replicate() and pi.is_replicate():
+            if mesh.shape[m] > 1:
+                vocab.append(m)
+            out_pl.append(Shard(0) if mesh.shape[m] > 1 else pg)
+        elif type(pg) is Shard and type(pi) is Shard and pg.dim == pi.dim:
+            out_pl.append(Partial())
+        elif type(pg) is Shard and pg.dim == grad.dim() - 1 and pi.is_replicate():
+            out_pl.append(Shard(1))
+        else:
+            return None
+    n = math.prod(mesh.shape[m] for m in vocab)
+    if not vocab or V % n:
+        return None
+    Vb = V // n
+    first = _block_start(mesh, vocab, Vb)
+    lg, li = grad._local_tensor, idx._local_tensor
+    local = li - first
+    inside = (local >= 0) & (local < Vb)
+    if pad is not None and pad >= 0:
+        inside = inside & (li != pad)
+    local = torch.where(inside, local, Vb)
+    out = _aten.embedding_dense_backward.default(lg, local, Vb + 1, Vb, False)[:Vb]
+    shape = (V, grad.shape[-1])
+    return _wrap(out, mesh, out_pl, shape, _contiguous_strides(shape))
+
+
 def _is_strided(p) -> bool:
     return type(p).__name__ == "_StridedShard"
 
@@ -707,6 +788,35 @@ def _cut(t, m: int, d: int):
 
 
 _ADDITIVE = {_aten.add.Tensor, _aten.sub.Tensor}
+# elementwise ops without the pointwise tag that DTensor has no strategy for
+_ELEMENTWISE = (_aten.log_sigmoid_backward.default,)
+
+
+def _elementwise_on_blocks(func, args, kwargs):
+    """An elementwise op DTensor has no strategy for (``log_sigmoid_backward``:
+    the mLSTM forget gate's, whose saved input is a partial sum) run on the
+    blocks: its tensor operands of the first's shape placed as the first,
+    partial sums reduced (to a shard where the first is sharded: a
+    reduce-scatter), the output placed alike; others (an empty buffer)
+    passed as their blocks. ``None`` where the first is not a DTensor of
+    shards and replicas."""
+    from torch.distributed.tensor import DTensor, Replicate, Shard
+
+    first = args[0]
+    if not isinstance(first, DTensor) or kwargs:
+        return None
+    pl = [Replicate() if p.is_partial() else p for p in first.placements]
+    if any(not (p.is_replicate() or type(p) is Shard) for p in pl):
+        return None
+    local = []
+    for a in args:
+        if isinstance(a, DTensor):
+            if a.shape == first.shape and tuple(a.placements) != tuple(pl):
+                a = _moved(a, pl)
+            a = a._local_tensor
+        local.append(a)
+    out = func(*local)
+    return _wrap(out, first.device_mesh, pl, first.shape, _contiguous_strides(first.shape))
 
 
 def _pointwise_on_blocks(func, args, kwargs):
@@ -800,6 +910,65 @@ def _pointwise_operands(func, args, kwargs):
     return tuple(out)
 
 
+def _broadcast_on_blocks(func, args, kwargs):
+    """A pointwise op of two DTensors where, on some mesh dim, one is
+    sharded on a dim along which the other, replicated, broadcasts (size 1:
+    Adafactor's outer product of its row and column factors) run on the
+    blocks, the output sharded as each operand is: no data moves. DTensor
+    2.13 places it so; 2.11 gathered the sharded operand (its output 16
+    times a rank's block). ``None`` where no mesh dim is such, or a
+    placement is partial or strided, or the blocks do not line up."""
+    from torch.distributed.tensor import DTensor, Replicate, Shard
+
+    where = [i for i, a in enumerate(args) if isinstance(a, DTensor)]
+    if len(where) != 2 or kwargs or func._schema.is_mutable or len(func._schema.returns) != 1:
+        return None
+    ts = [args[i] for i in where]
+    mesh = ts[0].device_mesh
+    if ts[1].device_mesh != mesh or any(not (p.is_replicate() or type(p) is Shard)
+                                        for t in ts for p in t.placements):
+        return None
+    shape = torch.broadcast_shapes(ts[0].shape, ts[1].shape)
+    nd = len(shape)
+
+    def size(k, i):               # operand k's extent along output dim i (1: broadcast)
+        j = i - (nd - ts[k].dim())
+        return ts[k].shape[j] if j >= 0 else 1
+
+    out_pl, broadcast = [], False
+    for m in range(mesh.ndim):
+        dims = [p.dim + nd - t.dim() if p.is_shard() else None
+                for t, p in ((t, t.placements[m]) for t in ts)]
+        sharded = [d for d in dims if d is not None]
+        if not sharded:
+            out_pl.append(Replicate())
+        elif len(sharded) == 2:
+            if dims[0] != dims[1] or size(0, dims[0]) != size(1, dims[0]):
+                return None
+            out_pl.append(Shard(dims[0]))
+        else:
+            k = 1 - dims.index(sharded[0])
+            if size(k, sharded[0]) != 1:
+                return None
+            broadcast = True
+            out_pl.append(Shard(sharded[0]))
+    if not broadcast:
+        return None
+    local = list(args)
+    for i, t in zip(where, ts):
+        local[i] = t._local_tensor
+    out = func(*local)
+    want = list(shape)
+    for m, p in enumerate(out_pl):
+        if p.is_shard():
+            if want[p.dim] % mesh.shape[m]:
+                return None
+            want[p.dim] //= mesh.shape[m]
+    if list(out.shape) != want:
+        return None
+    return _wrap(out, mesh, out_pl, shape, _contiguous_strides(shape))
+
+
 _SCATTERS = (_aten.scatter.src, _aten.scatter.value, _aten.scatter_add.default)
 
 
@@ -852,6 +1021,28 @@ def _scan_on_blocks(func, args, kwargs):
     out = func(t._local_tensor, *args[1:], **kwargs)
     wrap = lambda o: _wrap(o, t.device_mesh, t.placements, t.shape, _contiguous_strides(t.shape))
     return tuple(map(wrap, out)) if isinstance(out, (tuple, list)) else wrap(out)
+
+
+# ops along some dims, run on the blocks where no mesh dim shards those
+_ALONG_DIMS = (_aten.constant_pad_nd.default, _aten.flip.default)
+
+
+def _flip_on_blocks(func, args, kwargs):
+    """``flip`` of dims no mesh dim shards, run on the blocks, the output
+    placed as the input, partial sums kept (a flip is linear): 2.11 has no
+    rule for it (``cumsum``'s backward flips the mLSTM's gate sums).
+    ``None`` where it does not apply."""
+    from torch.distributed.tensor import DTensor
+
+    t = args[0]
+    if not isinstance(t, DTensor):
+        return None
+    dims = {d % t.dim() for d in args[1]}
+    if any(not (p.is_replicate() or _linear_partial(p)) and
+           (_shard_of(p) is None or _shard_of(p)[0] in dims) for p in t.placements):
+        return None
+    out = func(t._local_tensor, *args[1:], **kwargs)
+    return _wrap(out, t.device_mesh, t.placements, t.shape, _contiguous_strides(t.shape))
 
 
 def _pad_on_blocks(func, args, kwargs):
@@ -999,12 +1190,128 @@ def shard_group_experts(x):
     """(G, E, C, d) MoE dispatch buffers: G→data, E→model (dual-sharded)."""
     if not _STATE["enabled"]:
         return x
-    spec = [None] * x.ndim
-    if x.shape[0] % _size(("data",)) == 0:
+    return _constrain(x, _group_expert_spec(x.shape))
+
+
+def _group_expert_spec(shape) -> list:
+    spec = [None] * len(shape)
+    if shape[0] % _size(("data",)) == 0:
         spec[0] = "data"
-    if x.ndim > 1 and x.shape[1] % _size(("model",)) == 0:
+    if len(shape) > 1 and shape[1] % _size(("model",)) == 0:
         spec[1] = "model"
-    return _constrain(x, spec)
+    return spec
+
+
+class ExpertBlocks:
+    """The MoE's dispatch and combine on each rank's ``(G/·, E/·, C, d)``
+    block, the port's rule for the reference's vmapped scatter and gather
+    under ``shard_group_experts`` (GSPMD never holds the buffer whole, and
+    each group's combine stays local). The arithmetic is the mesh-less
+    layer's (:func:`repro_torch.models.moe.dispatch`, :func:`~repro_torch
+    .models.moe.combine`) on the rank's block of experts; this class places
+    it. The buffer takes the placements :func:`shard_group_experts` names;
+    the tokens and the routing take its group placements, whole on the mesh
+    dims that cut the experts. A rank writes the kept assignments whose
+    expert lies in its block, so the forward dispatch moves no data; the
+    combine reads each assignment's output from the block that holds it (a
+    zero row elsewhere), a partial sum over the expert mesh dims that the
+    caller's :func:`shard_batch` all-reduces (N·d/G a rank). The backward
+    passes mirror them: the tokens' gradient a partial sum over the expert
+    mesh dims, the buffer's gradient written into its block. Integer
+    routing is the caller's, unchanged."""
+
+    def __init__(self, xt, flat_e, pos, keep, num_experts: int, capacity: int, k: int):
+        from torch.distributed.tensor import Replicate, Shard
+        from repro_torch.models import moe
+
+        self.mesh = mesh = xt.device_mesh
+        G, self.Ng, d = xt.shape
+        E, C = num_experts, capacity
+        self.bpl = to_placements(_group_expert_spec((G, E, C, d)), mesh)
+        self.tpl = [Shard(0) if p == Shard(0) else Replicate() for p in self.bpl]
+        self.edims = [m for m, p in enumerate(self.bpl) if p == Shard(1)]
+        self.shape = (G, E, C, d)
+        self.k = k
+        self.El = El = E // math.prod(mesh.shape[m] for m in self.edims)
+        fe, ps, kp = (_moved(t, self.tpl)._local_tensor for t in (flat_e, pos, keep))
+        self.dest = moe.expert_slots(fe, ps, kp, _block_start(mesh, self.edims, El), El, C)
+
+    def dispatch(self, xt):
+        """The ``(G, E, C, d)`` buffer of ``xt`` ``(G, Ng, d)``'s kept
+        assignments, at :func:`shard_group_experts`' placements."""
+        return _ExpertDispatch.apply(xt.redistribute(self.mesh, self.tpl), self)
+
+    def combine(self, out_buf, w):
+        """Each token's k outputs of ``out_buf`` ``(G, E, C, d)`` weighted by
+        ``w`` ``(G, Ng·k)`` and added in k order: ``(G, Ng, d)``, a partial
+        sum over the expert mesh dims."""
+        return _ExpertCombine.apply(_moved(out_buf, self.bpl) if out_buf.placements !=
+                                    tuple(self.bpl) else out_buf,
+                                    w.redistribute(self.mesh, self.tpl), self)
+
+    def wrap_block(self, local):
+        return _wrap(local, self.mesh, self.bpl, self.shape, _contiguous_strides(self.shape))
+
+    def partial_tokens(self, local, shape):
+        from torch.distributed.tensor import Partial
+
+        pl = [Partial() if m in self.edims else p for m, p in enumerate(self.tpl)]
+        return _wrap(local, self.mesh, pl, shape, _contiguous_strides(shape))
+
+
+class _ExpertDispatch(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, xt, blocks):
+        from repro_torch.models import moe
+
+        ctx.blocks = b = blocks
+        return b.wrap_block(moe.dispatch(xt._local_tensor, b.dest, b.k, b.El, b.shape[2]))
+
+    @staticmethod
+    def backward(ctx, g):
+        from repro_torch.models import moe
+
+        b = ctx.blocks
+        gx = moe.dispatch_grad(_moved(g, b.bpl)._local_tensor, b.dest, b.k)
+        return b.partial_tokens(gx, (b.shape[0], b.Ng, b.shape[3])), None
+
+
+class _ExpertCombine(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, out_buf, w, blocks):
+        from repro_torch.models import moe
+
+        b = blocks
+        ob, wl = out_buf._local_tensor, w._local_tensor
+        combined, vals = moe.combine(ob, wl, b.dest, b.k)
+        ctx.blocks, ctx.local_shape = b, ob.shape
+        ctx.save_for_backward(vals, wl)
+        return b.partial_tokens(combined, (b.shape[0], b.Ng, b.shape[3]))
+
+    @staticmethod
+    def backward(ctx, g):
+        from torch.distributed.tensor import Replicate
+        from repro_torch.models import moe
+
+        b = ctx.blocks
+        vals, wl = ctx.saved_tensors
+        whole = [Replicate() if m in b.edims else p for m, p in enumerate(b.tpl)]
+        gl = _moved(g, whole)._local_tensor                           # (Gl, Ng, d)
+        gbuf, gw = moe.combine_grad(gl, vals, wl, b.dest, b.k, ctx.local_shape)
+        return b.wrap_block(gbuf), b.partial_tokens(gw, (b.shape[0], gw.shape[1])), None
+
+
+def expert_blocks(xt, flat_e, pos, keep, num_experts: int, capacity: int, k: int):
+    """An :class:`ExpertBlocks` for the MoE's tokens ``xt`` ``(G, Ng, d)``
+    and routes (each ``(G, Ng·k)``) under an enabled mesh context of more
+    than one rank; ``None`` otherwise (the caller's own dispatch: without a
+    mesh, and on the 1 × 1 smoke mesh, where it is bitwise the mesh-less
+    run's)."""
+    from torch.distributed.tensor import DTensor
+
+    if not _STATE["enabled"] or not isinstance(xt, DTensor) or xt.device_mesh.size() == 1:
+        return None
+    return ExpertBlocks(xt, flat_e, pos, keep, num_experts, capacity, k)
 
 
 def shard_attention(q, k, v):
@@ -1109,6 +1416,21 @@ def shard_like(x, ref):
     return x.redistribute(ref.device_mesh, ref.placements)
 
 
+def placed_as(x, ref):
+    """``x`` redistributed to ``ref``'s placements, ``ref``'s partial sums
+    read as replicas (two DTensors of one rank); else ``x``. The port's own
+    hook: Adafactor's factored statistics are combined in the layout their
+    gradient's reductions give (the state's spec, the reference's, is
+    another: mixing the two leaves each version of DTensor to pick where
+    the gradient-sized update goes, and one gathers it whole)."""
+    from torch.distributed.tensor import DTensor, Replicate
+
+    if not isinstance(x, DTensor) or not isinstance(ref, DTensor) or x.dim() != ref.dim():
+        return x
+    pl = [Replicate() if p.is_partial() else p for p in ref.placements]
+    return x if list(x.placements) == pl else x.redistribute(ref.device_mesh, pl)
+
+
 class _VocabParallelLL(torch.autograd.Function):
     """Each token's log-likelihood ``picked − logsumexp`` from its rank's
     block of the logits, the vocabulary cut on the mesh dims ``vocab``
@@ -1121,12 +1443,8 @@ class _VocabParallelLL(torch.autograd.Function):
 
         mesh, pl = lg.device_mesh, list(lg.placements)
         local, lab = lg._local_tensor, labels._local_tensor
-        V, Vb = lg.shape[-1], local.shape[-1]
-        coord = mesh.get_coordinate() or [0] * mesh.ndim
-        first = 0
-        for m in vocab:                 # this rank's first vocabulary row
-            first = first * mesh.shape[m] + coord[m]
-        first *= Vb
+        Vb = local.shape[-1]
+        first = _block_start(mesh, vocab, Vb)       # this rank's first vocabulary row
 
         def reduced(t, op):
             part = [Partial(op) if m in vocab else p for m, p in enumerate(out_pl)]
