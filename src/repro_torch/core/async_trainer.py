@@ -43,6 +43,7 @@ from repro_torch.core.engine import get_engine
 from repro_torch.core.sgns import SGNSConfig
 from repro_torch.device import resolve_device
 from repro_torch.kernels.sgns_fused import seed_tensor
+from repro_torch.spans import span
 
 
 def make_worker_epoch(cfg: SGNSConfig, total_steps: int, engine="fused"):
@@ -56,25 +57,29 @@ def make_worker_epoch(cfg: SGNSConfig, total_steps: int, engine="fused"):
     step = get_engine(engine).make_step(cfg, total_steps)
 
     def epoch_fn(params, centers, contexts, neg_table, keys, step0):
-        device = params["W"].device
-        n, S, _ = centers.shape
-        seeds = seed_tensor(prng.step_keys(keys, S).transpose(1, 0, 2),
-                            device)                       # (S, n, 2)
-        # step-major, so each step's (n, B) slice is contiguous
-        cen = centers.to(device).transpose(0, 1).contiguous()
-        ctx = contexts.to(device).transpose(0, 1).contiguous()
-        # the kernels index the tables with these ids unchecked: one
-        # host sync per chunk keeps a bad chunk from reading out of bounds
-        lo, hi = torch.stack([torch.minimum(cen.min(), ctx.min()),
-                              torch.maximum(cen.max(), ctx.max())]).tolist()
-        if lo < 0 or hi >= cfg.vocab_size:
-            raise ValueError(f"chunk ids span [{lo}, {hi}], outside the "
-                             f"vocabulary [0, {cfg.vocab_size})")
-        losses = torch.empty((S, n), dtype=torch.float32, device=device)
-        for i in range(S):
-            params, losses[i] = step(params, cen[i], ctx[i], neg_table,
-                                     seeds[i], step0 + i)
-        return params, losses.T
+        with span("repro_torch.epoch"):
+            device = params["W"].device
+            n, S, _ = centers.shape
+            with span("repro_torch.epoch.keys"):
+                seeds = seed_tensor(prng.step_keys(keys, S).transpose(1, 0, 2),
+                                    device)                   # (S, n, 2)
+            with span("repro_torch.epoch.stage"):
+                # step-major, so each step's (n, B) slice is contiguous
+                cen = centers.to(device).transpose(0, 1).contiguous()
+                ctx = contexts.to(device).transpose(0, 1).contiguous()
+            with span("repro_torch.epoch.bounds"):
+                # the kernels index the tables with these ids unchecked: one
+                # host sync per chunk keeps a bad chunk from reading out of bounds
+                lo, hi = torch.stack([torch.minimum(cen.min(), ctx.min()),
+                                      torch.maximum(cen.max(), ctx.max())]).tolist()
+                if lo < 0 or hi >= cfg.vocab_size:
+                    raise ValueError(f"chunk ids span [{lo}, {hi}], outside the "
+                                     f"vocabulary [0, {cfg.vocab_size})")
+            losses = torch.empty((S, n), dtype=torch.float32, device=device)
+            for i in range(S):
+                params, losses[i] = step(params, cen[i], ctx[i], neg_table,
+                                         seeds[i], step0 + i)
+            return params, losses.T
 
     return epoch_fn
 

@@ -42,6 +42,7 @@ from repro_torch.data.vocab import Vocab, build_vocab, union_vocab, UNK
 from repro_torch.data.pipeline import (
     HostShardPlan, make_worker_streams, prefetch_chunks)
 from repro_torch.device import resolve_device
+from repro_torch.spans import span
 
 # PRNG streams: fold_in(fold_in(PRNGKey(seed), stream), epoch), as in the
 # reference (its arithmetic-seed predecessors collided across runs).
@@ -323,7 +324,7 @@ def train_submodels(
     losses, chunk_losses = [], []
     wait_s = 0.0            # host time blocked on the next chunk
     t_train0 = time.perf_counter()
-    with torch.profiler.record_function("repro_torch.train_loop"):
+    with span("repro_torch.train_loop"):
         for epoch in range(epochs):
             ep_key = _epoch_key(seed, _STREAM_ASYNC_DATA, epoch)
             ep_losses = []

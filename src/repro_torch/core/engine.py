@@ -71,6 +71,7 @@ from dataclasses import dataclass, replace
 from repro_torch.core import sgns
 from repro_torch.core.sgns import SGNSConfig
 from repro_torch.data.pairs import negative_sampler_fn
+from repro_torch.spans import span
 
 
 @dataclass(frozen=True)
@@ -127,9 +128,11 @@ class DenseEngine(UpdateEngine):
 
     def make_step(self, cfg: SGNSConfig, total_steps: int):
         def step(params, centers, contexts, neg_table, seeds, step_idx):
-            negs = self.sample(neg_table, seeds, (centers.shape[1], cfg.negatives))
+            with span("repro_torch.step.draw"):
+                negs = self.sample(neg_table, seeds, (centers.shape[1], cfg.negatives))
             lr = sgns.linear_lr(step_idx, total_steps, cfg)
-            loss = sgns.train_step_dense_(params, centers, contexts, negs, lr)
+            with span("repro_torch.step.update"):
+                loss = sgns.train_step_dense_(params, centers, contexts, negs, lr)
             return params, sgns.worker_mean(loss)
 
         return step
@@ -151,10 +154,12 @@ class SparseEngine(UpdateEngine):
         row_grads = self.row_grads()
 
         def step(params, centers, contexts, neg_table, seeds, step_idx):
-            negs = self.sample(neg_table, seeds, (centers.shape[1], cfg.negatives))
+            with span("repro_torch.step.draw"):
+                negs = self.sample(neg_table, seeds, (centers.shape[1], cfg.negatives))
             lr = sgns.linear_lr(step_idx, total_steps, cfg)
-            loss = sgns.train_step_sparse_(params, centers, contexts, negs, lr,
-                                           row_grads=row_grads)
+            with span("repro_torch.step.update"):
+                loss = sgns.train_step_sparse_(params, centers, contexts, negs, lr,
+                                               row_grads=row_grads)
             return params, sgns.worker_mean(loss)
 
         return step
@@ -200,9 +205,10 @@ class FusedEngine(UpdateEngine):
 
         def step(params, centers, contexts, neg_table, seeds, step_idx):
             lr = sgns.linear_lr(step_idx, total_steps, cfg)
-            params, loss, _ = sgns_fused_step(
-                params, centers, contexts, neg_table, seeds, float(lr),
-                negatives=cfg.negatives)
+            with span("repro_torch.step.update"):
+                params, loss, _ = sgns_fused_step(
+                    params, centers, contexts, neg_table, seeds, float(lr),
+                    negatives=cfg.negatives)
             return params, sgns.worker_mean(loss)
 
         return step
@@ -235,10 +241,11 @@ class FusedHBMEngine(FusedEngine):
 
         def step(params, centers, contexts, neg_table, seeds, step_idx):
             lr = sgns.linear_lr(step_idx, total_steps, cfg)
-            params, loss, _ = sgns_fused_hbm_step(
-                params, centers, contexts, neg_table, seeds, float(lr),
-                negatives=cfg.negatives, block_pairs=self.block_pairs,
-                sequential=self.sequential)
+            with span("repro_torch.step.update"):
+                params, loss, _ = sgns_fused_hbm_step(
+                    params, centers, contexts, neg_table, seeds, float(lr),
+                    negatives=cfg.negatives, block_pairs=self.block_pairs,
+                    sequential=self.sequential)
             return params, sgns.worker_mean(loss)
 
         return step
@@ -280,9 +287,10 @@ class FusedPipeEngine(FusedHBMEngine):
 
         def step(params, centers, contexts, neg_table, seeds, step_idx):
             lr = sgns.linear_lr(step_idx, total_steps, cfg)
-            params, loss, _ = fn(params, centers, contexts, neg_table, seeds, float(lr),
-                                 negatives=cfg.negatives, block_pairs=self.block_pairs,
-                                 **dials)
+            with span("repro_torch.step.update"):
+                params, loss, _ = fn(params, centers, contexts, neg_table, seeds,
+                                     float(lr), negatives=cfg.negatives,
+                                     block_pairs=self.block_pairs, **dials)
             return params, sgns.worker_mean(loss)
 
         return step

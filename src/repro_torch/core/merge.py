@@ -49,6 +49,7 @@ import torch
 
 from repro_torch import prng
 from repro_torch.device import resolve_device
+from repro_torch.spans import span
 
 # TF32 keeps ~3 decimal digits; the merge is held to float32.
 torch.backends.cuda.matmul.allow_tf32 = False
@@ -205,8 +206,10 @@ def _alir_loop(Y0, models, mask, max_iters: int, tol: float,
         if done:
             disp = prev
         else:
-            Y, disp, _ = _alir_iteration(Y, models, mask, gram_shards)
-        done = done or bool(torch.abs(prev - disp) < tol)
+            # the convergence test's host sync closes the round's span
+            with span("repro_torch.merge.round"):
+                Y, disp, _ = _alir_iteration(Y, models, mask, gram_shards)
+                done = bool(torch.abs(prev - disp) < tol)
         prev = disp
         disps.append(disp)
     return Y, torch.stack(disps)
@@ -217,12 +220,13 @@ def alir_init(stacked: StackedModels, out_dim: int, init: str, key):
     "pca" — PCA on intersection rows, random elsewhere (init ii)."""
     n, V, d = stacked.models.shape
     device = stacked.models.device
-    if init == "random":
-        return 0.1 * prng.normal(key, (V, out_dim), device=device)
-    if init == "pca":
-        pca_emb, valid = _merge_pca(stacked, out_dim)
-        rnd = 0.1 * prng.normal(key, (V, out_dim), device=device)
-        return torch.where(valid[:, None], pca_emb, rnd)
+    with span("repro_torch.merge.init"):
+        if init == "random":
+            return 0.1 * prng.normal(key, (V, out_dim), device=device)
+        if init == "pca":
+            pca_emb, valid = _merge_pca(stacked, out_dim)
+            rnd = 0.1 * prng.normal(key, (V, out_dim), device=device)
+            return torch.where(valid[:, None], pca_emb, rnd)
     raise ValueError(f"unknown init {init!r}")
 
 
@@ -250,8 +254,9 @@ def alir_transforms(stacked: StackedModels, Y: torch.Tensor,
                     shard: int = 1) -> torch.Tensor:
     """Per-sub-model orthogonal maps ``W_i`` onto consensus ``Y``
     ``(n, d, d)``: one ALiR round's Procrustes step, Y unchanged."""
-    _, _, Ws = _alir_iteration(Y, stacked.models * stacked.mask[..., None],
-                               stacked.mask, shard)
+    with span("repro_torch.merge.maps"):
+        _, _, Ws = _alir_iteration(Y, stacked.models * stacked.mask[..., None],
+                                   stacked.mask, shard)
     return Ws
 
 
@@ -506,11 +511,12 @@ class AlirMerger(Merger):
               worker_ids: tuple[int, ...] | None = None,
               Y0: torch.Tensor | None = None) -> MergeResult:
         cfg = self.config
-        stacked = stacked.to(self.device)
-        Y, valid, disps = _alir_solve(
-            stacked, out_dim=cfg.out_dim, init=cfg.init, max_iters=cfg.max_iters,
-            tol=cfg.tol, key=self.key, Y0=Y0, shard=cfg.shard)
-        Ws = alir_transforms(stacked, Y, shard=cfg.shard)
+        with span("repro_torch.merge"):
+            stacked = stacked.to(self.device)
+            Y, valid, disps = _alir_solve(
+                stacked, out_dim=cfg.out_dim, init=cfg.init, max_iters=cfg.max_iters,
+                tol=cfg.tol, key=self.key, Y0=Y0, shard=cfg.shard)
+            Ws = alir_transforms(stacked, Y, shard=cfg.shard)
         return MergeResult(worker_ids=_result_ids(stacked, worker_ids), emb=Y,
                            valid=valid, disps=disps, mask=stacked.mask, transforms=Ws)
 

@@ -31,6 +31,7 @@ import torch.nn.functional as F
 
 from repro_torch import prng
 from repro_torch.device import resolve_device
+from repro_torch.spans import span
 
 
 @dataclass(frozen=True)
@@ -242,15 +243,16 @@ def worker_mean(loss: torch.Tensor) -> torch.Tensor:
     many workers share the launch; this does not, so a worker's chunk
     losses are bitwise the same when its process trains a block of the
     workers (multi-process training) or one alone (elastic)."""
-    B = loss.shape[1]
-    x = loss
-    width = 1 << max(B - 1, 0).bit_length()
-    if width != B:
-        x = F.pad(x, (0, width - B))
-    while x.shape[1] > 1:
-        h = x.shape[1] // 2
-        x = x[:, :h] + x[:, h:]
-    return x[:, 0] / B
+    with span("repro_torch.step.loss"):
+        B = loss.shape[1]
+        x = loss
+        width = 1 << max(B - 1, 0).bit_length()
+        if width != B:
+            x = F.pad(x, (0, width - B))
+        while x.shape[1] > 1:
+            h = x.shape[1] // 2
+            x = x[:, :h] + x[:, h:]
+        return x[:, 0] / B
 
 
 def linear_lr(step: int, total_steps: int, cfg: SGNSConfig) -> np.float32:
